@@ -1,0 +1,1052 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (tigerbeetle_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases (each failure exits non-zero):
+1. environment: torch, CUDA, the card's name and power limit; build the
+   kernels from `tigerbeetle_tpu_torch/csrc/`; the card's dependent-load
+   latency (a pointer chase), the unit of the serial kernels' bounds;
+2. every kernel against its plain PyTorch version on the card, at a reduced
+   table geometry (2^14 account / 2^16 transfer slots): result codes and
+   every state tensor must be bit-identical, on batches that exercise every
+   failure path and the fault gates (overflow, capacity, sticky fault,
+   exhausted probe windows);
+3. the main path at deployment size: StateMachine over
+   DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
+   the reference benchmark's traffic (10,000 accounts, batches of 8190,
+   uniform random accounts, reversed ids), a two-phase pair, a request with
+   linked chains (one broken) and lookups; every account holds the balances
+   the requests give, the reply bytes of the two-phase and linked requests
+   equal the port's own plain versions on the CPU, and every kernel ran;
+4. every kernel against its plain version on copies of the main path's
+   state, on batches of the shapes the main path gives it (codes and every
+   state leaf equal); the kernel table's max_abs_err comes from here;
+5. a torch.profiler trace of more main-path requests (the card's busy and
+   idle share) and a cProfile of the host's share;
+6. each kernel timed on the main path's state at its main-path shape,
+   beside its plain version and its bound.
+The last two lines are the kernel table and {"ok": true, "device": ...}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 20260217
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# ----------------------------------------------------------------------
+# batches (numpy wire rows, from the seed)
+# ----------------------------------------------------------------------
+
+
+def accounts(types, ids, ledger=2, code=1, flags=0):
+    a = np.zeros(len(ids), dtype=types.ACCOUNT_DTYPE)
+    a["id_lo"] = np.asarray(ids, dtype=np.uint64)
+    a["ledger"] = ledger
+    a["code"] = code
+    a["flags"] = flags
+    return a
+
+
+def transfers(types, ids, dr, cr, amount, ledger=2, code=1, flags=0, pending_id=0):
+    t = np.zeros(len(ids), dtype=types.TRANSFER_DTYPE)
+    t["id_lo"] = np.asarray(ids, dtype=np.uint64)
+    t["debit_account_id_lo"] = dr
+    t["credit_account_id_lo"] = cr
+    t["amount_lo"] = amount
+    t["pending_id_lo"] = pending_id
+    t["ledger"] = ledger
+    t["code"] = code
+    t["flags"] = flags
+    return t
+
+
+def random_pairs(rng, n, n_accounts):
+    dr = rng.integers(1, n_accounts + 1, n)
+    cr = rng.integers(1, n_accounts, n)
+    cr = cr + (cr >= dr)  # uniform over the other accounts
+    return dr.astype(np.uint64), cr.astype(np.uint64)
+
+
+# ----------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+
+def max_abs_diff(a, b) -> int:
+    """The largest |a - b| over all elements, widened to int64; 0 when the
+    tensors are equal (tested first: table-sized leaves are compared whole)."""
+    import torch
+
+    if a.shape != b.shape:
+        return 1 << 62
+    if torch.equal(a, b):
+        return 0
+    d = a != b
+    return int((a[d].to(torch.int64) - b[d].to(torch.int64)).abs().max())
+
+
+def compare_states(sa, sb) -> int:
+    return max(max_abs_diff(sa[k], sb[k]) for k in sa)
+
+
+def clone_state(s):
+    return {k: v.clone() for k, v in s.items()}
+
+
+def seeded_state(L, types, process, rng, device):
+    """A small ledger: accounts on two ledgers, committed transfers, open
+    pendings, and a few tombstones from a rolled-back chain."""
+    ledger = L.DeviceLedger(process, device="cpu")
+    accts = accounts(types, np.arange(1, 3001))
+    accts["ledger"][2000:] = 3  # ledger mismatches
+    ledger.execute_dense(types.Operation.create_accounts, 10_000, accts)
+    ts = 10_000
+    dr, cr = random_pairs(rng, 4000, 1999)
+    t = transfers(types, np.arange(100_001, 104_001), dr, cr, rng.integers(1, 1000, 4000))
+    ts += 10_000
+    ledger.execute_dense(types.Operation.create_transfers, ts, t)
+    dr, cr = random_pairs(rng, 3000, 1999)
+    p = transfers(types, np.arange(200_001, 203_001), dr, cr, rng.integers(1, 1000, 3000),
+                  flags=2)
+    ts += 10_000
+    ledger.execute_dense(types.Operation.create_transfers, ts, p)
+    # a broken chain leaves tombstones in the transfer table
+    chain = transfers(types, [300_001, 300_002, 300_003], [1, 2, 3], [4, 5, 6], [5, 5, 0],
+                      flags=[1, 1, 0])
+    ts += 10_000
+    ledger.mode = "serial"
+    ledger.execute_dense(types.Operation.create_transfers, ts, chain)
+    ledger.check_fault()
+    return {k: v.to(device) for k, v in ledger.state.items()}, ts
+
+
+def exhausted(torch, state, rng, tombs):
+    """A copy of `state` whose transfer table has no empty slot left: every
+    empty row gets random words, then `tombs` random rows are tombstoned."""
+    out = clone_state(state)
+    rows = out["xfer_rows"].cpu().numpy()
+    empty = np.nonzero((rows[:-1, :4] == 0).all(1))[0]
+    rows[empty] = rng.integers(-(1 << 31), 1 << 31, (len(empty), 32)).astype(np.int32)
+    rows[rng.choice(len(rows) - 1, tombs, replace=False)] = -1
+    out["xfer_rows"].copy_(torch.from_numpy(rows))
+    return out
+
+
+def fast_transfer_batch(types, rng, B, pv: bool):
+    dr, cr = random_pairs(rng, B, 1999)
+    amt = rng.integers(1, 1 << 40, B).astype(np.uint64)
+    flags = np.where(rng.random(B) < 0.3, 2, 0).astype(np.uint16)
+    t = transfers(types, np.arange(500_001, 500_001 + B), dr, cr, amt, flags=flags)
+    k = B // 10
+    t["debit_account_id_lo"][0:k // 2] += 1_000_000  # debit_account_not_found
+    t["credit_account_id_lo"][k // 2:k] += 1_000_000  # credit_account_not_found
+    t["credit_account_id_lo"][k:2 * k] = rng.integers(2001, 3001, k)  # ledger mismatch
+    t["id_lo"][2 * k:3 * k] = np.arange(100_001, 100_001 + k)  # exists (with differences)
+    t["amount_lo"][3 * k:3 * k + 10] = 0  # amount_must_not_be_zero
+    t["id_lo"][3 * k + 10] = 0  # id_must_not_be_zero
+    t["timeout"][3 * k + 11] = 7  # timeout without pending
+    if pv:
+        j = np.arange(4 * k, 4 * k + 2000)  # post/void of registered pendings
+        t["flags"][j] = np.where(j % 2, 4, 8)
+        t["pending_id_lo"][j] = 200_001 + (j - 4 * k)
+        t["debit_account_id_lo"][j] = 0
+        t["credit_account_id_lo"][j] = 0
+        t["ledger"][j] = 0
+        t["code"][j] = 0
+        t["amount_lo"][j[::3]] = 0
+        t["pending_id_lo"][j[-20:]] = 999_999_999  # pending_transfer_not_found
+        t["pending_id_lo"][j[-40:-20]] = 100_001 + np.arange(20)  # not pending
+    return t
+
+
+def serial_transfer_batch(types, rng, n):
+    """Linked chains (one broken), balancing flags, duplicate ids, in-batch
+    post/void and plain transfers."""
+    dr, cr = random_pairs(rng, n, 1999)
+    t = transfers(types, np.arange(600_001, 600_001 + n), dr, cr,
+                  rng.integers(1, 500, n).astype(np.uint64))
+    t["flags"][0:6] = [1, 1, 0, 1, 1, 0]  # two chains
+    t["amount_lo"][5] = 0  # breaks the second chain
+    t["flags"][10:14] = [16, 32, 16, 32]  # balancing
+    t["amount_lo"][12] = 0
+    t["id_lo"][20:24] = 600_001 + 30  # duplicate ids
+    t["flags"][40] = 2  # pending, posted in the same batch
+    t["flags"][41] = 4
+    t["pending_id_lo"][41] = t["id_lo"][40]
+    t["flags"][42] = 8  # void of an already-posted pending
+    t["pending_id_lo"][42] = t["id_lo"][40]
+    t["flags"][43] = 8  # void of a registered pending
+    t["pending_id_lo"][43] = 202_001
+    for j in (41, 42, 43):
+        t["debit_account_id_lo"][j] = 0
+        t["credit_account_id_lo"][j] = 0
+        t["ledger"][j] = 0
+        t["code"][j] = 0
+        t["amount_lo"][j] = 0
+    t["flags"][n - 1] = 1  # chain left open at the end
+    return t
+
+
+def account_batch(types, rng, B, base, serial: bool):
+    a = accounts(types, np.arange(base, base + B))
+    k = max(B // 16, 4)
+    a["id_lo"][0:k] = np.arange(1, k + 1)  # exists (ledger differs for some)
+    a["ledger"][0:k:2] = 3
+    a["reserved"][k] = 1
+    a["flags"][k + 1] = 1 << 5  # reserved flag
+    a["flags"][k + 2] = 6  # mutually exclusive limits
+    a["ledger"][k + 3] = 0
+    a["code"][k + 4] = 0
+    a["id_lo"][k + 5] = 0
+    if serial:
+        a["flags"][k + 6:k + 9] = [1, 1, 0]  # broken chain: its last member exists
+        a["id_lo"][k + 8] = 5
+        a["flags"][k + 10:k + 12] = [1, 0]  # healthy chain
+        a["id_lo"][k + 13] = a["id_lo"][k + 14]  # duplicate ids
+    return a
+
+
+def phase_kernels(torch, L, types, constants, dev):
+    """K1-K4 against their plain versions on the card, on every failure
+    path and the fault gates, at a reduced geometry."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    rng = np.random.default_rng(SEED)
+    base, ts = seeded_state(L, types, process, rng, dev)
+
+    def check(name, run_kernel, run_plain, start=None):
+        start = base if start is None else start
+        sk, sp = clone_state(start), clone_state(start)
+        rk = run_kernel(sk)
+        torch.cuda.synchronize()
+        rp = run_plain(sp)
+        torch.cuda.synchronize()
+        if not isinstance(rk, tuple):
+            rk, rp = (rk,), (rp,)
+        err = max(max(max_abs_diff(a, b) for a, b in zip(rk, rp)), compare_states(sk, sp))
+        hit = ""
+        if rp[0].dtype == torch.int32:
+            codes = np.bincount(rp[0].cpu().numpy().astype(np.int64))
+            hit = f" codes={ {i: int(c) for i, c in enumerate(codes) if c} }"
+        log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])}{hit}")
+        if err != 0:
+            fail(f"{name} differs from its plain version")
+
+    B = 8190
+    ids = np.concatenate([np.arange(1, 6001), np.arange(7_000_000, 7_000_000 + B - 6001), [0]])
+    key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+    check("K1 lookup",
+          lambda s: K.lookup(key4, s["acct_rows"], a_log2),
+          lambda s: L.table_lookup_plain(key4, s["acct_rows"], a_log2))
+
+    for serial in (False, True):
+        n = 512 if serial else 4096  # 2^14 slots hold 8192 live accounts
+        arr = account_batch(types, rng, n, 1_000_000, serial)
+        rows = L.accounts_to_batch(arr, dev)["rows"]
+        name = "K2 commit_accounts (serial)" if serial else "K2 commit_accounts (fast)"
+        kern = K.commit_accounts_serial if serial else K.commit_accounts_fast
+        plain = L.commit_accounts_serial_plain if serial else L.commit_accounts_fast_plain
+        check(name,
+              lambda s: kern(s, rows, n, ts + 10_000, a_log2),
+              lambda s: plain(s, rows, n, ts + 10_000, a_log2))
+
+    for pv in (False, True):
+        arr = fast_transfer_batch(types, rng, B, pv)
+        rows = L.transfers_to_batch(arr, dev)["rows"]
+        mask = torch.from_numpy(rng.random(B) < 0.8).to(dev) if pv else None
+        check("K3 commit_transfers (fast_pv, masked)" if pv else "K3 commit_transfers (fast)",
+              lambda s: K.commit_transfers_fast(s, rows, mask, B, ts + 10_000, a_log2,
+                                                t_log2, pv),
+              lambda s: L.commit_transfers_fast_plain(s, rows, B, ts + 10_000, a_log2,
+                                                      t_log2, pv, mask))
+
+    n = 512
+    arr = serial_transfer_batch(types, rng, n)
+    rows = L.transfers_to_batch(arr, dev)["rows"]
+    tsv = L.batch_timestamps(ts + 10_000, n, n, dev)
+    check("K4 commit_transfers (serial)",
+          lambda s: K.commit_transfers_serial(s, rows, tsv, n, a_log2, t_log2),
+          lambda s: L.commit_transfers_serial_plain(s, rows, tsv, n, a_log2, t_log2))
+
+    # the fault gates: the overflow backstop, the load-factor guard and the
+    # sticky fault must stop both versions the same way, before any write
+    arr = transfers(types, [800_001, 800_002], [1, 1], [2, 2], [0, 0], flags=[2, 0])
+    arr["amount_hi"] = 1 << 63  # 2^127 pending + 2^127 posted: dp + dpo overflows
+    rows = L.transfers_to_batch(arr, dev)["rows"]
+    check("K3 commit_transfers (overflow backstop)",
+          lambda s: K.commit_transfers_fast(s, rows, None, 2, ts + 20_000, a_log2, t_log2,
+                                            False),
+          lambda s: L.commit_transfers_fast_plain(s, rows, 2, ts + 20_000, a_log2, t_log2,
+                                                  False))
+    full = clone_state(base)
+    full["xfer_used_slots"].fill_((1 << t_log2) // 2 - 8)
+    rows = L.transfers_to_batch(serial_transfer_batch(types, rng, 64), dev)["rows"]
+    tsv = L.batch_timestamps(ts + 30_000, 64, 64, dev)
+    check("K4 commit_transfers (serial, capacity gate)",
+          lambda s: K.commit_transfers_serial(s, rows, tsv, 64, a_log2, t_log2),
+          lambda s: L.commit_transfers_serial_plain(s, rows, tsv, 64, a_log2, t_log2),
+          start=full)
+    # windows with no empty slot: lookups do not resolve; the fast commit
+    # faults before writing, the serial scan goes on (state marked corrupt)
+    full = exhausted(torch, base, rng, tombs=4000)
+    ids = np.concatenate([np.arange(100_001, 104_001), np.arange(8_000_000, 8_000_000 + 4190)])
+    key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+    check("K1 lookup (exhausted windows)",
+          lambda s: K.lookup(key4, s["xfer_rows"], t_log2),
+          lambda s: L.table_lookup_plain(key4, s["xfer_rows"], t_log2), start=full)
+    rows = L.transfers_to_batch(fast_transfer_batch(types, rng, B, False), dev)["rows"]
+    check("K3 commit_transfers (exhausted windows)",
+          lambda s: K.commit_transfers_fast(s, rows, None, B, ts + 50_000, a_log2, t_log2,
+                                            False),
+          lambda s: L.commit_transfers_fast_plain(s, rows, B, ts + 50_000, a_log2, t_log2,
+                                                  False), start=full)
+    rows = L.transfers_to_batch(serial_transfer_batch(types, rng, 256), dev)["rows"]
+    tsv = L.batch_timestamps(ts + 60_000, 256, 256, dev)
+    check("K4 commit_transfers (serial, exhausted windows)",
+          lambda s: K.commit_transfers_serial(s, rows, tsv, 256, a_log2, t_log2),
+          lambda s: L.commit_transfers_serial_plain(s, rows, tsv, 256, a_log2, t_log2),
+          start=full)
+    faulted = clone_state(base)
+    faulted["fault"].fill_(1)
+    arr = account_batch(types, rng, 256, 2_000_000, False)
+    rows = L.accounts_to_batch(arr, dev)["rows"]
+    check("K2 commit_accounts (fast, sticky fault)",
+          lambda s: K.commit_accounts_fast(s, rows, 256, ts + 40_000, a_log2),
+          lambda s: L.commit_accounts_fast_plain(s, rows, 256, ts + 40_000, a_log2),
+          start=faulted)
+
+
+def mixed_batches(types, rng, n_batches, n):
+    """Random traffic over every tier: limit accounts, pendings and their
+    posts/voids (earlier and same batch), linked chains, balancing flags,
+    duplicate ids and invalid events."""
+    Op = types.Operation
+    acc = accounts(types, np.arange(1, 401))
+    acc["flags"][rng.random(400) < 0.1] = 2  # debits_must_not_exceed_credits
+    acc["flags"][100:102] = [1, 0]
+    yield Op.create_accounts, acc
+    pendings = []
+    next_id = 10_000_000
+    for _ in range(n_batches):
+        dr, cr = random_pairs(rng, n, 400)
+        t = transfers(types, np.arange(next_id, next_id + n), dr, cr,
+                      rng.integers(1, 200, n).astype(np.uint64))
+        next_id += n
+        roll = rng.random(n)
+        t["flags"][roll < 0.15] = 2  # pending
+        pv = (roll >= 0.15) & (roll < 0.25)
+        pool = np.array(pendings + list(t["id_lo"][roll < 0.15][:8]), dtype=np.uint64)
+        if len(pool):
+            t["flags"][pv] = np.where(rng.random(pv.sum()) < 0.5, 4, 8)
+            t["pending_id_lo"][pv] = pool[rng.integers(0, len(pool), pv.sum())]
+            for f in ("debit_account_id_lo", "credit_account_id_lo", "ledger", "code"):
+                t[f][pv] = 0
+            t["amount_lo"][pv & (rng.random(n) < 0.5)] = 0
+        t["flags"][(roll >= 0.25) & (roll < 0.30)] = rng.choice([16, 32], 1)[0]
+        chains = np.nonzero((roll >= 0.30) & (roll < 0.36))[0]
+        t["flags"][chains[chains < n - 1]] |= 1
+        dups = np.nonzero((roll >= 0.36) & (roll < 0.40))[0]
+        t["id_lo"][dups] = t["id_lo"][rng.integers(0, n, len(dups))]
+        bad = np.nonzero((roll >= 0.40) & (roll < 0.44))[0]
+        t["amount_lo"][bad[::2]] = 0
+        t["debit_account_id_lo"][bad[1::2]] = 999_999
+        pendings += list(t["id_lo"][t["flags"] == 2])
+        yield Op.create_transfers, t
+
+
+def phase_ledgers(torch, L, types, constants, dev):
+    """DeviceLedger on the card against DeviceLedger on the CPU (plain
+    versions), batch by batch, on mixed traffic: codes and every leaf."""
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    gpu = L.DeviceLedger(process, device=dev)
+    cpu = L.DeviceLedger(process, device="cpu")
+    ts = 10**9
+    for op, arr in mixed_batches(types, np.random.default_rng(SEED + 3), 8, 512):
+        ts += len(arr)
+        dg = gpu.execute_dense(op, ts, arr)
+        dc = cpu.execute_dense(op, ts, arr)
+        if dg != dc:
+            fail(f"{op.name}: codes differ between the card and the CPU")
+        err = compare_states({k: v.cpu() for k, v in gpu.state.items()}, cpu.state)
+        if err:
+            fail(f"{op.name}: state differs between the card and the CPU")
+    if gpu.hazards.plan_stats != cpu.hazards.plan_stats:
+        fail("plans differ")
+    log(f"  8 mixed batches of 512: codes and every leaf equal; plans "
+        f"{gpu.hazards.plan_stats}")
+
+
+# ----------------------------------------------------------------------
+# phase 3: the main path
+# ----------------------------------------------------------------------
+
+N_ACCOUNTS = 10_000
+N_REQUESTS = 64
+
+
+def main_path_requests(types, rng):
+    """The requests of the main path, as (operation, body) pairs."""
+    B = 8190
+    Op = types.Operation
+    reqs = []
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    acc["flags"][B + 100:B + 102] = [1, 0]  # a linked pair: this request commits serially
+    reqs.append(("accounts", Op.create_accounts, acc[:B].tobytes()))
+    reqs.append(("accounts", Op.create_accounts, acc[B:].tobytes()))
+    total = N_REQUESTS * B
+    next_id = 1_000_000_000 + total  # reversed id order (src/benchmark.zig id_order)
+    for _ in range(N_REQUESTS):
+        ids = np.arange(next_id, next_id - B, -1)
+        next_id -= B
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        amt = rng.integers(1, 1_000_000, B).astype(np.uint64)
+        reqs.append(("transfers", Op.create_transfers,
+                     transfers(types, ids, dr, cr, amt).tobytes()))
+    # two-phase pair: pendings, then posts and voids of every one of them
+    pend_ids = np.arange(2_000_000_001, 2_000_000_001 + B)
+    dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+    pend = transfers(types, pend_ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64),
+                     flags=2)
+    reqs.append(("pending", Op.create_transfers, pend.tobytes()))
+    res = transfers(types, np.arange(3_000_000_001, 3_000_000_001 + B), 0, 0, 0,
+                    ledger=0, code=0, flags=np.where(np.arange(B) % 2, 4, 8),
+                    pending_id=pend_ids)
+    reqs.append(("resolve", Op.create_transfers, res.tobytes()))
+    # linked chains of three, every tenth chain broken by a zero amount
+    lk = linked_request(types, rng, np.arange(4_000_000_001, 4_000_000_001 + B), 600)
+    reqs.append(("linked", Op.create_transfers, lk.tobytes()))
+    return reqs
+
+
+def run_requests(sm, reqs, Op, t0=10**12):
+    """Commit every request through StateMachine, one at a time; returns
+    the replies and the seconds each create_transfers request of the
+    benchmark traffic took, reply included."""
+    replies = []
+    seconds = []
+    for kind, op, body in reqs:
+        sm.prepare(op, body)
+        ts = sm.prepare_timestamp + t0
+        start = time.perf_counter()
+        replies.append(sm.commit(op, ts, body))
+        if kind == "transfers":
+            seconds.append(time.perf_counter() - start)
+    return replies, seconds
+
+
+def phase_main_path(torch, L, SM, types, constants, dev, card):
+    from tigerbeetle_tpu_torch import kernels as K
+
+    Op = types.Operation
+    rng = np.random.default_rng(SEED + 1)
+    reqs = main_path_requests(types, rng)
+    ledger = L.DeviceLedger(constants.ConfigProcess(), device=dev)
+    sm = SM.StateMachine(ledger)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    replies, seconds = run_requests(sm, reqs, Op)
+    ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
+    id_bytes = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
+    body = b""
+    for i in range(0, N_ACCOUNTS, 8190):
+        chunk = id_bytes[16 * i:16 * min(i + 8190, N_ACCOUNTS)]
+        body += sm.commit(Op.lookup_accounts, 0, chunk)
+    ledger.check_fault()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"  launches on the main path: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel was not launched on the main path: {launches}")
+
+    kinds = [k for k, _op, _b in reqs]
+    for k, r in zip(kinds, replies):
+        if k in ("transfers", "pending", "resolve") and r != b"":
+            fail(f"a {k} request failed: {np.frombuffer(r, dtype=np.uint32)[:8]}")
+    rows = np.frombuffer(body, dtype=types.ACCOUNT_DTYPE)
+    if len(rows) != N_ACCOUNTS:
+        fail(f"lookup returned {len(rows)} of {N_ACCOUNTS} accounts")
+
+    def total(col):
+        lo = int(rows[col + "_lo"].astype(object).sum())
+        return lo + (int(rows[col + "_hi"].astype(object).sum()) << 64)
+
+    # every account's posted balances, from the requests on the host
+    want_dr = np.zeros(N_ACCOUNTS + 1, dtype=np.uint64)
+    want_cr = np.zeros(N_ACCOUNTS + 1, dtype=np.uint64)
+
+    def post(t, keep):
+        amt = t["amount_lo"][keep].astype(np.uint64)
+        np.add.at(want_dr, t["debit_account_id_lo"][keep].astype(np.int64), amt)
+        np.add.at(want_cr, t["credit_account_id_lo"][keep].astype(np.int64), amt)
+
+    for k, _op, b in reqs:
+        if k == "transfers":
+            t = np.frombuffer(b, dtype=types.TRANSFER_DTYPE)
+            post(t, np.ones(len(t), dtype=bool))
+    pend = np.frombuffer(reqs[kinds.index("pending")][2], dtype=types.TRANSFER_DTYPE)
+    post(pend, np.arange(len(pend)) % 2 == 1)  # the posts, in full
+    lk_reply = np.frombuffer(replies[kinds.index("linked")],
+                             dtype=types.CREATE_TRANSFERS_RESULT_DTYPE)
+    lk = np.frombuffer(reqs[kinds.index("linked")][2], dtype=types.TRANSFER_DTYPE)
+    failed = np.zeros(len(lk), dtype=bool)
+    failed[lk_reply["index"]] = True
+    post(lk, ~failed)
+    wrong = np.nonzero((rows["debits_posted_lo"] != want_dr[1:])
+                       | (rows["credits_posted_lo"] != want_cr[1:])
+                       | (rows["debits_posted_hi"] != 0) | (rows["credits_posted_hi"] != 0)
+                       | (rows["debits_pending_lo"] != 0) | (rows["credits_pending_lo"] != 0)
+                       | (rows["debits_pending_hi"] != 0) | (rows["credits_pending_hi"] != 0)
+                       | (rows["id_lo"] != np.arange(1, N_ACCOUNTS + 1)))[0]
+    if len(wrong):
+        fail(f"{len(wrong)} accounts hold other balances than the requests give, "
+             f"first id {int(rows['id_lo'][wrong[0]])}")
+    log(f"  all {N_ACCOUNTS} accounts hold the balances the requests give")
+    dpo, cpo = total("debits_posted"), total("credits_posted")
+    dp, cp = total("debits_pending"), total("credits_pending")
+    expect = sum(
+        int(np.frombuffer(b, dtype=types.TRANSFER_DTYPE)["amount_lo"].astype(object).sum())
+        for k, _op, b in reqs if k == "transfers"
+    )
+    expect += int(pend["amount_lo"][1::2].astype(object).sum())  # posts in full
+    expect += int(lk["amount_lo"][~failed].astype(object).sum())
+    log(f"  posted debits {dpo} credits {cpo} (expected {expect}); pending {dp} {cp}")
+    if not (dpo == cpo == expect and dp == cp == 0):
+        fail("debits and credits are not conserved")
+    if len(lk_reply) == 0:
+        fail("the linked request reported no broken chain")
+
+    # the same two-phase and linked requests on the CPU, plain versions
+    cpu = L.DeviceLedger(constants.ConfigProcess(account_slots_log2=15, transfer_slots_log2=16),
+                         device="cpu")
+    sub = [r for r in reqs if r[0] != "transfers"]
+    cpu_replies, _ = run_requests(SM.StateMachine(cpu), sub, Op)
+    gpu_sub = [rep for (k, _o, _b), rep in zip(reqs, replies) if k != "transfers"]
+    if cpu_replies != gpu_sub:
+        fail("reply bytes differ from the plain versions on the CPU")
+    log(f"  replies of {[r[0] for r in sub]} equal the CPU plain run "
+        f"({sum(len(r) for r in gpu_sub)} bytes)")
+    total = sum(seconds)
+    tps = N_REQUESTS * 8190 / total
+    ms = np.array(seconds) * 1e3
+    # with 64 samples, the 84th percentile is the highest with 10 beyond it
+    log(f"  request latency: median {np.median(ms):.4f} ms, p84 {np.percentile(ms, 84):.4f} ms, "
+        f"max {ms.max():.4f} ms ({len(ms)} requests)")
+    log(f"  {N_REQUESTS} x 8190 create_transfers in {total:.4f} s: {tps:.0f} transfers/s "
+        f"[{card}] (each request committed and drained before the next)")
+    log(f"  plan stats: {ledger.hazards.plan_stats}")
+    return sm, launches, tps
+
+
+# ----------------------------------------------------------------------
+# phase 4: kernels against their plain versions at the main path's shapes
+# ----------------------------------------------------------------------
+
+
+def linked_request(types, rng, ids, n_chain_events):
+    """The main path's linked request: chains of three over the first
+    `n_chain_events` events, every tenth chain broken by a zero amount."""
+    B = len(ids)
+    dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+    lk = transfers(types, ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64))
+    for c, i in enumerate(range(0, n_chain_events, 3)):
+        lk["flags"][i:i + 2] = 1
+        if c % 10 == 0:
+            lk["amount_lo"][i + 1] = 0
+    return lk
+
+
+def phase_main_shapes(torch, L, types, ledger, dev):
+    """Each kernel and its plain version on two copies of the main path's
+    state (2^20 / 2^24 slots), on batches of the main path's shapes, in the
+    order the main path runs them: lookups of 8190 and 1810 accounts,
+    accounts fast (8190) and serial (1810, one linked pair), plain
+    transfers, pendings and their posts/voids (8190 each), and the linked
+    request's masked wave plus its serial residue. Codes and every state
+    leaf must be equal. Returns {check name: max_abs_err}."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    sk, sp = clone_state(ledger.state), clone_state(ledger.state)
+    rng = np.random.default_rng(SEED + 4)
+    errs = {}
+    B = 8190
+
+    def check(name, run_kernel, run_plain):
+        rk = run_kernel(sk)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rp = run_plain(sp)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not isinstance(rk, tuple):
+            rk, rp = (rk,), (rp,)
+        err = max(max(max_abs_diff(a, b) for a, b in zip(rk, rp)), compare_states(sk, sp))
+        errs[name] = err
+        codes = ""
+        if rp[0].dtype == torch.int32:
+            c = np.bincount(rp[0].cpu().numpy().astype(np.int64))
+            codes = f" codes={ {i: int(x) for i, x in enumerate(c) if x} }"
+        log(f"  {name}: max_abs_err={err}{codes} (plain {plain_s:.1f} s)")
+        if err != 0:
+            fail(f"{name} differs from its plain version at the main path's shape")
+        return rk[0]
+
+    for lo, hi in ((1, B + 1), (B + 1, N_ACCOUNTS + 1)):
+        key4 = L.ids_to_batch(list(range(lo, hi)), dev)["key4"]
+        check(f"K1 lookup ({hi - lo} accounts)",
+              lambda s: K.lookup(key4, s["acct_rows"], a_log2),
+              lambda s: L.table_lookup_plain(key4, s["acct_rows"], a_log2))
+
+    ts = 3 * 10**12
+    acc = accounts(types, np.arange(20_000_001, 20_000_001 + B + 1810))
+    acc["flags"][B + 100:B + 102] = [1, 0]
+    for name, arr, kern, plain in (
+        ("K2 commit_accounts fast (8190)", acc[:B], K.commit_accounts_fast,
+         L.commit_accounts_fast_plain),
+        ("K2 commit_accounts serial (1810, one linked pair)", acc[B:],
+         K.commit_accounts_serial, L.commit_accounts_serial_plain),
+    ):
+        rows = L.accounts_to_batch(arr, dev)["rows"]
+        n = len(arr)
+        ts += n
+        check(name, lambda s: kern(s, rows, n, ts, a_log2),
+              lambda s: plain(s, rows, n, ts, a_log2))
+
+    def k3(name, arr, pv, mask=None):
+        rows = L.transfers_to_batch(arr, dev)["rows"]
+        check(name,
+              lambda s: K.commit_transfers_fast(s, rows, mask, B, ts, a_log2, t_log2, pv),
+              lambda s: L.commit_transfers_fast_plain(s, rows, B, ts, a_log2, t_log2, pv, mask))
+
+    dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+    ids = np.arange(7_000_000_000 + B, 7_000_000_000, -1)
+    ts += B
+    k3("K3 commit_transfers fast (8190 transfers)",
+       transfers(types, ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64)), False)
+    pend_ids = np.arange(7_100_000_001, 7_100_000_001 + B)
+    dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+    ts += B
+    k3("K3 commit_transfers fast (8190 pendings)",
+       transfers(types, pend_ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64),
+                 flags=2), False)
+    ts += B
+    k3("K3 commit_transfers fast_pv (8190 posts and voids)",
+       transfers(types, np.arange(7_200_000_001, 7_200_000_001 + B), 0, 0, 0, ledger=0,
+                 code=0, flags=np.where(np.arange(B) % 2, 4, 8), pending_id=pend_ids), True)
+
+    # the linked request, as DeviceLedger._execute_waves runs it
+    lk = linked_request(types, rng, np.arange(7_300_000_001, 7_300_000_001 + B), 600)
+    decision, plan = L.HazardTracker().plan(lk)
+    if decision != "waves" or plan.residue_n != 600:
+        fail(f"the linked request planned as {decision}, not waves with a 600-event residue")
+    ts += B
+    rows_dev = L.transfers_to_batch(lk, dev)["rows"]
+    wave_of = torch.from_numpy(plan.wave_of[:B].astype(np.int64)).to(dev)
+    for w in range(plan.n_waves):
+        k3(f"K3 commit_transfers fast (linked request, wave {w})", lk, plan.has_pv,
+           mask=wave_of == w)
+    idx = torch.from_numpy(np.nonzero(plan.wave_of[:B] < 0)[0]).to(dev)
+    res_rows = rows_dev[idx].contiguous()
+    tsv = L.batch_timestamps(ts, B, B, dev)[idx].contiguous()
+    n = len(idx)
+    check(f"K4 commit_transfers serial (linked request's residue, {n} events)",
+          lambda s: K.commit_transfers_serial(s, res_rows, tsv, n, a_log2, t_log2),
+          lambda s: L.commit_transfers_serial_plain(s, res_rows, tsv, n, a_log2, t_log2))
+    if int(sk["fault"]) != 0:
+        fail(f"the main-shape checks faulted: {int(sk['fault'])}")
+    del sk, sp
+    torch.cuda.empty_cache()
+    return errs
+
+
+# ----------------------------------------------------------------------
+# phase 5: a trace of main-path requests
+# ----------------------------------------------------------------------
+
+
+def phase_trace(torch, SM, types, sm, dev, n_requests=16):
+    """The busy and idle share of the card over `n_requests` more plain
+    create_transfers requests of the main path, from a torch.profiler
+    trace (device intervals merged, over the span of the requests), the
+    host operators that took the most time in it, and a cProfile of the
+    host Python over as many requests again."""
+    import cProfile
+    import io
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    Op = types.Operation
+    rng = np.random.default_rng(SEED + 5)
+    next_id = [8_000_000_000]
+
+    def request():
+        ids = np.arange(next_id[0] + 8190, next_id[0], -1)
+        next_id[0] += 8190
+        dr, cr = random_pairs(rng, 8190, N_ACCOUNTS)
+        body = transfers(types, ids, dr, cr,
+                         rng.integers(1, 1_000_000, 8190).astype(np.uint64)).tobytes()
+        sm.prepare(Op.create_transfers, body)
+        return body
+
+    def commit(body):
+        if sm.commit(Op.create_transfers, sm.prepare_timestamp + 10**12, body) != b"":
+            fail("a traced request failed")
+
+    bodies = [request() for _ in range(n_requests)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for body in bodies:
+            with record_function("request"):
+                commit(body)
+        torch.cuda.synchronize()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "main_path.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("name") == "request"
+             and e.get("cat") == "user_annotation"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not spans or not device:
+        log(f"  trace: {len(spans)} request spans, {len(device)} device events: "
+            "busy share not measured")
+    else:
+        lo, hi = min(a for a, _ in spans), max(b for _, b in spans)
+        busy, end = 0.0, lo
+        for a, b in device:
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                busy += b - a
+                end = b
+        span_ms = (hi - lo) / 1e3
+        log(f"  trace of {n_requests} requests: span {span_ms:.4f} ms, device busy "
+            f"{busy / 1e3:.4f} ms ({busy / (hi - lo):.4f}), idle {1 - busy / (hi - lo):.4f}; "
+            f"{len(device)} device events, {len(device) / n_requests:.1f} per request; "
+            f"request {span_ms / n_requests:.4f} ms, device {busy / 1e3 / n_requests:.4f} ms "
+            "per request (under the profiler)")
+        names = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+                names[e["name"][:60]] = names.get(e["name"][:60], 0.0) + e["dur"]
+        for name, us in sorted(names.items(), key=lambda x: -x[1])[:10]:
+            log(f"    device {us / 1e3 / n_requests:.4f} ms per request: {name}")
+    table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12)
+    for line in table.splitlines():
+        log("   ", line)
+
+    bodies = [request() for _ in range(n_requests)]
+    torch.cuda.synchronize()
+    pr = cProfile.Profile()
+    t0 = time.perf_counter()
+    pr.enable()
+    for body in bodies:
+        commit(body)
+    torch.cuda.synchronize()
+    pr.disable()
+    wall = (time.perf_counter() - t0) * 1e3 / n_requests
+    buf = io.StringIO()
+    pstats.Stats(pr, stream=buf).sort_stats("tottime").print_stats(15)
+    log(f"  cProfile of {n_requests} requests: {wall:.4f} ms per request under the profiler")
+    for line in buf.getvalue().splitlines():
+        if line.strip() and not line.startswith(("   Ordered", "   List")):
+            log("   ", line.rstrip())
+
+
+# ----------------------------------------------------------------------
+# phase 6: times at the main path's shapes, and bounds
+# ----------------------------------------------------------------------
+
+
+def probe_counts(torch, ht, key4, rows, cap_log2, window):
+    """Probes each key needs on this table: up to the hit or first empty."""
+    pos = ht.probe_positions(key4, cap_log2, window)
+    k4 = rows[pos, :4]
+    hit = (k4 == key4.unsqueeze(-2)).all(-1)
+    stop = hit | (k4 == 0).all(-1)
+    j = torch.arange(window, device=key4.device)
+    first = torch.where(stop, j, window - 1).amin(-1)
+    return int((first + 1).sum())
+
+
+def timed(torch, fn, reps):
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return tuple(float(x) for x in np.percentile(times, [50, 25, 75]))
+
+
+def load_latency_ns(torch, K, dev, nbytes: int, steps: int) -> float:
+    """Nanoseconds per dependent load over a random cycle of `nbytes`
+    (one thread, the pointer chase of csrc/chase.cu). Each run starts at
+    another point of the cycle, so no run finds the lines an earlier one
+    pulled into L2 (the buffer itself may be L2-resident when it is small)."""
+    n = nbytes // 4
+    perm = torch.randperm(n, device=dev)
+    nxt = torch.empty(n, dtype=torch.int32, device=dev)
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    starts = iter(perm[torch.arange(5, device=dev) * steps].tolist())
+    K.chase(nxt, next(starts), steps)
+    ms = timed(torch, lambda: K.chase(nxt, next(starts), steps), 4)[0]
+    return ms * 1e6 / steps
+
+
+def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
+    """The bytes a batch of fresh plain transfers must move: its rows in and
+    codes out, one 32-byte sector per probe its ids need in the transfer
+    table, its rows written, each distinct account row read and written
+    once, and the sectors of account probes past the row they find."""
+    keys = torch.cat([rows[:, 4:8], rows[:, 8:12]])
+    distinct = torch.unique(keys, dim=0)
+    ap = probe_counts(torch, ht, distinct, st["acct_rows"], a_log2, window)
+    tp = probe_counts(torch, ht, rows[:, :4].contiguous(), st["xfer_rows"], t_log2, window)
+    touched = distinct.shape[0]
+    n = rows.shape[0]
+    return n * (128 + 4 + 128) + tp * 32 + touched * 2 * 128 + (ap - touched) * 32
+
+
+def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
+    """Each kernel and its plain version at the main path's shapes on the
+    main path's state; returns {key: (kernel ms, plain ms, bound ms, bound_by)}
+    with medians and quartiles. A bound is bytes over the card's rate; for
+    the serial kernels it is at least one dependent load per event."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(SEED + 2)
+    st = ledger.state
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    out = {}
+    B = 8190
+    SECTOR = 32
+
+    def bound(nbytes, trips=0):
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_latency = trips * latency_ns * 1e-6
+        return (by_latency, "latency") if by_latency > by_bytes else (by_bytes, "bytes")
+
+    # K1: lookup of 8190 account ids; the row gathered is one of the slots
+    # probed, so its key sector is in its 128 bytes
+    key4 = L.ids_to_batch([int(x) for x in rng.integers(1, N_ACCOUNTS + 1, B)], dev)["key4"]
+    probes = probe_counts(torch, ht, key4, st["acct_rows"], a_log2, 32)
+    nbytes = B * (16 + 128 + 128 + 8 + 2) + (probes - B) * SECTOR
+    out["K1"] = (timed(torch, lambda: K.lookup(key4, st["acct_rows"], a_log2), 20),
+                 timed(torch, lambda: L.table_lookup_plain(key4, st["acct_rows"], a_log2), 5),
+                 *bound(nbytes))
+
+    # K2: fresh accounts each run; a fresh id's probe ends at the empty
+    # slot its row is written to
+    base = [5_000_000]
+
+    def acct_rows(n, linked):
+        a = accounts(types, np.arange(base[0], base[0] + n))
+        if linked:
+            a["flags"][100:102] = [1, 0]
+        base[0] += n
+        return L.accounts_to_batch(a, dev)["rows"]
+
+    for key, n, reps, plain_reps, window in (("K2f", B, 10, 3, 32), ("K2s", 1810, 10, 2, 64)):
+        serial = key == "K2s"
+        batches = [acct_rows(n, serial) for _ in range(reps + plain_reps)]
+        probes = probe_counts(torch, ht, batches[0][:, :4].contiguous(), st["acct_rows"], a_log2,
+                              window)
+        nbytes = n * (128 + 4 + 128) + probes * SECTOR
+        kern = K.commit_accounts_serial if serial else K.commit_accounts_fast
+        plain = L.commit_accounts_serial_plain if serial else L.commit_accounts_fast_plain
+        it = iter(batches)
+        kt = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), reps)
+        pt = timed(torch, lambda: plain(st, next(it), n, 10**13, a_log2), plain_reps)
+        # serial: each event's probe must see the event before it
+        out[key] = (kt, pt, *bound(nbytes, n if serial else 0))
+
+    # K3 on fresh plain transfers; K4 on the linked request's residue: 200
+    # chains of three, every tenth broken
+    next_id = [6_000_000_000]
+
+    def xfer_rows(n):
+        ids = np.arange(next_id[0], next_id[0] + n)
+        next_id[0] += n
+        if n == B:
+            dr, cr = random_pairs(rng, n, N_ACCOUNTS)
+            t = transfers(types, ids, dr, cr, rng.integers(1, 1000, n).astype(np.uint64))
+        else:
+            t = linked_request(types, rng, ids, n)
+        return L.transfers_to_batch(t, dev)["rows"]
+
+    batches = [xfer_rows(B) for _ in range(13)]
+    nbytes = transfer_bytes(torch, ht, st, batches[0], a_log2, t_log2, 32)
+    it = iter(batches)
+    kt = timed(torch, lambda: K.commit_transfers_fast(st, next(it), None, B, 10**13, a_log2,
+                                                      t_log2, False), 10)
+    pt = timed(torch, lambda: L.commit_transfers_fast_plain(st, next(it), B, 10**13, a_log2,
+                                                            t_log2, False), 3)
+    out["K3"] = (kt, pt, *bound(nbytes))
+
+    n = 600
+    batches = [xfer_rows(n) for _ in range(12)]
+    nbytes = transfer_bytes(torch, ht, st, batches[0], a_log2, t_log2, 64)
+    tsv = L.batch_timestamps(10**13, n, n, dev)
+    it = iter(batches)
+    kt = timed(torch, lambda: K.commit_transfers_serial(st, next(it), tsv, n, a_log2, t_log2),
+               10)
+    pt = timed(torch, lambda: L.commit_transfers_serial_plain(st, next(it), tsv, n, a_log2,
+                                                              t_log2), 2)
+    out["K4"] = (kt, pt, *bound(nbytes, n))  # no post/void: one dependent trip each
+    ledger.check_fault()
+    host_breakdown(torch, L, types, rng, dev, out["K3"][0][0])
+    for k, (kt, pt, b, by) in out.items():
+        log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
+            f"plain {pt[0]:.4f} ms [p25 {pt[1]:.4f}, p75 {pt[2]:.4f}], bound {b:.6f} ms ({by})")
+    return out
+
+
+def host_breakdown(torch, L, types, rng, dev, kernel_ms):
+    """Where one 8190-transfer request's time goes outside the kernels:
+    the host planner, the 1 MiB upload and the two-word summary read."""
+    dr, cr = random_pairs(rng, 8190, N_ACCOUNTS)
+    arr = transfers(types, np.arange(9_000_000_000, 9_000_008_190), dr, cr,
+                    rng.integers(1, 1000, 8190).astype(np.uint64))
+
+    def host_ms(fn, reps=7):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    word = torch.zeros(2, dtype=torch.int32, device=dev)
+    plan = host_ms(lambda: L.HazardTracker().plan(arr))
+    upload = host_ms(lambda: L.transfers_to_batch(arr, dev))
+    read = host_ms(lambda: word.cpu())
+    log(f"  one request outside the kernels: plan {plan:.4f} ms, upload {upload:.4f} ms, "
+        f"summary read {read:.4f} ms; kernels {kernel_ms:.4f} ms")
+
+
+KERNELS = [
+    # key, launch counter, name (the prefix of its phase-4 checks), source, replaces
+    ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
+     "tigerbeetle_tpu/ops/hashtable.py:127"),
+    ("K2f", "commit_accounts_fast", "K2 commit_accounts fast",
+     "tigerbeetle_tpu_torch/csrc/commit_accounts.cu", "tigerbeetle_tpu/models/ledger.py:1284"),
+    ("K2s", "commit_accounts_serial", "K2 commit_accounts serial",
+     "tigerbeetle_tpu_torch/csrc/commit_accounts.cu", "tigerbeetle_tpu/models/ledger.py:1338"),
+    ("K3", "commit_transfers_fast", "K3 commit_transfers fast",
+     "tigerbeetle_tpu_torch/csrc/commit_transfers.cu", "tigerbeetle_tpu/models/ledger.py:805"),
+    ("K4", "commit_transfers_serial", "K4 commit_transfers serial",
+     "tigerbeetle_tpu_torch/csrc/serial_transfers.cu", "tigerbeetle_tpu/models/ledger.py:1004"),
+]
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("torch is not installed")
+    if not torch.cuda.is_available():
+        fail("CUDA is not available: this script runs on a card")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(repo, "tigerbeetle_tpu_torch")):
+        fail("tigerbeetle_tpu_torch/ is not beside this script")
+    sys.path.insert(0, repo)
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.kernels import build
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    log("== phase 1: environment")
+    log(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = smi
+    t0 = time.perf_counter()
+    lib = build.build()
+    log(f"  kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log("   ", line.strip())
+
+    from tigerbeetle_tpu_torch import kernels as K
+
+    hbm_ns = load_latency_ns(torch, K, dev, 1 << 30, 1 << 15)
+    l2_ns = load_latency_ns(torch, K, dev, 1 << 23, 1 << 15)
+    log(f"  dependent-load latency: {hbm_ns:.1f} ns over 1 GiB, {l2_ns:.1f} ns over 8 MiB "
+        f"[{card}]")
+
+    log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
+    phase_kernels(torch, L, types, constants, dev)
+    phase_ledgers(torch, L, types, constants, dev)
+
+    log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
+    sm, launches, tps = phase_main_path(torch, L, SM, types, constants, dev, card)
+    ledger = sm.backend
+
+    log("== phase 4: kernels against their plain versions at the main path's shapes "
+        "(2^20 / 2^24 slots)")
+    errs = phase_main_shapes(torch, L, types, ledger, dev)
+
+    log("== phase 5: trace of main-path requests")
+    phase_trace(torch, SM, types, sm, dev)
+
+    log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
+    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns)
+
+    table = []
+    for key, counter, name, source, replaces in KERNELS:
+        (kt, _, _), (pt, _, _), bound_ms, bound_by = times[key]
+        err = max(v for k, v in errs.items() if k.startswith(name))
+        table.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[counter], "max_abs_err": err, "bit_exact": err == 0,
+            "ms": kt, "plain_ms": pt, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    log(f"  main path: {tps:.0f} transfers/s; whole run {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: neither tigerbeetle_tpu_torch nor
+chip_smoke.py imports jax or anything of tigerbeetle_tpu, and its ledger
+defaults to the card."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "tigerbeetle_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    for mod in _imported_modules(path):
+        root = mod.split(".")[0]
+        assert root not in ("jax", "jaxlib", "tigerbeetle_tpu"), f"{path.name} imports {mod}"
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import tigerbeetle_tpu_torch, tigerbeetle_tpu_torch.state_machine\n"
+        "import tigerbeetle_tpu_torch.models.ledger, tigerbeetle_tpu_torch.convert\n"
+        "import tigerbeetle_tpu_torch.kernels.build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_device_ledger_defaults_to_cuda():
+    import torch
+
+    from tigerbeetle_tpu_torch.constants import TEST_PROCESS
+    from tigerbeetle_tpu_torch.models.ledger import DeviceLedger
+
+    if torch.cuda.is_available():
+        assert DeviceLedger(TEST_PROCESS).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceLedger(TEST_PROCESS)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """Alone in a directory, chip_smoke.py exits non-zero and prints no result."""
+    import shutil
+
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,241 @@
+"""ctypes bindings of the CUDA kernels in `tigerbeetle_tpu_torch/csrc/`.
+
+The library is built by kernels/build.py at the first launch, never at
+import. Each launcher checks its tensors (device, dtype, shape, contiguity),
+allocates the outputs and the scratch buffer with torch, launches on
+PyTorch's current stream without synchronising, raises if the launch
+returned a CUDA error, and counts its launches in `LAUNCHES` (a plain
+integer per kernel, so that a run can show its main path went through the
+kernels).
+
+Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
+    lookup                  K1  LedgerKernels._lookup_accounts/_transfers
+    commit_accounts_fast    K2  LedgerKernels._commit_accounts (fast)
+    commit_accounts_serial  K2  LedgerKernels._serial_accounts
+    commit_transfers_fast   K3  LedgerKernels._commit_transfers (fast, fast_pv)
+    commit_transfers_serial K4  LedgerKernels._serial_transfers_core
+
+`chase` is no kernel of the ledger: a pointer chase that measures the
+card's dependent-load latency for the serial kernels' bounds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_U64 = ctypes.c_uint64
+
+LAUNCHES = {
+    "lookup": 0,
+    "commit_accounts_fast": 0,
+    "commit_accounts_serial": 0,
+    "commit_transfers_fast": 0,
+    "commit_transfers_serial": 0,
+}
+
+_SIGNATURES = {
+    "tb_lookup": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "tb_commit_accounts_fast": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
+    "tb_commit_accounts_serial": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
+    "tb_commit_transfers_fast": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _U64, _I, _P, _P, _P],
+    "tb_commit_transfers_serial": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _P, _P, _P],
+    "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
+}
+_SCRATCH = (
+    "tb_commit_accounts_fast_scratch",
+    "tb_commit_accounts_serial_scratch",
+    "tb_commit_transfers_fast_scratch",
+    "tb_commit_transfers_serial_scratch",
+)
+
+_lib = None
+
+
+def library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        from tigerbeetle_tpu_torch.kernels import build
+
+        lib = ctypes.CDLL(str(build.build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        for name in _SCRATCH:
+            fn = getattr(lib, name)
+            fn.argtypes = [_I]
+            fn.restype = ctypes.c_size_t
+        lib.tb_error_string.argtypes = [_I]
+        lib.tb_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _launch(name: str, counter: str, *args) -> None:
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.tb_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    LAUNCHES[counter] += 1
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _ptr(t) -> int:
+    return t.data_ptr()
+
+
+def _need(t, dtype, ndim: int, name: str) -> None:
+    if not t.is_cuda or t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: want a contiguous {ndim}-d {dtype} CUDA tensor, got "
+            f"{tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+
+
+def _check_rows(t, name: str, cap_log2: int) -> None:
+    _need(t, torch.int32, 2, name)
+    if t.shape != ((1 << cap_log2) + 1, 32):
+        raise ValueError(f"{name}: shape {tuple(t.shape)} != capacity {1 << cap_log2} + 1 rows")
+
+
+def _check_batch(rows_b, n: int) -> int:
+    _need(rows_b, torch.int32, 2, "batch")
+    B = rows_b.shape[0]
+    if rows_b.shape[1] != 32 or not 0 <= n <= B:
+        raise ValueError(f"batch: shape {tuple(rows_b.shape)}, n={n}")
+    return B
+
+
+def _scalars(state, *names) -> list[int]:
+    out = []
+    for name in names:
+        t = state[name]
+        dtype = torch.int32 if name == "fault" else torch.int64
+        _need(t, dtype, 0, name)
+        out.append(_ptr(t))
+    return out
+
+
+def _scratch(name: str, B: int, device):
+    nbytes = getattr(library(), name)(B)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
+def _u64(x: int) -> int:
+    return x & ((1 << 64) - 1)
+
+
+def lookup(key4, rows, cap_log2: int):
+    """K1: probe `key4` [B, 4] in `rows`; returns (found, rows [B, 32], resolved)."""
+    _need(key4, torch.int32, 2, "key4")
+    _check_rows(rows, "rows", cap_log2)
+    B = key4.shape[0]
+    dev = rows.device
+    slot = torch.empty(B, dtype=torch.int64, device=dev)
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    resolved = torch.empty(B, dtype=torch.bool, device=dev)
+    out = torch.empty((B, 32), dtype=torch.int32, device=dev)
+    _launch("tb_lookup", "lookup", _ptr(key4), B, _ptr(rows), cap_log2,
+            _ptr(slot), _ptr(found), _ptr(resolved), _ptr(out), _stream())
+    return found, out, resolved
+
+
+def commit_accounts_fast(state, rows_b, n: int, timestamp: int, a_log2: int):
+    """K2 fast: commit `rows_b` into `state` in place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    _check_rows(state["acct_rows"], "acct_rows", a_log2)
+    _need(state["acct_claim"], torch.int32, 1, "acct_claim")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_commit_accounts_fast_scratch", B, rows_b.device)
+    _launch("tb_commit_accounts_fast", "commit_accounts_fast",
+            _ptr(state["acct_rows"]), _ptr(state["acct_claim"]), a_log2,
+            *_scalars(state, "commit_ts", "acct_count", "acct_used_slots", "fault"),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
+    """K2 serial: commit `rows_b` into `state` in place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    _check_rows(state["acct_rows"], "acct_rows", a_log2)
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_commit_accounts_serial_scratch", B, rows_b.device)
+    _launch("tb_commit_accounts_serial", "commit_accounts_serial",
+            _ptr(state["acct_rows"]), a_log2,
+            *_scalars(state, "commit_ts", "acct_count", "acct_used_slots", "fault"),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def commit_transfers_fast(state, rows_b, mask, n: int, timestamp: int,
+                          a_log2: int, t_log2: int, pv_mode: bool):
+    """K3: commit `rows_b` (lanes < n, and in `mask` if given) into `state`
+    in place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    _check_rows(state["acct_rows"], "acct_rows", a_log2)
+    _check_rows(state["xfer_rows"], "xfer_rows", t_log2)
+    _check_rows(state["bal_acc"], "bal_acc", a_log2)
+    for name in ("fulfill", "xfer_claim"):
+        _need(state[name], torch.int32, 1, name)
+    if mask is not None:
+        _need(mask, torch.bool, 1, "mask")
+        if mask.shape[0] != B:
+            raise ValueError(f"mask: {mask.shape[0]} lanes for a batch of {B}")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_commit_transfers_fast_scratch", B, rows_b.device)
+    _launch("tb_commit_transfers_fast", "commit_transfers_fast",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
+            _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
+            *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
+            _ptr(rows_b), None if mask is None else _ptr(mask), B, n, _u64(timestamp),
+            int(pv_mode), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def commit_transfers_serial(state, rows_b, ts_vec, n: int, a_log2: int, t_log2: int):
+    """K4: commit `rows_b` event by event with explicit timestamps `ts_vec`
+    (u64 as int64) into `state` in place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    _check_rows(state["acct_rows"], "acct_rows", a_log2)
+    _check_rows(state["xfer_rows"], "xfer_rows", t_log2)
+    _need(state["fulfill"], torch.int32, 1, "fulfill")
+    _need(ts_vec, torch.int64, 1, "ts")
+    if ts_vec.shape[0] != B:
+        raise ValueError(f"ts: {ts_vec.shape[0]} timestamps for a batch of {B}")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_commit_transfers_serial_scratch", B, rows_b.device)
+    _launch("tb_commit_transfers_serial", "commit_transfers_serial",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
+            _ptr(state["fulfill"]),
+            *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
+            _ptr(rows_b), _ptr(ts_vec), B, n, _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def chase(nxt, start: int, steps: int):
+    """Follow `nxt` (int32 indices) from `start` for `steps` dependent loads
+    in one thread; returns the last index as a 1-element tensor. Not counted
+    in LAUNCHES: it measures the card, it is not a kernel of the ledger."""
+    _need(nxt, torch.int32, 1, "next")
+    out = torch.empty(1, dtype=torch.int32, device=nxt.device)
+    lib = library()
+    err = lib.tb_chase(_ptr(nxt), start, steps, _ptr(out), _stream())
+    if err != 0:
+        raise RuntimeError(f"tb_chase: CUDA error {err} ({lib.tb_error_string(err).decode()})")
+    return out
