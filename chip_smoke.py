@@ -11,14 +11,22 @@ Phases (each failure exits non-zero):
    table geometry (2^14 account / 2^16 transfer slots): result codes and
    every state tensor must be bit-identical, on batches that exercise every
    failure path and the fault gates (overflow, capacity, sticky fault,
-   exhausted probe windows);
+   exhausted probe windows, a group whose second slot faults, a group with
+   a padding slot, an install with no free slot, tombstones and a nonzero
+   dump row under the fingerprint);
 3. the main path at deployment size: StateMachine over
    DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
    the reference benchmark's traffic (10,000 accounts, batches of 8190,
    uniform random accounts, reversed ids), a two-phase pair, a request with
-   linked chains (one broken) and lookups; every account holds the balances
-   the requests give, the reply bytes of the two-phase and linked requests
-   equal the port's own plain versions on the CPU, and every kernel ran;
+   linked chains (one broken), then 4 groups of 16 requests through the
+   replica's group commit (commit_group_async, commit_finish_many,
+   commit_finish) and lookups; every account holds the balances the
+   requests give, the reply bytes of the two-phase and linked requests
+   equal the port's own plain versions on the CPU; the state fingerprint
+   equals its plain version and fp_rows_np over the host rows; a second
+   ledger rebuilt by install_snapshot_rows from the live rows fingerprints
+   and looks up the same, also after one more group on both; every kernel
+   ran;
 4. every kernel against its plain version on copies of the main path's
    state, on batches of the shapes the main path gives it (codes and every
    state leaf equal); the kernel table's max_abs_err comes from here;
@@ -225,6 +233,29 @@ def account_batch(types, rng, B, base, serial: bool):
     return a
 
 
+def hold(torch, name, start, run_kernel, run_plain):
+    """Run a kernel and its plain version on two copies of `start`: their
+    outputs and every state leaf must be equal. Returns the plain run's
+    outputs (a tuple) and state."""
+    sk, sp = clone_state(start), clone_state(start)
+    rk = run_kernel(sk)
+    torch.cuda.synchronize()
+    rp = run_plain(sp)
+    torch.cuda.synchronize()
+    if not isinstance(rk, tuple):
+        rk, rp = (rk,), (rp,)
+    outs = [max_abs_diff(a, b) for a, b in zip(rk, rp) if a is not None or b is not None]
+    err = max(outs + [compare_states(sk, sp)])
+    hit = ""
+    if rp[0] is not None and rp[0].dtype == torch.int32:
+        codes = np.bincount(rp[0].cpu().numpy().astype(np.int64) & 0xFF)
+        hit = f" codes={ {i: int(c) for i, c in enumerate(codes) if c} }"
+    log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])}{hit}")
+    if err != 0:
+        fail(f"{name} differs from its plain version")
+    return rp, sp
+
+
 def phase_kernels(torch, L, types, constants, dev):
     """K1-K4 against their plain versions on the card, on every failure
     path and the fault gates, at a reduced geometry."""
@@ -236,22 +267,7 @@ def phase_kernels(torch, L, types, constants, dev):
     base, ts = seeded_state(L, types, process, rng, dev)
 
     def check(name, run_kernel, run_plain, start=None):
-        start = base if start is None else start
-        sk, sp = clone_state(start), clone_state(start)
-        rk = run_kernel(sk)
-        torch.cuda.synchronize()
-        rp = run_plain(sp)
-        torch.cuda.synchronize()
-        if not isinstance(rk, tuple):
-            rk, rp = (rk,), (rp,)
-        err = max(max(max_abs_diff(a, b) for a, b in zip(rk, rp)), compare_states(sk, sp))
-        hit = ""
-        if rp[0].dtype == torch.int32:
-            codes = np.bincount(rp[0].cpu().numpy().astype(np.int64))
-            hit = f" codes={ {i: int(c) for i, c in enumerate(codes) if c} }"
-        log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])}{hit}")
-        if err != 0:
-            fail(f"{name} differs from its plain version")
+        hold(torch, name, base if start is None else start, run_kernel, run_plain)
 
     B = 8190
     ids = np.concatenate([np.arange(1, 6001), np.arange(7_000_000, 7_000_000 + B - 6001), [0]])
@@ -337,6 +353,119 @@ def phase_kernels(torch, L, types, constants, dev):
           start=faulted)
 
 
+def plain_batch(types, rng, n, first_id, n_accounts=1999):
+    """Fresh transfers between the ledger-2 accounts, a fifth of them
+    pending, with failures: zero amounts, ledger mismatches, missing
+    debit accounts."""
+    dr, cr = random_pairs(rng, n, n_accounts)
+    t = transfers(types, np.arange(first_id, first_id + n), dr, cr,
+                  rng.integers(1, 1000, n).astype(np.uint64),
+                  flags=np.where(rng.random(n) < 0.2, 2, 0).astype(np.uint16))
+    t["amount_lo"][::50] = 0  # amount_must_not_be_zero
+    t["credit_account_id_lo"][7::50] = 2500  # ledger mismatch
+    t["debit_account_id_lo"][13::50] += 1_000_000  # debit_account_not_found
+    return t
+
+
+def group_rows(torch, L, batches, k, dev):
+    """Stage batches as the group commit does: [k, n_pad, 32] rows on the
+    card (n_pad the next power of two of the largest, at least 8) and the
+    per-slot counts; slots past the batches are padding (n = 0)."""
+    n_pad = L._next_pow2(max(len(b) for b in batches))
+    rows = np.zeros((k, n_pad, 32), dtype=np.int32)
+    ns = np.zeros(k, dtype=np.int32)
+    for i, b in enumerate(batches):
+        rows[i, :len(b)] = L._to_rows_np(b)
+        ns[i] = len(b)
+    return torch.from_numpy(rows).to(dev), ns
+
+
+def live_rows(state, table):
+    """Host copies of a table's live rows (u32 [m, 32]) and, for
+    transfers, their fulfill words."""
+    rows = state[f"{table}_rows"][:-1].cpu().numpy().view(np.uint32)
+    k4 = rows[:, :4]
+    live = ~(k4 == 0).all(axis=1) & ~(k4 == 0xFFFFFFFF).all(axis=1)
+    ful = state["fulfill"][:-1].cpu().numpy().view(np.uint32)[live] if table == "xfer" else None
+    return rows[live], ful
+
+
+def phase_seam_kernels(torch, L, types, constants, dev):
+    """K5 group commit, K6 fingerprint and K9 install against their plain
+    versions on the card at the reduced geometry, on their fault gates:
+    a group whose second slot trips the load-factor guard (the later slots
+    are no-ops, the fault is sticky), a group with a padding slot, an
+    install that finds no free slot (bit 30), and the fingerprint of states
+    with tombstones and a dump row of nonzero bytes."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    rng = np.random.default_rng(SEED + 6)
+    base, ts = seeded_state(L, types, process, rng, dev)
+
+    def group(name, start, batches, k, expect_fault):
+        rows, ns = group_rows(torch, L, batches, k, dev)
+        tss = [ts + 10_000 * (i + 1) for i in range(k)]
+        (flat, summary), sp = hold(
+            torch, name, start,
+            lambda s: K.group_commit(s, rows, ns, tss, a_log2, t_log2),
+            lambda s: L.commit_transfers_group_plain(s, rows, ns, tss, a_log2, t_log2))
+        log(f"    summary {summary.cpu().tolist()}")
+        if int(summary[-1]) != expect_fault or int(flat[-1]) != expect_fault:
+            fail(f"{name}: fault word {int(summary[-1])}, expected {expect_fault}")
+
+    batches = [plain_batch(types, rng, 1000, 900_001 + 10_000 * i) for i in range(4)]
+    full = clone_state(base)
+    full["xfer_used_slots"].fill_((1 << t_log2) // 2 - 1500)  # slot 1 fits, slot 2 does not
+    group("K5 group_commit (4 slots, slot 2 trips the capacity gate)", full, batches, 4,
+          L.FAULT_CAPACITY)
+    batches = [plain_batch(types, rng, n, 950_001 + 10_000 * i)
+               for i, n in enumerate((2000, 1500, 700))]
+    group("K5 group_commit (3 items, one padding slot)", base, batches, 4, 0)
+
+    # a restore: the seeded state's live rows into a fresh state, one chunk each
+    acct, _ = live_rows(base, "acct")
+    xfer, ful = live_rows(base, "xfer")
+    fresh = L.init_state(process, dev)
+    for table, rows_np, ful_np, log2 in (("acct", acct, None, a_log2),
+                                         ("xfer", xfer, ful, t_log2)):
+        rows = torch.from_numpy(rows_np.view(np.int32)).to(dev)
+        fb = None if ful_np is None else torch.from_numpy(ful_np.view(np.int32)).to(dev)
+        _, fresh = hold(torch, f"K9 install_rows ({len(rows_np)} {table} rows, fresh state)",
+                        fresh,
+                        lambda s: K.install_rows(s, table, rows, fb, len(rows_np), log2),
+                        lambda s: L.install_rows_plain(s, table, rows, fb, len(rows_np), log2))
+    want = L.state_fingerprint_plain(base).cpu().tolist()
+    got = L.state_fingerprint_plain(fresh).cpu().tolist()
+    if got[:4] != want[:4]:
+        fail(f"the installed rows fingerprint {got[:4]}, the source {want[:4]}")
+    # no free slot in any window: every unresolved row sets bit 30
+    full = exhausted(torch, base, rng, tombs=4000)
+    arr = plain_batch(types, rng, 8192, 990_001)
+    rows = L.transfers_to_batch(arr, dev)["rows"]
+    fb = torch.from_numpy(rng.integers(0, 3, 8192).astype(np.int32)).to(dev)
+    _, sp = hold(torch, "K9 install_rows (8192 rows, exhausted windows)", full,
+                 lambda s: K.install_rows(s, "xfer", rows, fb, 8192, t_log2),
+                 lambda s: L.install_rows_plain(s, "xfer", rows, fb, 8192, t_log2))
+    if not int(sp["fault"]) & L.FAULT_INSTALL:
+        fail("an install with no free slot did not set FAULT_INSTALL")
+
+    for name, start in (("tombstones", base), ("exhausted windows", full)):
+        st = clone_state(start)
+        for table in ("acct_rows", "xfer_rows"):
+            st[table][-1] = torch.from_numpy(
+                rng.integers(1, 1 << 31, 32).astype(np.int32)).to(dev)
+        (fp,), _ = hold(torch, f"K6 fingerprint ({name}, dump rows nonzero)", st,
+                        lambda s: K.fingerprint(s["acct_rows"], s["xfer_rows"], s["commit_ts"]),
+                        L.state_fingerprint_plain)
+        host = [L.fp_rows_np(st[t][:-1].cpu().numpy()) for t in ("acct_rows", "xfer_rows")]
+        fp = [v & ((1 << 64) - 1) for v in fp.cpu().tolist()]
+        if (host[0][0], host[1][0], host[0][1], host[1][1]) != tuple(fp[:4]):
+            fail(f"K6 ({name}) differs from fp_rows_np over the host rows")
+        log(f"    live accounts {fp[2]}, transfers {fp[3]}; equal to fp_rows_np on the host")
+
+
 def mixed_batches(types, rng, n_batches, n):
     """Random traffic over every tier: limit accounts, pendings and their
     posts/voids (earlier and same batch), linked chains, balancing flags,
@@ -403,6 +532,7 @@ def phase_ledgers(torch, L, types, constants, dev):
 
 N_ACCOUNTS = 10_000
 N_REQUESTS = 64
+GROUPS, GROUP_K = 4, 16  # the group path: 4 groups of 16 requests of 8190
 
 
 def main_path_requests(types, rng):
@@ -414,15 +544,9 @@ def main_path_requests(types, rng):
     acc["flags"][B + 100:B + 102] = [1, 0]  # a linked pair: this request commits serially
     reqs.append(("accounts", Op.create_accounts, acc[:B].tobytes()))
     reqs.append(("accounts", Op.create_accounts, acc[B:].tobytes()))
-    total = N_REQUESTS * B
-    next_id = 1_000_000_000 + total  # reversed id order (src/benchmark.zig id_order)
-    for _ in range(N_REQUESTS):
-        ids = np.arange(next_id, next_id - B, -1)
-        next_id -= B
-        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
-        amt = rng.integers(1, 1_000_000, B).astype(np.uint64)
-        reqs.append(("transfers", Op.create_transfers,
-                     transfers(types, ids, dr, cr, amt).tobytes()))
+    # reversed id order (src/benchmark.zig id_order)
+    reqs += [("transfers", Op.create_transfers, b)
+             for b in benchmark_bodies(types, rng, N_REQUESTS, 1_000_000_000 + N_REQUESTS * B)]
     # two-phase pair: pendings, then posts and voids of every one of them
     pend_ids = np.arange(2_000_000_001, 2_000_000_001 + B)
     dr, cr = random_pairs(rng, B, N_ACCOUNTS)
@@ -437,6 +561,39 @@ def main_path_requests(types, rng):
     lk = linked_request(types, rng, np.arange(4_000_000_001, 4_000_000_001 + B), 600)
     reqs.append(("linked", Op.create_transfers, lk.tobytes()))
     return reqs
+
+
+def benchmark_bodies(types, rng, n, next_id):
+    """`n` create_transfers bodies of the benchmark traffic, 8190 events
+    each, ids counting down from `next_id`."""
+    bodies = []
+    for _ in range(n):
+        ids = np.arange(next_id, next_id - 8190, -1)
+        next_id -= 8190
+        dr, cr = random_pairs(rng, 8190, N_ACCOUNTS)
+        amt = rng.integers(1, 1_000_000, 8190).astype(np.uint64)
+        bodies.append(transfers(types, ids, dr, cr, amt).tobytes())
+    return bodies
+
+
+def prepare_group(sm, Op, bodies, t0=10**12):
+    """Prepare each body in turn: [(commit timestamp, body)]."""
+    batches = []
+    for body in bodies:
+        sm.prepare(Op.create_transfers, body)
+        batches.append((sm.prepare_timestamp + t0, body))
+    return batches
+
+
+def commit_group(sm, Op, batches):
+    """The replica's commit of quorum-ready prepares: one fused group
+    (StateMachine.commit_group_async), one drain of the window
+    (commit_finish_many), then each reply (commit_finish)."""
+    handles = sm.commit_group_async(Op.create_transfers, batches)
+    if handles is None:
+        fail("the group commit declined a group of plain transfers")
+    sm.commit_finish_many(handles)
+    return [sm.commit_finish(h) for h in handles]
 
 
 def run_requests(sm, reqs, Op, t0=10**12):
@@ -461,11 +618,21 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
     Op = types.Operation
     rng = np.random.default_rng(SEED + 1)
     reqs = main_path_requests(types, rng)
+    group_bodies = benchmark_bodies(types, rng, GROUPS * GROUP_K, 1_500_000_000)
     ledger = L.DeviceLedger(constants.ConfigProcess(), device=dev)
     sm = SM.StateMachine(ledger)
     torch.cuda.synchronize()
     K.reset_launches()
     replies, seconds = run_requests(sm, reqs, Op)
+    group_seconds = []
+    for g in range(GROUPS):
+        batches = prepare_group(sm, Op, group_bodies[g * GROUP_K:(g + 1) * GROUP_K])
+        start = time.perf_counter()
+        group_replies = commit_group(sm, Op, batches)
+        group_seconds.append(time.perf_counter() - start)
+        if any(group_replies):
+            fail(f"a request of group {g} failed")
+    reqs += [("group", Op.create_transfers, b) for b in group_bodies]
     ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
     id_bytes = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
     body = b""
@@ -474,10 +641,6 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
         body += sm.commit(Op.lookup_accounts, 0, chunk)
     ledger.check_fault()
     torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    log(f"  launches on the main path: {launches}")
-    if not all(launches.values()):
-        fail(f"a kernel was not launched on the main path: {launches}")
 
     kinds = [k for k, _op, _b in reqs]
     for k, r in zip(kinds, replies):
@@ -501,7 +664,7 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
         np.add.at(want_cr, t["credit_account_id_lo"][keep].astype(np.int64), amt)
 
     for k, _op, b in reqs:
-        if k == "transfers":
+        if k in ("transfers", "group"):
             t = np.frombuffer(b, dtype=types.TRANSFER_DTYPE)
             post(t, np.ones(len(t), dtype=bool))
     pend = np.frombuffer(reqs[kinds.index("pending")][2], dtype=types.TRANSFER_DTYPE)
@@ -526,7 +689,7 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
     dp, cp = total("debits_pending"), total("credits_pending")
     expect = sum(
         int(np.frombuffer(b, dtype=types.TRANSFER_DTYPE)["amount_lo"].astype(object).sum())
-        for k, _op, b in reqs if k == "transfers"
+        for k, _op, b in reqs if k in ("transfers", "group")
     )
     expect += int(pend["amount_lo"][1::2].astype(object).sum())  # posts in full
     expect += int(lk["amount_lo"][~failed].astype(object).sum())
@@ -539,7 +702,7 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
     # the same two-phase and linked requests on the CPU, plain versions
     cpu = L.DeviceLedger(constants.ConfigProcess(account_slots_log2=15, transfer_slots_log2=16),
                          device="cpu")
-    sub = [r for r in reqs if r[0] != "transfers"]
+    sub = [r for r in reqs if r[0] not in ("transfers", "group")]
     cpu_replies, _ = run_requests(SM.StateMachine(cpu), sub, Op)
     gpu_sub = [rep for (k, _o, _b), rep in zip(reqs, replies) if k != "transfers"]
     if cpu_replies != gpu_sub:
@@ -554,8 +717,76 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
         f"max {ms.max():.4f} ms ({len(ms)} requests)")
     log(f"  {N_REQUESTS} x 8190 create_transfers in {total:.4f} s: {tps:.0f} transfers/s "
         f"[{card}] (each request committed and drained before the next)")
+    g_total = sum(group_seconds)
+    g_tps = GROUPS * GROUP_K * 8190 / g_total
+    log(f"  group path: {GROUPS} groups of {GROUP_K} x 8190 create_transfers in {g_total:.4f} s: "
+        f"{g_tps:.0f} transfers/s, {np.median(group_seconds) * 1e3:.4f} ms median per group "
+        f"(each: {', '.join(f'{x * 1e3:.4f}' for x in group_seconds)} ms), "
+        f"against {tps:.0f} transfers/s one request at a time [{card}] (commit_group_async, "
+        "commit_finish_many and commit_finish; each group drained before the next)")
     log(f"  plan stats: {ledger.hazards.plan_stats}")
-    return sm, launches, tps
+    return sm, tps, g_tps
+
+
+def phase_snapshot(torch, L, SM, types, constants, dev, sm):
+    """The rest of the commit seam on the main path: the fingerprint (K6)
+    against its plain version and fp_rows_np over the host rows; a second
+    ledger rebuilt by install_snapshot_rows (K9) from the first one's live
+    rows must fingerprint and look up the same; one more group committed on
+    both must leave them equal."""
+    Op = types.Operation
+    ledger = sm.backend
+    fp = ledger.fingerprint()
+    plain = [v & ((1 << 64) - 1) for v in L.state_fingerprint_plain(ledger.state).cpu().tolist()]
+    if [fp[k] for k in L.FP_KEYS] != plain:
+        fail(f"fingerprint {fp} differs from its plain version {plain}")
+    acct, _ = live_rows(ledger.state, "acct")
+    xfer, ful = live_rows(ledger.state, "xfer")
+    host = L.fp_rows_np(acct), L.fp_rows_np(xfer)
+    if (fp["accounts_fp"], fp["accounts"]) != host[0] or \
+            (fp["transfers_fp"], fp["transfers"]) != host[1]:
+        fail("the fingerprint differs from fp_rows_np over the live rows read to the host")
+    log(f"  fingerprint {fp}: equal to its plain version and to fp_rows_np on the host")
+
+    second = L.DeviceLedger(constants.ConfigProcess(), device=dev)
+    second.reset_state()
+    accounts = np.frombuffer(acct.tobytes(), dtype=types.ACCOUNT_DTYPE)
+    transfers_np = np.frombuffer(xfer.tobytes(), dtype=types.TRANSFER_DTYPE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    second.install_snapshot_rows(accounts, transfers_np, ful, ledger.commit_timestamp)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    second.check_fault()
+    fp2 = second.fingerprint()
+    log(f"  install_snapshot_rows: {len(accounts)} accounts and {len(transfers_np)} transfers "
+        f"({int((ful != 0).sum())} posted or voided) in {install_s:.4f} s")
+    if fp2 != fp:
+        fail(f"the installed ledger's fingerprint {fp2} differs from the source's {fp}")
+    ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
+    id_bytes = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
+    sm2 = SM.StateMachine(second)
+    for i in range(0, N_ACCOUNTS, 8190):
+        chunk = id_bytes[16 * i:16 * min(i + 8190, N_ACCOUNTS)]
+        if sm2.commit(Op.lookup_accounts, 0, chunk) != sm.commit(Op.lookup_accounts, 0, chunk):
+            fail("an installed account's lookup differs from the source's")
+    log(f"  the installed ledger's fingerprint equals the source's; lookups of all "
+        f"{N_ACCOUNTS} accounts equal")
+
+    bodies = benchmark_bodies(types, np.random.default_rng(SEED + 7), GROUP_K, 1_700_000_000)
+    batches = prepare_group(sm, Op, bodies)
+    second.prepare_timestamp = ledger.prepare_timestamp
+    for s in (sm, sm2):
+        if any(commit_group(s, Op, batches)):
+            fail("a request of the group after the install failed")
+    ledger.check_fault()
+    second.check_fault()
+    fp, fp2 = ledger.fingerprint(), second.fingerprint()
+    if fp2 != fp:
+        fail(f"after one more group the fingerprints differ: {fp} {fp2}")
+    log(f"  one more group of {GROUP_K} x 8190 on both ledgers: fingerprints equal ({fp})")
+    del second, sm2
+    torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------------
@@ -601,10 +832,11 @@ def phase_main_shapes(torch, L, types, ledger, dev):
         plain_s = time.perf_counter() - t0
         if not isinstance(rk, tuple):
             rk, rp = (rk,), (rp,)
-        err = max(max(max_abs_diff(a, b) for a, b in zip(rk, rp)), compare_states(sk, sp))
+        outs = [max_abs_diff(a, b) for a, b in zip(rk, rp) if a is not None or b is not None]
+        err = max(outs + [compare_states(sk, sp)])
         errs[name] = err
         codes = ""
-        if rp[0].dtype == torch.int32:
+        if rp[0] is not None and rp[0].dtype == torch.int32:
             c = np.bincount(rp[0].cpu().numpy().astype(np.int64))
             codes = f" codes={ {i: int(x) for i, x in enumerate(c) if x} }"
         log(f"  {name}: max_abs_err={err}{codes} (plain {plain_s:.1f} s)")
@@ -673,6 +905,32 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     check(f"K4 commit_transfers serial (linked request's residue, {n} events)",
           lambda s: K.commit_transfers_serial(s, res_rows, tsv, n, a_log2, t_log2),
           lambda s: L.commit_transfers_serial_plain(s, res_rows, tsv, n, a_log2, t_log2))
+    # the commit seam: a group of 16 requests of 8190, the fingerprint of
+    # both tables, one install chunk of 8192 stored rows
+    batches = []
+    for i in range(GROUP_K):
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        first = 7_400_000_001 + B * i
+        batches.append(transfers(types, np.arange(first + B, first, -1), dr, cr,
+                                 rng.integers(1, 1_000_000, B).astype(np.uint64)))
+    g_rows, g_ns = group_rows(torch, L, batches, GROUP_K, dev)
+    g_tss = [ts + B * (i + 1) for i in range(GROUP_K)]
+    ts += GROUP_K * B
+    check(f"K5 group_commit ({GROUP_K} x {B})",
+          lambda s: K.group_commit(s, g_rows, g_ns, g_tss, a_log2, t_log2),
+          lambda s: L.commit_transfers_group_plain(s, g_rows, g_ns, g_tss, a_log2, t_log2))
+    check("K6 fingerprint (both tables)",
+          lambda s: K.fingerprint(s["acct_rows"], s["xfer_rows"], s["commit_ts"]),
+          L.state_fingerprint_plain)
+    dr, cr = random_pairs(rng, 8192, N_ACCOUNTS)
+    arr = transfers(types, np.arange(7_600_000_001, 7_600_000_001 + 8192), dr, cr,
+                    rng.integers(1, 1_000_000, 8192).astype(np.uint64))
+    arr["timestamp"] = ts + np.arange(1, 8193, dtype=np.uint64)
+    i_rows = L.transfers_to_batch(arr, dev)["rows"]
+    i_ful = torch.from_numpy(rng.integers(0, 3, 8192).astype(np.int32)).to(dev)
+    check("K9 install_rows (8192 rows)",
+          lambda s: K.install_rows(s, "xfer", i_rows, i_ful, 8192, t_log2),
+          lambda s: L.install_rows_plain(s, "xfer", i_rows, i_ful, 8192, t_log2))
     if int(sk["fault"]) != 0:
         fail(f"the main-shape checks faulted: {int(sk['fault'])}")
     del sk, sp
@@ -922,11 +1180,72 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
     pt = timed(torch, lambda: L.commit_transfers_serial_plain(st, next(it), tsv, n, a_log2,
                                                               t_log2), 2)
     out["K4"] = (kt, pt, *bound(nbytes, n))  # no post/void: one dependent trip each
+
+    # K5: a group of 16 fresh requests of 8190 each run; its bound is the
+    # sum of K3's over the slots, each counted on the state before the group
+    def fresh_group():
+        batches = []
+        for _ in range(GROUP_K):
+            ids = np.arange(next_id[0], next_id[0] + B)
+            next_id[0] += B
+            dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+            batches.append(transfers(types, ids, dr, cr,
+                                     rng.integers(1, 1000, B).astype(np.uint64)))
+        return group_rows(torch, L, batches, GROUP_K, dev)
+
+    groups = [fresh_group() for _ in range(8)]
+    nbytes = sum(transfer_bytes(torch, ht, st, groups[0][0][i, :B], a_log2, t_log2, 32)
+                 for i in range(GROUP_K))
+    tss = [10**13] * GROUP_K
+    it = iter(groups)
+    kt = timed(torch, lambda: K.group_commit(st, *next(it), tss, a_log2, t_log2), 6)
+    pt = timed(torch, lambda: L.commit_transfers_group_plain(st, *next(it), tss, a_log2,
+                                                             t_log2), 2)
+    out["K5"] = (kt, pt, *bound(nbytes))
+    del groups
+
+    # K6: every row's key sector decides liveness; a live row's other 96
+    # bytes are read too
+    fp = K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"]).cpu().tolist()
+    slots = st["acct_rows"].shape[0] - 1 + st["xfer_rows"].shape[0] - 1
+    nbytes = slots * SECTOR + (fp[2] + fp[3]) * 96 + 5 * 8
+    kt = timed(torch, lambda: K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"]),
+               20)
+    pt = timed(torch, lambda: L.state_fingerprint_plain(st), 3)
+    out["K6"] = (kt, pt, *bound(nbytes))
+    log(f"  K6 reads {slots} key sectors and {fp[2] + fp[3]} live rows; the whole tables "
+        f"({slots * 128} bytes) would take {slots * 128 / H100_BYTES_PER_S * 1e3:.6f} ms")
+
+    # K9: consecutive 8192-row chunks into a fresh table, as a restore runs
+    fresh = L.init_state(ledger.process, dev)
+    chunks = []
+    for _ in range(13):
+        ids = np.arange(next_id[0], next_id[0] + 8192)
+        next_id[0] += 8192
+        dr, cr = random_pairs(rng, 8192, N_ACCOUNTS)
+        t = transfers(types, ids, dr, cr, rng.integers(1, 1000, 8192).astype(np.uint64))
+        chunks.append((L.transfers_to_batch(t, dev)["rows"],
+                       torch.from_numpy(rng.integers(0, 3, 8192).astype(np.int32)).to(dev)))
+    probes = probe_counts(torch, ht, chunks[0][0][:, :4].contiguous(), fresh["xfer_rows"],
+                          t_log2, 32)
+    nbytes = 8192 * 2 * (128 + 4) + probes * SECTOR
+    it = iter(chunks)
+    kt = timed(torch, lambda: K.install_rows(fresh, "xfer", *next(it), 8192, t_log2), 10)
+    pt = timed(torch, lambda: L.install_rows_plain(fresh, "xfer", *next(it), 8192, t_log2), 3)
+    out["K9"] = (kt, pt, *bound(nbytes))
+    if int(fresh["fault"]):
+        fail(f"the timed installs faulted: {int(fresh['fault'])}")
+    del fresh, chunks
+    torch.cuda.empty_cache()
+
     ledger.check_fault()
     host_breakdown(torch, L, types, rng, dev, out["K3"][0][0])
     for k, (kt, pt, b, by) in out.items():
         log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
             f"plain {pt[0]:.4f} ms [p25 {pt[1]:.4f}, p75 {pt[2]:.4f}], bound {b:.6f} ms ({by})")
+    us = [t * 1e3 / (GROUP_K * B) for t in out["K5"][0]]
+    log(f"  K5 per transfer: {us[0]:.6f} us [p25 {us[1]:.6f}, p75 {us[2]:.6f}] "
+        f"({GROUP_K} x {B} per group)")
     return out
 
 
@@ -967,6 +1286,12 @@ KERNELS = [
      "tigerbeetle_tpu_torch/csrc/commit_transfers.cu", "tigerbeetle_tpu/models/ledger.py:805"),
     ("K4", "commit_transfers_serial", "K4 commit_transfers serial",
      "tigerbeetle_tpu_torch/csrc/serial_transfers.cu", "tigerbeetle_tpu/models/ledger.py:1004"),
+    ("K5", "group_commit", "K5 group_commit",
+     "tigerbeetle_tpu_torch/csrc/group_commit.cu", "tigerbeetle_tpu/models/ledger.py:2384"),
+    ("K6", "fingerprint", "K6 fingerprint",
+     "tigerbeetle_tpu_torch/csrc/fingerprint.cu", "tigerbeetle_tpu/models/ledger.py:325"),
+    ("K9", "install_rows", "K9 install_rows",
+     "tigerbeetle_tpu_torch/csrc/install.cu", "tigerbeetle_tpu/models/ledger.py:2561"),
 ]
 
 
@@ -1012,10 +1337,17 @@ def main() -> int:
 
     log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
+    phase_seam_kernels(torch, L, types, constants, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
     log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
-    sm, launches, tps = phase_main_path(torch, L, SM, types, constants, dev, card)
+    sm, tps, g_tps = phase_main_path(torch, L, SM, types, constants, dev, card)
+    phase_snapshot(torch, L, SM, types, constants, dev, sm)
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"  launches on the main path: {launches}")
+    if not all(launches.values()):
+        fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
@@ -1038,7 +1370,8 @@ def main() -> int:
             "ms": kt, "plain_ms": pt, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })
-    log(f"  main path: {tps:.0f} transfers/s; whole run {time.perf_counter() - t_start:.1f} s")
+    log(f"  main path: {tps:.0f} transfers/s one request at a time, {g_tps:.0f} transfers/s "
+        f"in groups of {GROUP_K}; whole run {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,13 @@ from tigerbeetle_tpu import state_machine as jsm
 from tigerbeetle_tpu.constants import TEST_PROCESS as J_TEST_PROCESS
 from tigerbeetle_tpu.models.ledger import DeviceLedger as JaxLedger
 from tigerbeetle_tpu.testing.workload import WorkloadGenerator
-from tigerbeetle_tpu.types import Operation, accounts_to_np, transfers_to_np
+from tigerbeetle_tpu.types import (
+    Account,
+    Operation,
+    Transfer,
+    accounts_to_np,
+    transfers_to_np,
+)
 from tigerbeetle_tpu_torch import state_machine as tsm
 from tigerbeetle_tpu_torch.constants import TEST_PROCESS
 from tigerbeetle_tpu_torch.models.ledger import DeviceLedger as PortLedger
@@ -70,8 +76,35 @@ def test_commit_async_finish():
     assert sm_t.backend.hazards.plan_stats == sm_j.backend.hazards.plan_stats
     for h_j, h_t in handles:
         assert sm_t.commit_finish(h_t) == sm_j.commit_finish(h_j)
+        assert sm_t.handle_plan(h_t) == sm_j.handle_plan(h_j)
     sm_t.backend.check_fault()
-    assert sm_t.commit_group_async(Operation.create_transfers, [(1, b""), (2, b"")]) is None
+
+    # group commit: three create_transfers bodies fused into one dispatch
+    # (one padding slot), some of whose events fail
+    ts += 100
+    accounts = [Account(id=9000 + i, ledger=1, code=1) for i in range(8)]
+    body = accounts_to_np(accounts).tobytes()
+    for sm in (sm_j, sm_t):
+        sm.prepare(Operation.create_accounts, body)
+    assert sm_t.commit(Operation.create_accounts, ts, body) == \
+        sm_j.commit(Operation.create_accounts, ts, body)
+    batches = []
+    for b, size in enumerate((20, 32, 7)):
+        tr = [Transfer(id=70_000 + 100 * b + i, debit_account_id=9000 + i % 8,
+                       credit_account_id=9000 + (i + 1 + b) % 8, amount=0 if i % 9 == 4 else i,
+                       ledger=1, code=1) for i in range(size)]
+        ts += size
+        batches.append((ts, transfers_to_np(tr).tobytes()))
+    g_j = sm_j.commit_group_async(Operation.create_transfers, batches)
+    g_t = sm_t.commit_group_async(Operation.create_transfers, batches)
+    assert g_j is not None and g_t is not None and len(g_t) == 3
+    sm_j.commit_finish_many(g_j)
+    sm_t.commit_finish_many(g_t)
+    replies = [sm_t.commit_finish(h) for h in g_t]
+    assert replies == [sm_j.commit_finish(h) for h in g_j]
+    assert all(replies) and [sm_t.handle_plan(h) for h in g_t] == [None] * 3
+    assert sm_t.commit_group_async(Operation.create_transfers, batches[:1]) is None
+    sm_t.backend.check_fault()
     for op in Operation:
         assert sm_t.batch_max(op) == sm_j.batch_max(op)
 

@@ -20,8 +20,8 @@ def state_from_numpy(d: dict, device="cpu") -> dict:
     """{name: numpy u32/u64 array or scalar} -> {name: int32/int64 tensor}."""
     out = {}
     for k, v in d.items():
-        a = np.ascontiguousarray(np.asarray(v))
-        out[k] = torch.from_numpy(a.view(_SIGNED[a.dtype]).copy()).to(device)
+        a = np.array(v)  # a contiguous copy; keeps 0-d scalars 0-d
+        out[k] = torch.from_numpy(a.view(_SIGNED[a.dtype])).to(device)
     return out
 
 

@@ -29,6 +29,7 @@
 #include <cuda_runtime.h>
 
 #include "claim.cuh"
+#include "commit_transfers.cuh"
 #include "hash.cuh"
 #include "validate.cuh"
 
@@ -276,13 +277,11 @@ __global__ void xfer_apply(XferFast a) {
   atomicMax(a.commit_ts, event_ts(a.timestamp, a.n, i));
 }
 
-extern "C" int tb_commit_transfers_fast(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,
-                                        int t_log2, uint32_t* fulfill, uint32_t* xfer_claim,
-                                        uint32_t* bal_acc, ull* commit_ts, ull* xfer_count,
-                                        ull* xfer_used, uint32_t* fault, const uint32_t* batch,
-                                        const uint8_t* mask, int B, int n, ull timestamp,
-                                        int pv_mode, int32_t* results, char* scratch,
-                                        cudaStream_t stream) {
+void xfer_fast_enqueue(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows, int t_log2,
+                       uint32_t* fulfill, uint32_t* xfer_claim, uint32_t* bal_acc, ull* commit_ts,
+                       ull* xfer_count, ull* xfer_used, uint32_t* fault, const uint32_t* batch,
+                       const uint8_t* mask, int B, int n, ull timestamp, int pv_mode,
+                       int32_t* results, char* scratch, cudaStream_t stream) {
   size_t size;
   XferFast a = carve(scratch, B, &size);
   a.acct_rows = acct_rows;
@@ -310,5 +309,17 @@ extern "C" int tb_commit_transfers_fast(uint32_t* acct_rows, int a_log2, uint32_
   xfer_fold<<<grid_for(2LL * B), LANES_PER_BLOCK, 0, stream>>>(a);
   xfer_finalize<<<1, 1, 0, stream>>>(a);
   xfer_apply<<<grid_for(2LL * B), LANES_PER_BLOCK, 0, stream>>>(a);
+}
+
+extern "C" int tb_commit_transfers_fast(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,
+                                        int t_log2, uint32_t* fulfill, uint32_t* xfer_claim,
+                                        uint32_t* bal_acc, ull* commit_ts, ull* xfer_count,
+                                        ull* xfer_used, uint32_t* fault, const uint32_t* batch,
+                                        const uint8_t* mask, int B, int n, ull timestamp,
+                                        int pv_mode, int32_t* results, char* scratch,
+                                        cudaStream_t stream) {
+  xfer_fast_enqueue(acct_rows, a_log2, xfer_rows, t_log2, fulfill, xfer_claim, bal_acc, commit_ts,
+                    xfer_count, xfer_used, fault, batch, mask, B, n, timestamp, pv_mode, results,
+                    scratch, stream);
   return (int)cudaGetLastError();
 }

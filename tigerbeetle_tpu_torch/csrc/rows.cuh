@@ -29,6 +29,7 @@
 #define FAULT_OVERFLOW 4u
 #define FAULT_SERIAL 8u
 #define FAULT_CAPACITY 16u
+#define FAULT_INSTALL (1u << 30)
 
 #define NS_PER_S 1000000000ull
 

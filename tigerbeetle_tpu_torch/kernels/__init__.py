@@ -14,6 +14,9 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     commit_accounts_serial  K2  LedgerKernels._serial_accounts
     commit_transfers_fast   K3  LedgerKernels._commit_transfers (fast, fast_pv)
     commit_transfers_serial K4  LedgerKernels._serial_transfers_core
+    group_commit            K5  DeviceLedger._group_stepper
+    fingerprint             K6  state_fingerprint
+    install_rows            K9  DeviceLedger._install_fn
 
 `chase` is no kernel of the ledger: a pointer chase that measures the
 card's dependent-load latency for the serial kernels' bounds.
@@ -23,11 +26,13 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
+_I64 = ctypes.c_longlong
 
 LAUNCHES = {
     "lookup": 0,
@@ -35,6 +40,9 @@ LAUNCHES = {
     "commit_accounts_serial": 0,
     "commit_transfers_fast": 0,
     "commit_transfers_serial": 0,
+    "group_commit": 0,
+    "fingerprint": 0,
+    "install_rows": 0,
 }
 
 _SIGNATURES = {
@@ -45,6 +53,10 @@ _SIGNATURES = {
                                  _I, _I, _U64, _I, _P, _P, _P],
     "tb_commit_transfers_serial": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _P, _P, _P],
+    "tb_group_commit": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                        _P, _P, _P, _P],
+    "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P],
+    "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
 }
 _SCRATCH = (
@@ -52,6 +64,7 @@ _SCRATCH = (
     "tb_commit_accounts_serial_scratch",
     "tb_commit_transfers_fast_scratch",
     "tb_commit_transfers_serial_scratch",
+    "tb_install_rows_scratch",
 )
 
 _lib = None
@@ -183,16 +196,20 @@ def commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
     return results
 
 
-def commit_transfers_fast(state, rows_b, mask, n: int, timestamp: int,
-                          a_log2: int, t_log2: int, pv_mode: bool):
-    """K3: commit `rows_b` (lanes < n, and in `mask` if given) into `state`
-    in place; returns int32 codes."""
-    B = _check_batch(rows_b, n)
+def _check_fast_state(state, a_log2: int, t_log2: int) -> None:
     _check_rows(state["acct_rows"], "acct_rows", a_log2)
     _check_rows(state["xfer_rows"], "xfer_rows", t_log2)
     _check_rows(state["bal_acc"], "bal_acc", a_log2)
     for name in ("fulfill", "xfer_claim"):
         _need(state[name], torch.int32, 1, name)
+
+
+def commit_transfers_fast(state, rows_b, mask, n: int, timestamp: int,
+                          a_log2: int, t_log2: int, pv_mode: bool):
+    """K3: commit `rows_b` (lanes < n, and in `mask` if given) into `state`
+    in place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    _check_fast_state(state, a_log2, t_log2)
     if mask is not None:
         _need(mask, torch.bool, 1, "mask")
         if mask.shape[0] != B:
@@ -226,6 +243,78 @@ def commit_transfers_serial(state, rows_b, ts_vec, n: int, a_log2: int, t_log2: 
             *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
             _ptr(rows_b), _ptr(ts_vec), B, n, _ptr(results), _ptr(scratch), _stream())
     return results
+
+
+GROUP_K_MAX = 16  # csrc/group_commit.cu GROUP_K_MAX
+
+
+def group_commit(state, rows, ns, tss, a_log2: int, t_log2: int):
+    """K5: commit k staged batches `rows` [k, n_pad, 32] (slot i: lanes
+    < ns[i], timestamp tss[i]) into `state` in place, in slot order, through
+    K3's fast tier. Returns (flat int32 [k * n_pad + 1]: the codes of each
+    slot then the fault word, summary int32 [k + 1]: each slot's count of
+    non-zero codes then the fault word)."""
+    _need(rows, torch.int32, 3, "group rows")
+    k, n_pad, words = rows.shape
+    ns = np.ascontiguousarray(ns, dtype=np.int32)
+    tss = np.array([_u64(int(t)) for t in tss], dtype=np.uint64)
+    if words != 32 or not 1 <= k <= GROUP_K_MAX or ns.shape != (k,) or tss.shape != (k,) \
+            or ((ns < 0) | (ns > n_pad)).any():
+        raise ValueError(f"group: rows {tuple(rows.shape)}, ns {ns.tolist()}, {len(tss)} timestamps")
+    _check_fast_state(state, a_log2, t_log2)
+    dev = rows.device
+    flat = torch.empty(k * n_pad + 1, dtype=torch.int32, device=dev)
+    summary = torch.empty(k + 1, dtype=torch.int32, device=dev)
+    scratch = _scratch("tb_commit_transfers_fast_scratch", n_pad, dev)
+    # ns and tss are read on the host during the call
+    _launch("tb_group_commit", "group_commit",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
+            _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
+            *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
+            _ptr(rows), k, n_pad, ns.ctypes.data, tss.ctypes.data, _ptr(flat), _ptr(summary),
+            _ptr(scratch), _stream())
+    return flat, summary
+
+
+def fingerprint(acct_rows, xfer_rows, commit_ts):
+    """K6: int64 [5] = accounts_fp, transfers_fp, live accounts, live
+    transfers (u64 bits), commit_ts; the tables' last (dump) rows excluded."""
+    for t, name in ((acct_rows, "acct_rows"), (xfer_rows, "xfer_rows")):
+        _need(t, torch.int32, 2, name)
+        if t.shape[1] != 32 or t.shape[0] < 1:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}")
+    _need(commit_ts, torch.int64, 0, "commit_ts")
+    out = torch.empty(5, dtype=torch.int64, device=acct_rows.device)
+    _launch("tb_fingerprint", "fingerprint", _ptr(acct_rows), acct_rows.shape[0] - 1,
+            _ptr(xfer_rows), xfer_rows.shape[0] - 1, _ptr(commit_ts), _ptr(out), _stream())
+    return out
+
+
+def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
+    """K9: install the row images `rows_b` [B, 32] (lanes < n) into the
+    `table` ("acct" or "xfer") of `state` in place, with their fulfill words
+    `ful_b` [B] for transfers (None for accounts)."""
+    if table not in ("acct", "xfer") or (ful_b is None) != (table == "acct"):
+        raise ValueError(f"install: table {table!r} with fulfill {ful_b is not None}")
+    B = _check_batch(rows_b, n)
+    if B == 0:
+        raise ValueError("install: empty chunk")
+    rows = state[f"{table}_rows"]
+    _check_rows(rows, f"{table}_rows", cap_log2)
+    _need(state[f"{table}_claim"], torch.int32, 1, f"{table}_claim")
+    fulfill = None
+    if ful_b is not None:
+        _need(ful_b, torch.int32, 1, "fulfill chunk")
+        _need(state["fulfill"], torch.int32, 1, "fulfill")
+        if ful_b.shape[0] != B:
+            raise ValueError(f"install: {ful_b.shape[0]} fulfill words for {B} rows")
+        fulfill = state["fulfill"]
+    scratch = _scratch("tb_install_rows_scratch", B, rows_b.device)
+    _launch("tb_install_rows", "install_rows",
+            _ptr(rows), _ptr(state[f"{table}_claim"]), cap_log2,
+            None if fulfill is None else _ptr(fulfill),
+            *_scalars(state, f"{table}_count", f"{table}_used_slots", "fault"),
+            _ptr(rows_b), None if ful_b is None else _ptr(ful_b), B, n, _ptr(scratch), _stream())
 
 
 def chase(nxt, start: int, steps: int):

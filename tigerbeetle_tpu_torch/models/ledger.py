@@ -24,6 +24,13 @@ JAX planner, so both packages plan every batch identically):
 - **serial**: the exact event-at-a-time commit (`commit_transfers_serial`,
   `commit_accounts_serial`): linked-chain rollback through an undo log and
   tombstones, in-batch post/void, balancing clamps, duplicate ids.
+- **group**: up to GROUP_KS[0] quorum-ready fast-tier batches of the
+  replica commit as one fused dispatch (`try_execute_group_async`, K5),
+  slot after slot, with one summary read for the whole group.
+
+Besides the commit path: the state fingerprint (K6, the digest the replica
+folds into its commitment chain) and the snapshot row install (K9, the
+restore path after a checkpoint restore or a state-sync jump).
 
 Every kernel has a plain PyTorch version here (`*_plain`); the wrappers run
 it for CPU tensors and launch the CUDA kernel (tigerbeetle_tpu_torch.kernels)
@@ -37,7 +44,8 @@ rounds can, with ~2^-32 probability per op at the enforced load factor of
 1/2, run out. The fast kernel detects it before writing, turns the commit
 into a no-op and sets the sticky `fault` word; every later commit is then a
 no-op too. The serial kernels apply as they go, so an unresolved probe there
-sets FAULT_SERIAL: the state is corrupt. The host raises on a non-zero word.
+sets FAULT_SERIAL: the state is corrupt. An install row that finds no free
+slot sets FAULT_INSTALL. The host raises on a non-zero word.
 """
 
 from __future__ import annotations
@@ -80,6 +88,7 @@ FAULT_CLAIM = 2  # fast-tier claim rounds exhausted (batch was a no-op)
 FAULT_OVERFLOW = 4  # device-side overflow backstop tripped (batch was a no-op)
 FAULT_SERIAL = 8  # serial-tier probe window exhausted: STATE IS CORRUPT
 FAULT_CAPACITY = 16  # device-side load-factor guard tripped (batch no-op)
+FAULT_INSTALL = 1 << 30  # snapshot install: a row found no free slot
 
 _FAULT_NAMES = (
     (FAULT_PROBE, "probe-window"),
@@ -87,6 +96,7 @@ _FAULT_NAMES = (
     (FAULT_OVERFLOW, "overflow-backstop"),
     (FAULT_SERIAL, "serial-probe"),
     (FAULT_CAPACITY, "capacity-guard"),
+    (FAULT_INSTALL, "install-probe"),
 )
 
 
@@ -566,6 +576,43 @@ def commit_transfers_fast(state, rows_b, n: int, timestamp: int,
 
 
 # ----------------------------------------------------------------------
+# K5: fused group commit of k fast-tier batches
+# ----------------------------------------------------------------------
+
+# Group capacities: a run of items pads to the smallest that holds it, with
+# zero-count slots (the JAX package's `DeviceLedger.GROUP_KS`).
+GROUP_KS = (16, 4)
+
+
+def commit_transfers_group_plain(state, rows, ns, tss, a_log2: int, t_log2: int):
+    """Plain version of K5 (`DeviceLedger._group_stepper`): the fast commit
+    of each slot of `rows` [k, n_pad, 32] in order (slot i: lanes < ns[i],
+    timestamp tss[i]), each seeing the state the slot before it left; a
+    fault makes every later slot a no-op (K3's sticky gate). Updates
+    `state` in place; returns (flat int32 [k * n_pad + 1]: the codes, then
+    the fault word; summary int32 [k + 1]: each slot's count of non-zero
+    codes over lanes < ns[i], then the fault word)."""
+    k, n_pad = rows.shape[:2]
+    results = torch.stack([
+        commit_transfers_fast_plain(state, rows[i], int(ns[i]), int(tss[i]),
+                                    a_log2, t_log2, False)
+        for i in range(k)
+    ])
+    lane = torch.arange(n_pad, dtype=I64, device=rows.device)
+    n_col = torch.as_tensor(np.asarray(ns, dtype=np.int64), device=rows.device)[:, None]
+    counts = ((results != 0) & (lane < n_col)).sum(dim=1).to(I32)
+    f = state["fault"].reshape(1)
+    return torch.cat([results.reshape(-1), f]), torch.cat([counts, f])
+
+
+def commit_transfers_group(state, rows, ns, tss, a_log2: int, t_log2: int):
+    """K5 wrapper: the plain version for CPU tensors, the CUDA kernel else."""
+    if _check_device(rows):
+        return _k.group_commit(state, rows, ns, tss, a_log2, t_log2)
+    return commit_transfers_group_plain(state, rows, ns, tss, a_log2, t_log2)
+
+
+# ----------------------------------------------------------------------
 # K4: exact serial transfer commit
 # ----------------------------------------------------------------------
 
@@ -871,6 +918,132 @@ def commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
     if _check_device(rows_b):
         return _k.commit_accounts_serial(state, rows_b, n, timestamp, a_log2)
     return commit_accounts_serial_plain(state, rows_b, n, timestamp, a_log2)
+
+
+# ----------------------------------------------------------------------
+# K6: state fingerprint (the dual-commit and commitment-chain digest)
+#
+# An order-independent digest over LIVE table rows: the wrapping u64 sum of
+# a per-row hash of the 128-byte wire image. The JAX package and its native
+# engine (tb_ledger_fingerprint) compute the identical function, so two
+# ledgers that applied the same prepares agree iff their row sets are
+# bit-identical, whatever their slot layout. Change no constant alone.
+# ----------------------------------------------------------------------
+
+_FP_SEED = np.uint64(0x9E3779B97F4A7C15)
+_FP_MUL = np.uint64(0xC2B2AE3D27D4EB4F)
+_FP_ADD = np.uint64(0x165667B19E3779F9)
+_FP_MIX1 = np.uint64(0xFF51AFD7ED558CCD)
+_FP_MIX2 = np.uint64(0xC4CEB9FE1A85EC53)
+
+# The order of the words of `state_fingerprint_vec`.
+FP_KEYS = ("accounts_fp", "transfers_fp", "accounts", "transfers", "commit_timestamp")
+
+
+def _fp_mix(x):
+    """The murmur3 finalizer on int64 lanes holding u64 bits."""
+    x = (x ^ u128.srl(x, 33)) * u128.to_i64(int(_FP_MIX1))
+    x = (x ^ u128.srl(x, 33)) * u128.to_i64(int(_FP_MIX2))
+    return x ^ u128.srl(x, 33)
+
+
+def _fp_rows(rows):
+    """[S, 32] int32 table -> (u64 hash sum over live rows, live count), as
+    0-d int64 tensors. Empty (key words all 0) and tombstone (all
+    0xFFFFFFFF) rows are excluded. One column at a time, so a full table
+    needs no [S, 32] int64 copy."""
+    seed = u128.to_i64(int(_FP_SEED))
+    mul = u128.to_i64(int(_FP_MUL))
+    add = u128.to_i64(int(_FP_ADD))
+    h = torch.full((rows.shape[0],), seed, dtype=I64, device=rows.device)
+    for i in range(ROW_WORDS):
+        h = h ^ ((rows[:, i].to(I64) & 0xFFFFFFFF) * mul)
+        h = ((h << 27) | u128.srl(h, 37)) * seed + add
+    h = _fp_mix(h)
+    live = ht.occupied_mask(rows)
+    return torch.where(live, h, 0).sum(), live.sum()
+
+
+def state_fingerprint_plain(state):
+    """Plain version of K6 (`state_fingerprint` of the JAX package): int64
+    [5] in FP_KEYS order. The trailing dump row is excluded."""
+    afp, alive = _fp_rows(state["acct_rows"][:-1])
+    tfp, tlive = _fp_rows(state["xfer_rows"][:-1])
+    return torch.stack([afp, tfp, alive, tlive, state["commit_ts"]])
+
+
+def state_fingerprint_vec(state):
+    """K6 wrapper: the plain version for CPU tensors, the CUDA kernel else."""
+    if _check_device(state["acct_rows"]):
+        return _k.fingerprint(state["acct_rows"], state["xfer_rows"], state["commit_ts"])
+    return state_fingerprint_plain(state)
+
+
+def state_fingerprint(state) -> dict:
+    """The digest as {FP_KEYS: 0-d int64 tensor holding u64 bits}, on the
+    state's device (no host read)."""
+    return dict(zip(FP_KEYS, state_fingerprint_vec(state).unbind()))
+
+
+def fp_rows_np(rows: np.ndarray) -> tuple:
+    """The numpy twin of _fp_rows over 128-byte wire rows (structured
+    ACCOUNT_DTYPE/TRANSFER_DTYPE arrays or raw [n, 32] u32) -> (fp, live)
+    as Python ints. The per-row hash depends on the content only and the
+    sum commutes, so host row images in any order give the device's digest."""
+    if rows.dtype != np.uint32:
+        rows = np.ascontiguousarray(rows).view(np.uint32)
+    rows = rows.reshape(-1, ROW_WORDS)
+    if len(rows) == 0:
+        return 0, 0
+    with np.errstate(over="ignore"):
+        h = np.full(rows.shape[0], _FP_SEED, dtype=np.uint64)
+        for i in range(ROW_WORDS):
+            h = h ^ (rows[:, i].astype(np.uint64) * _FP_MUL)
+            h = ((h << np.uint64(27)) | (h >> np.uint64(37))) * _FP_SEED + _FP_ADD
+        h = (h ^ (h >> np.uint64(33))) * _FP_MIX1
+        h = (h ^ (h >> np.uint64(33))) * _FP_MIX2
+        h = h ^ (h >> np.uint64(33))
+        k4 = rows[:, :4]
+        live = ~(k4 == 0).all(axis=1) & ~(k4 == 0xFFFFFFFF).all(axis=1)
+        return (
+            int(np.sum(np.where(live, h, np.uint64(0)), dtype=np.uint64)),
+            int(np.sum(live, dtype=np.uint64)),
+        )
+
+
+# ----------------------------------------------------------------------
+# K9: snapshot row install
+# ----------------------------------------------------------------------
+
+
+def install_rows_plain(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
+    """Plain version of K9 (`DeviceLedger._install_fn`): claim a slot for
+    each row image of `rows_b` (lanes < n) in the `table` ("acct" or
+    "xfer") and write it, with its fulfill word from `ful_b` for transfers.
+    Resolved lanes add to the table's count and used slots; an unresolved
+    active lane sets FAULT_INSTALL. Not gated on an earlier fault. Updates
+    `state` in place."""
+    rows = state[f"{table}_rows"]
+    active = torch.arange(rows_b.shape[0], dtype=I64, device=rows_b.device) < n
+    slots, resolved = ht.claim_slots(
+        rows_b[:, :4], active, rows, state[f"{table}_claim"], cap_log2
+    )
+    ok = active & resolved
+    w = slots[ok]
+    rows[w] = rows_b[ok]
+    if ful_b is not None:
+        state["fulfill"][w] = ful_b[ok]
+    nn = ok.sum()
+    state[f"{table}_count"] += nn
+    state[f"{table}_used_slots"] += nn
+    state["fault"] |= (active & ~resolved).any().to(I32) * FAULT_INSTALL
+
+
+def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
+    """K9 wrapper: the plain version for CPU tensors, the CUDA kernel else."""
+    if _check_device(rows_b):
+        return _k.install_rows(state, table, rows_b, ful_b, n, cap_log2)
+    return install_rows_plain(state, table, rows_b, ful_b, n, cap_log2)
 
 
 # ----------------------------------------------------------------------
@@ -1388,15 +1561,55 @@ def applied_insert_mask(dense: list[int], flags: np.ndarray) -> np.ndarray:
 # ----------------------------------------------------------------------
 
 
+def _next_pow2(n: int, floor: int = 8) -> int:
+    p = floor
+    while p < n:
+        p <<= 1
+    return p
+
+
+class PendingGroup:
+    """One fused dispatch covering several batches (group commit): the flat
+    results [k * n_pad + 1] (last word = fault) and the summary [k + 1]
+    (per-slot failure counts, then the fault word), each read to the host
+    at most once for the whole group. The all-success drain reads only the
+    summary (the reply of an all-ok batch is empty; reference:
+    src/tigerbeetle.zig:231-249 sparse results)."""
+
+    __slots__ = ("results", "n_pad", "k", "host", "summary", "host_summary")
+
+    def __init__(self, results, n_pad: int, k: int, summary):
+        self.results = results
+        self.n_pad = n_pad
+        self.k = k
+        self.host = None
+        self.summary = summary
+        self.host_summary = None
+
+    def fetch(self) -> np.ndarray:
+        if self.host is None:
+            self.host = self.results.cpu().numpy().view(np.uint32)
+        return self.host
+
+    def fetch_summary(self) -> np.ndarray:
+        if self.host_summary is None:
+            self.host_summary = self.summary.cpu().numpy().view(np.uint32)
+        return self.host_summary
+
+
 class PendingBatch:
     """Handle for a dispatched commit whose results are still on the device:
     `results` is [n + 1] int32 (the codes, then the fault word), `summary`
-    [2] int32 (count of non-zero codes, fault word)."""
+    [2] int32 (count of non-zero codes, fault word). A batch of a group
+    commit instead points into its `group` at slot `group_idx`. `plan` is
+    the planner's (decision, wave count) for create_transfers dispatched
+    alone, else None."""
 
     __slots__ = ("operation", "n", "results", "flags", "dense", "summary",
-                 "failures", "codes_np")
+                 "failures", "codes_np", "group", "group_idx", "plan")
 
-    def __init__(self, operation, n, results, flags, summary):
+    def __init__(self, operation, n, results, flags, summary=None, group=None,
+                 group_idx=0, plan=None):
         self.operation = operation
         self.n = n
         self.results = results
@@ -1405,6 +1618,9 @@ class PendingBatch:
         self.summary = summary
         self.failures = None  # failure count once drained
         self.codes_np = None  # dense codes (failure path only)
+        self.group = group  # PendingGroup when part of a fused dispatch
+        self.group_idx = group_idx  # this batch's slot within the group
+        self.plan = plan
 
 
 def _summarize(results, fault):
@@ -1451,6 +1667,8 @@ class DeviceLedger:
         self._acct_limit = (1 << process.account_slots_log2) // 2
         self._xfer_limit = (1 << process.transfer_slots_log2) // 2
         self.hazards = HazardTracker()
+        # (k, n_pad) -> the group commit's two staging buffers
+        self._group_staging: dict = {}
 
     def prepare(self, operation: Operation, event_count: int) -> None:
         """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
@@ -1488,6 +1706,7 @@ class DeviceLedger:
             else:  # forced tier (parity tests)
                 decision, wave_plan = self.mode, None
             self.hazards.note_pending(arr)
+            plan_info = (decision, wave_plan.n_waves if wave_plan is not None else 1)
             if n == 0:
                 results = torch.zeros(0, dtype=I32, device=dev)
             elif decision == "waves":
@@ -1516,11 +1735,12 @@ class DeviceLedger:
                 results = self.kernels.commit_accounts(
                     self.state, accounts_to_batch(arr, dev), n, timestamp, mode=mode
                 )
+            plan_info = None
             self._acct_used += n
         else:
             raise ValueError(operation)
         packed, summary = _summarize(results, self.state["fault"])
-        return PendingBatch(operation, n, packed, arr["flags"].copy(), summary)
+        return PendingBatch(operation, n, packed, arr["flags"].copy(), summary, plan=plan_info)
 
     def _execute_waves(self, arr, n: int, timestamp: int, plan):
         """Conflict-scheduled wave execution (the HazardTracker.plan layout):
@@ -1550,6 +1770,177 @@ class DeviceLedger:
             results = self.kernels.merge_results(results, r_res, idx_dev)
         return results
 
+    # ------------------------------------------------------------------
+    # group commit (the replica's fused dispatch of quorum-ready prepares)
+    # ------------------------------------------------------------------
+
+    def _group_staging_slot(self, k: int, n_pad: int) -> dict:
+        """One of two alternating host staging buffers per (k, n_pad), so
+        that group N + 1 is packed while group N's upload may still be in
+        flight. Pinned when the ledger is on a card (the upload is then
+        asynchronous; `fence` is the CUDA event recorded after it). `used`
+        holds each slot's row count, so only stale tails are zeroed."""
+        entry = self._group_staging.setdefault((k, n_pad), {"i": 0, "slots": [None, None]})
+        i = entry["i"]
+        entry["i"] = 1 - i
+        slot = entry["slots"][i]
+        if slot is None:
+            rows = torch.zeros((k, n_pad, ROW_WORDS), dtype=I32,
+                               pin_memory=self.device.type == "cuda")
+            slot = entry["slots"][i] = {
+                "rows": rows, "np": rows.numpy(),
+                "used": np.zeros(k, dtype=np.int64), "fence": None,
+            }
+        return slot
+
+    def try_execute_group_async(self, items) -> list[PendingBatch] | None:
+        """Commit `items` = [(timestamp, transfers ndarray), ...] as one
+        fused group (K5), or return None when fusion does not apply: forced
+        mode, fewer than 2 items, the load limit would be crossed, or a
+        batch not proven fast-tier (the planner's amount bound and stats
+        are then rolled back, since the caller plans each batch again).
+        A failed build or launch raises."""
+        if self.mode != "auto" or len(items) < 2:
+            return None
+        if len(items) > GROUP_KS[0]:
+            # the caller zips the pendings with its items: never truncate
+            raise ValueError(f"{len(items)} items > group capacity {GROUP_KS[0]}")
+        total = sum(len(arr) for _, arr in items)
+        if self._xfer_used + total > self._xfer_limit:
+            return None  # the per-batch path raises the descriptive guard
+        sum_before = self.hazards.amount_sum
+        stats_before = dict(self.hazards.plan_stats)
+        decisions = [self.hazards.plan(arr) for _, arr in items]
+        if any(d != "fast" for d, _plan in decisions):
+            self.hazards.amount_sum = sum_before
+            self.hazards.plan_stats = stats_before
+            return None
+        k = next(g for g in reversed(GROUP_KS) if g >= len(items))
+        n_pad = _next_pow2(max(len(arr) for _, arr in items))
+        slot = self._group_staging_slot(k, n_pad)
+        if slot["fence"] is not None:
+            # the upload of the group that last used this buffer must have
+            # landed before the buffer is written again
+            slot["fence"].synchronize()
+            slot["fence"] = None
+        rows, used = slot["np"], slot["used"]
+        ns = np.zeros(k, dtype=np.int32)  # padding slots: n = 0, no-ops
+        tss = [0] * k
+        for i, (ts, arr) in enumerate(items):
+            na = len(arr)
+            rows[i, :na] = _to_rows_np(arr)
+            if used[i] > na:
+                rows[i, na:used[i]] = 0  # zero only the stale tail
+            used[i] = na
+            ns[i] = na
+            tss[i] = ts
+        for i in range(len(items), k):
+            if used[i]:
+                rows[i, :used[i]] = 0
+                used[i] = 0
+        dev_rows = slot["rows"].to(self.device, non_blocking=True)
+        if self.device.type == "cuda":
+            slot["fence"] = torch.cuda.Event()
+            slot["fence"].record()
+        flat, summary = commit_transfers_group(
+            self.state, dev_rows, ns, tss, self.kernels.a_log2, self.kernels.t_log2
+        )
+        for _ts, arr in items:
+            self.hazards.note_pending(arr)
+        self._xfer_used += total
+        group = PendingGroup(flat, n_pad, k, summary)
+        return [
+            PendingBatch(Operation.create_transfers, len(arr), flat, arr["flags"].copy(),
+                         group=group, group_idx=i)
+            for i, (_ts, arr) in enumerate(items)
+        ]
+
+    # ------------------------------------------------------------------
+    # state fingerprint (commitment chain, dual-commit verification)
+    # ------------------------------------------------------------------
+
+    def fingerprint_lazy(self) -> dict:
+        """state_fingerprint as 0-d device tensors (u64 bits in int64): a
+        launch, no host read."""
+        return state_fingerprint(self.state)
+
+    def fingerprint(self) -> dict:
+        """The state fingerprint as Python ints (u64), with one host read."""
+        words = state_fingerprint_vec(self.state).cpu().tolist()
+        return {k: v & ((1 << 64) - 1) for k, v in zip(FP_KEYS, words)}
+
+    # ------------------------------------------------------------------
+    # snapshot row install (the restore path of a checkpoint or state sync)
+    # ------------------------------------------------------------------
+
+    INSTALL_CHUNK = 8192  # rows per install launch: part of the slot layout
+
+    def reset_state(self) -> None:
+        """Drop every table back to fresh, the install's precondition: an
+        install onto applied rows would give a present key a second slot
+        and count the occupancy twice."""
+        self.state = init_state(self.process, self.device)
+        self._acct_used = 0
+        self._xfer_used = 0
+        self.hazards = HazardTracker()
+
+    def install_snapshot_rows(self, accounts: np.ndarray, transfers: np.ndarray,
+                              fulfill: np.ndarray, commit_timestamp: int) -> None:
+        """Rebuild the tables from 128-byte wire row images (ACCOUNT_DTYPE /
+        TRANSFER_DTYPE arrays; `fulfill` is the transfers' posted/voided
+        column, 0 = unresolved) on a fresh state. The rows upload once and
+        install in INSTALL_CHUNK chunks, accounts first (K9); a row that
+        finds no slot sets FAULT_INSTALL, seen by the next check_fault. Then
+        the commit clock, the host occupancy and the hazard tracker's limit
+        accounts, pending registry and amount bound are rebuilt."""
+        if len(fulfill) != len(transfers):
+            raise ValueError(f"{len(fulfill)} fulfill words for {len(transfers)} transfers")
+        dev = self.device
+        ch = self.INSTALL_CHUNK
+        ful_all = torch.from_numpy(
+            np.ascontiguousarray(fulfill, dtype=np.uint32).view(np.int32)
+        ).to(dev)
+        for table, arr, ful, log2 in (
+            ("acct", accounts, None, self.kernels.a_log2),
+            ("xfer", transfers, ful_all, self.kernels.t_log2),
+        ):
+            if not len(arr):
+                continue
+            rows = torch.tensor(_to_rows_np(arr), device=dev)  # one upload
+            for i in range(0, len(arr), ch):
+                part = rows[i:i + ch]
+                install_rows(self.state, table, part, None if ful is None else ful[i:i + ch],
+                             len(part), log2)
+        self.state["commit_ts"].fill_(u128.to_i64(commit_timestamp))
+        self._acct_used += len(accounts)
+        self._xfer_used += len(transfers)
+        self.hazards.note_limit_accounts(accounts)
+        if len(transfers):
+            # a superset of the live pendings (an extra entry only sends a
+            # later post/void batch to a slower tier)
+            pen = (transfers["flags"] & np.uint16(F_PENDING)) != 0
+            for idl, idh, dl, cl in zip(
+                transfers["id_lo"][pen], transfers["id_hi"][pen],
+                transfers["debit_account_id_lo"][pen],
+                transfers["credit_account_id_lo"][pen],
+            ):
+                self.hazards.pending_accounts[int(idl) | (int(idh) << 64)] = (int(dl), int(cl))
+        # the amount bound ("no balance can exceed it"): the sum of every
+        # restored balance bounds each of them
+        if len(accounts):
+            for col in ("debits_posted", "credits_posted", "debits_pending", "credits_pending"):
+                lo, hi = accounts[col + "_lo"], accounts[col + "_hi"]
+                self.hazards.amount_sum += (
+                    int(np.sum(lo & np.uint64(0xFFFFFFFF), dtype=np.uint64))
+                    + (int(np.sum(lo >> np.uint64(32), dtype=np.uint64)) << 32)
+                    + ((int(np.sum(hi & np.uint64(0xFFFFFFFF), dtype=np.uint64))
+                        + (int(np.sum(hi >> np.uint64(32), dtype=np.uint64)) << 32)) << 64)
+                )
+
+    # ------------------------------------------------------------------
+    # results
+    # ------------------------------------------------------------------
+
     def check_fault(self) -> None:
         """Raise if the device hit the fault protocol. Waits for the device."""
         raise_on_fault(int(self.state["fault"]), "device ledger")
@@ -1558,20 +1949,35 @@ class DeviceLedger:
         """Materialize a pending batch's dense result codes and reconcile the
         occupancy charge to the exact ever-applied insert count (rolled-back
         inserts leave tombstones, which still occupy probe slots). An
-        all-success batch reads only the two summary words. Idempotent."""
+        all-success batch reads only the summary words. Idempotent."""
         if pending.dense is not None:
             return pending.dense
-        s = pending.summary.cpu().numpy()
+        if pending.group is not None:
+            g = pending.group
+            s = g.fetch_summary()  # [k counts..., fault]
+            if int(s[pending.group_idx]) == 0:
+                return self._drain_all_ok(pending, int(s[-1]))
+            arr = g.fetch()  # one read for the whole group (cached)
+            off = pending.group_idx * g.n_pad
+            return self._drain_from_host(pending, arr[off:off + pending.n], int(arr[-1]))
+        s = pending.summary.cpu().numpy().view(np.uint32)  # [count, fault]
         if int(s[0]) == 0:
-            raise_on_fault(int(s[1]), "device ledger")
-            pending.failures = 0
-            pending.dense = [0] * pending.n
-            return pending.dense
+            return self._drain_all_ok(pending, int(s[1]))
         arr = pending.results.cpu().numpy().view(np.uint32)
-        raise_on_fault(int(arr[-1]), "device ledger")
-        pending.codes_np = arr[: pending.n].copy()
+        return self._drain_from_host(pending, arr[:pending.n], int(arr[-1]))
+
+    def _drain_all_ok(self, pending: PendingBatch, fault: int) -> list[int]:
+        raise_on_fault(fault, "device ledger")
+        pending.failures = 0
+        pending.dense = [0] * pending.n
+        return pending.dense
+
+    def _drain_from_host(self, pending: PendingBatch, codes: np.ndarray,
+                         fault: int) -> list[int]:
+        raise_on_fault(fault, "device ledger")
+        pending.codes_np = codes.copy()
         pending.failures = int(np.count_nonzero(pending.codes_np))
-        dense = [int(x) for x in pending.codes_np]
+        dense = pending.codes_np.tolist()
         applied = int(applied_insert_mask(dense, pending.flags).sum())
         if pending.operation == Operation.create_transfers:
             self._xfer_used += applied - pending.n
@@ -1581,6 +1987,13 @@ class DeviceLedger:
         # after a fault exception must re-raise, not return unsound codes
         pending.dense = dense
         return dense
+
+    def drain_many(self, pendings) -> None:
+        """Materialize a window of pending batches (a group's batches share
+        one summary read, or one results read when any of them failed)."""
+        for p in pendings:
+            if p is not None:
+                self.drain(p)
 
     def drain_reply(self, pending: PendingBatch, operation) -> bytes:
         """The reply body (sparse non-ok result structs, reference:

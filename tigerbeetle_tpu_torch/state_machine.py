@@ -15,9 +15,9 @@ wire encoding:
 
 The counterpart of `tigerbeetle_tpu/state_machine.py`. The backend is
 anything with the ledger driver API (execute_dense / execute_async / drain /
-prepare / lookup_*; device backends also expose lookup_rows): here the
-port's DeviceLedger, on a CUDA card or on the CPU. Group commit is not part
-of this package yet, so `commit_group_async` always declines.
+prepare / lookup_*; device backends also expose lookup_rows and the group
+commit, try_execute_group_async / drain_many): here the port's DeviceLedger,
+on a CUDA card or on the CPU.
 """
 
 from __future__ import annotations
@@ -176,11 +176,43 @@ class StateMachine:
         )
         return (operation, self.backend.execute_async(operation, timestamp, events))
 
+    @staticmethod
+    def handle_plan(handle):
+        """The backend's wave-planner decision for a commit_async handle:
+        (decision, wave_count), e.g. ("waves", 3), or None when the backend
+        has no planner, the op was not a create, or the batch was part of a
+        fused group."""
+        if isinstance(handle, bytes):
+            return None
+        return getattr(handle[1], "plan", None)
+
     def commit_group_async(self, operation: Operation, batches):
-        """Fused group commit is not ported yet: always None, so callers
-        commit batch by batch (as the JAX version does for a backend without
-        group commit)."""
-        return None
+        """Fuse consecutive create_transfers commits into one device
+        dispatch (group commit). `batches` = [(timestamp, body), ...].
+        Returns a list of commit_async-compatible handles, or None when
+        fusion does not apply: callers then commit batch by batch."""
+        if operation != Operation.create_transfers or len(batches) < 2:
+            return None
+        if not hasattr(self.backend, "try_execute_group_async"):
+            return None
+        # read-only views (no 1 MiB copy per batch): the group path only
+        # reads the rows into its staging buffer
+        items = [
+            (ts, np.frombuffer(body, dtype=TRANSFER_DTYPE))
+            for ts, body in batches
+        ]
+        pendings = self.backend.try_execute_group_async(items)
+        if pendings is None:
+            return None
+        return [(operation, p) for p in pendings]
+
+    def commit_finish_many(self, handles) -> None:
+        """Materialize several commit_async handles at once (see
+        DeviceLedger.drain_many); the commit_finish calls after it read the
+        cached results."""
+        pendings = [h[1] for h in handles if not isinstance(h, bytes)]
+        if pendings and hasattr(self.backend, "drain_many"):
+            self.backend.drain_many(pendings)
 
     def commit_finish(self, handle) -> bytes:
         """Materialize a commit_async handle into the reply body bytes."""
