@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Phases (each failure exits non-zero):
-1. environment: torch, CUDA, the card's name and power limit; build the
-   kernels from `tigerbeetle_tpu_torch/csrc/`; the card's dependent-load
+1. environment: torch, CUDA, the card's name and power limit, the host's
+   machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
+   the native engine from `native/ledger.cc`; the card's dependent-load
    latency (a pointer chase), the unit of the serial kernels' bounds;
 2. every kernel against its plain PyTorch version on the card, at a reduced
    table geometry (2^14 account / 2^16 transfer slots): result codes and
@@ -13,7 +14,9 @@ Phases (each failure exits non-zero):
    failure path and the fault gates (overflow, capacity, sticky fault,
    exhausted probe windows, a group whose second slot faults, a group with
    a padding slot, an install with no free slot, tombstones and a nonzero
-   dump row under the fingerprint);
+   dump row under the fingerprint); the reply-code fold (K7) on padding
+   slots, a one-lane slot, high-bit codes and ring slots routed to the dump
+   slot;
 3. the main path at deployment size: StateMachine over
    DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
    the reference benchmark's traffic (10,000 accounts, batches of 8190,
@@ -30,10 +33,27 @@ Phases (each failure exits non-zero):
 4. every kernel against its plain version on copies of the main path's
    state, on batches of the shapes the main path gives it (codes and every
    state leaf equal); the kernel table's max_abs_err comes from here;
+   the fold (K7) on the results of a real group (16 x 8192) and of a real
+   request (8190);
 5. a torch.profiler trace of more main-path requests (the card's busy and
    idle share) and a cProfile of the host's share;
 6. each kernel timed on the main path's state at its main-path shape,
-   beside its plain version and its bound.
+   beside its plain version and its bound;
+7. the dual-commit follower at deployment size: DualLedger(20, 24,
+   follower=True, warm_kernels=True) on cuda, driven as the replica drives
+   it (native execute answers, then apply_commit at finalize, in op order):
+   10,000 accounts, 64 requests of 8190 transfers in runs of 16 committed
+   as native groups and broken by account requests, a pending request and
+   its posts and voids, the linked request, a commitment probe, then a
+   restore from the native snapshot (K9 in the applier) and two more runs
+   of 16 requests: the first under the applier's device trace window, the
+   second sampled by the applier's latency anatomy (instrument(), trace
+   ids and enqueue stamps: the applier waits for each sampled group on
+   the card); finalize() must report verified, the hash-log ring and the
+   commitment probe green, and the fold and the group commit must have
+   run. The same requests through a NativeLedger alone give the reply
+   rate without the follower. At 2^12 / 2^14 slots, a corrupted op 5 must
+   fail the check at op 5.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -41,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 import subprocess
 import sys
 import time
@@ -466,6 +487,74 @@ def phase_seam_kernels(torch, L, types, constants, dev):
         log(f"    live accounts {fp[2]}, transfers {fp[3]}; equal to fp_rows_np on the host")
 
 
+def fold_compare(torch, L, K, name, flat, n_pad, ns, active, idxs, rng) -> int:
+    """K7 and its plain version from one random chain value (and ring, when
+    `idxs` is given) on the same codes: the chain and every ring entry, the
+    dump slot included, must be equal. Returns the largest difference."""
+    from tigerbeetle_tpu_torch.models.dual_ledger import APPLY_RING
+
+    dev = flat.device
+    chk0 = torch.tensor(int(rng.integers(-(1 << 63), 1 << 63)), dtype=torch.int64, device=dev)
+    ring0 = None
+    if idxs is not None:
+        ring0 = torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, APPLY_RING + 1)).to(dev)
+    ck, cp = chk0.clone(), chk0.clone()
+    rk = None if ring0 is None else ring0.clone()
+    rp = None if ring0 is None else ring0.clone()
+    K.fold(ck, flat, n_pad, ns, active, rk, idxs)
+    torch.cuda.synchronize()
+    L.fold_codes_plain(cp, flat, n_pad, ns, active, rp, idxs)
+    torch.cuda.synchronize()
+    err = max_abs_diff(ck, cp)
+    if ring0 is not None:
+        err = max(err, max_abs_diff(rk, rp))
+    log(f"  {name}: max_abs_err={err} chain={int(ck) & ((1 << 64) - 1):#x}")
+    if err != 0:
+        fail(f"{name} differs from its plain version")
+    return err
+
+
+def fold_codes_np(rng, n):
+    """Reply codes with the high bit set in a fifth of the lanes."""
+    c = rng.integers(0, 60, n).astype(np.uint32)
+    c[rng.random(n) < 0.2] |= np.uint32(0x8000_0000)
+    c[rng.random(n) < 0.05] = 0xFFFF_FFFF
+    return c
+
+
+def phase_fold_kernels(torch, L, dev):
+    """K7 against its plain version on the card: 16 slots with padding
+    slots (n = 0, inactive) and ring slots that collide (the earlier op
+    goes to the dump slot), 4 slots with a one-lane slot and no ring, the
+    solo forms with and without a ring, on codes with the high bit set."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models.dual_ledger import APPLY_RING, _ring_indices
+
+    rng = np.random.default_rng(SEED + 9)
+
+    def flat(k, n_pad):
+        return torch.from_numpy(fold_codes_np(rng, k * n_pad + 1).view(np.int32)).to(dev)
+
+    ns = [8190, 1, 0, 8192, 4096, 300, 8190, 7, 8190, 2, 8191] + [0] * 5
+    ops = [100 + i for i in range(11)]
+    ops[3] = ops[1] + APPLY_RING  # op 3's slot collides with op 1's
+    idxs = _ring_indices(ops, 16)
+    if idxs[1] != APPLY_RING or list(idxs[11:]) != [APPLY_RING] * 5:
+        fail(f"ring indices {idxs.tolist()} do not route to the dump slot")
+    active = [True] * 11 + [False] * 5
+    fold_compare(torch, L, K, "K7 fold (16 slots, 5 padding, colliding ring slots)",
+                 flat(16, 8192), 8192, ns, active, idxs, rng)
+    fold_compare(torch, L, K, "K7 fold (4 slots, one of 1 lane, no ring)",
+                 flat(4, 8192), 8192, [8190, 1, 8190, 5000], [True] * 4, None, rng)
+    fold_compare(torch, L, K, "K7 fold (4 slots, 2 inactive, ring)",
+                 flat(4, 1024), 1024, [1024, 17, 0, 0], [True, True, False, False],
+                 _ring_indices([APPLY_RING - 1, 5], 4), rng)
+    fold_compare(torch, L, K, "K7 fold (solo, 1 lane, ring)", flat(1, 1), 1, [1], [True],
+                 [APPLY_RING - 1], rng)
+    fold_compare(torch, L, K, "K7 fold (solo, 8190 lanes, no ring)", flat(1, 8190), 8190,
+                 [8190], [True], None, rng)
+
+
 def mixed_batches(types, rng, n_batches, n):
     """Random traffic over every tier: limit accounts, pendings and their
     posts/voids (earlier and same batch), linked chains, balancing flags,
@@ -867,15 +956,24 @@ def phase_main_shapes(torch, L, types, ledger, dev):
 
     def k3(name, arr, pv, mask=None):
         rows = L.transfers_to_batch(arr, dev)["rows"]
-        check(name,
-              lambda s: K.commit_transfers_fast(s, rows, mask, B, ts, a_log2, t_log2, pv),
-              lambda s: L.commit_transfers_fast_plain(s, rows, B, ts, a_log2, t_log2, pv, mask))
+        return check(name,
+                     lambda s: K.commit_transfers_fast(s, rows, mask, B, ts, a_log2, t_log2, pv),
+                     lambda s: L.commit_transfers_fast_plain(s, rows, B, ts, a_log2, t_log2, pv,
+                                                             mask))
+
+    def fold_check(name, flat, n_pad, ns, idxs):
+        errs[name] = fold_compare(torch, L, K, name, flat, n_pad, ns, [True] * len(ns), idxs,
+                                  rng)
 
     dr, cr = random_pairs(rng, B, N_ACCOUNTS)
     ids = np.arange(7_000_000_000 + B, 7_000_000_000, -1)
     ts += B
-    k3("K3 commit_transfers fast (8190 transfers)",
-       transfers(types, ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64)), False)
+    codes = k3("K3 commit_transfers fast (8190 transfers)",
+               transfers(types, ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64)),
+               False)
+    # the follower's solo fold on a request's packed results (codes, fault)
+    fold_check(f"K7 fold (solo, {B} lanes of a K3 request, ring)",
+               torch.cat([codes, sk["fault"].reshape(1)]), B, [B], [B % 4096])
     pend_ids = np.arange(7_100_000_001, 7_100_000_001 + B)
     dr, cr = random_pairs(rng, B, N_ACCOUNTS)
     ts += B
@@ -916,9 +1014,12 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     g_rows, g_ns = group_rows(torch, L, batches, GROUP_K, dev)
     g_tss = [ts + B * (i + 1) for i in range(GROUP_K)]
     ts += GROUP_K * B
-    check(f"K5 group_commit ({GROUP_K} x {B})",
-          lambda s: K.group_commit(s, g_rows, g_ns, g_tss, a_log2, t_log2),
-          lambda s: L.commit_transfers_group_plain(s, g_rows, g_ns, g_tss, a_log2, t_log2))
+    flat = check(f"K5 group_commit ({GROUP_K} x {B})",
+                 lambda s: K.group_commit(s, g_rows, g_ns, g_tss, a_log2, t_log2),
+                 lambda s: L.commit_transfers_group_plain(s, g_rows, g_ns, g_tss, a_log2, t_log2))
+    n_pad = flat.shape[0] // GROUP_K
+    fold_check(f"K7 fold ({GROUP_K} x {n_pad} of a K5 group's results, ring)", flat, n_pad,
+               [B] * GROUP_K, list(range(GROUP_K)))
     check("K6 fingerprint (both tables)",
           lambda s: K.fingerprint(s["acct_rows"], s["xfer_rows"], s["commit_ts"]),
           L.state_fingerprint_plain)
@@ -1238,6 +1339,22 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
     del fresh, chunks
     torch.cuda.empty_cache()
 
+    # K7: the follower's fused fold over a group of 16 requests of 8190
+    # (n_pad 8192) with its ring, and its solo fold of one request: each
+    # lane's code is read once, the chain read and written, a ring entry
+    # written per slot
+    from tigerbeetle_tpu_torch.models.dual_ledger import APPLY_RING
+
+    for key, k, n_pad in (("K7", GROUP_K, 8192), ("K7s", 1, B)):
+        flat = torch.from_numpy(fold_codes_np(rng, k * n_pad + 1).view(np.int32)).to(dev)
+        ns, act, idxs = [B] * k, [True] * k, list(range(k))
+        chains = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
+        rings = [torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=dev) for _ in range(2)]
+        kt = timed(torch, lambda: K.fold(chains[0], flat, n_pad, ns, act, rings[0], idxs), 20)
+        pt = timed(torch, lambda: L.fold_codes_plain(chains[1], flat, n_pad, ns, act, rings[1],
+                                                     idxs), 5)
+        out[key] = (kt, pt, *bound(k * B * 4 + k * 8 + 2 * 8))
+
     ledger.check_fault()
     host_breakdown(torch, L, types, rng, dev, out["K3"][0][0])
     for k, (kt, pt, b, by) in out.items():
@@ -1246,6 +1363,8 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
     us = [t * 1e3 / (GROUP_K * B) for t in out["K5"][0]]
     log(f"  K5 per transfer: {us[0]:.6f} us [p25 {us[1]:.6f}, p75 {us[2]:.6f}] "
         f"({GROUP_K} x {B} per group)")
+    log(f"  K7 is timed on a group of {GROUP_K} x {B} codes (n_pad 8192) with its ring; K7s on "
+        f"one request of {B} codes with its ring")
     return out
 
 
@@ -1274,6 +1393,228 @@ def host_breakdown(torch, L, types, rng, dev, kernel_ms):
         f"summary read {read:.4f} ms; kernels {kernel_ms:.4f} ms")
 
 
+# ----------------------------------------------------------------------
+# phase 7: the dual-commit follower
+# ----------------------------------------------------------------------
+
+DUAL_RUNS = 4  # runs of GROUP_K transfer requests before the restore
+
+
+def dual_requests(types, rng):
+    """The follower's op stream as segments (operation, [arrays], replies
+    expected empty); a segment of several transfer requests commits as one
+    native group. Returns (the segments before the restore, the two after
+    it)."""
+    Op = types.Operation
+    B = 8190
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    acc["flags"][B + 100:B + 102] = [1, 0]  # a linked pair: the serial account commit
+    before = [(Op.create_accounts, [acc[:B]], True), (Op.create_accounts, [acc[B:]], True)]
+    bodies = benchmark_bodies(types, rng, (DUAL_RUNS + 2) * GROUP_K, 2_500_000_000)
+    arrs = [np.frombuffer(b, dtype=types.TRANSFER_DTYPE) for b in bodies]
+    for r in range(DUAL_RUNS):
+        if r:
+            # an account request ends the run: the applier commits it alone
+            first = N_ACCOUNTS + 1 + 16 * (r - 1)
+            before.append((Op.create_accounts, [accounts(types, np.arange(first, first + 16))],
+                           True))
+        before.append((Op.create_transfers, arrs[r * GROUP_K:(r + 1) * GROUP_K], True))
+    pend_ids = np.arange(2_600_000_001, 2_600_000_001 + B)
+    dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+    pend = transfers(types, pend_ids, dr, cr, rng.integers(1, 1_000_000, B).astype(np.uint64),
+                     flags=2)
+    res = transfers(types, np.arange(2_700_000_001, 2_700_000_001 + B), 0, 0, 0, ledger=0,
+                    code=0, flags=np.where(np.arange(B) % 2, 4, 8), pending_id=pend_ids)
+    lk = linked_request(types, rng, np.arange(2_800_000_001, 2_800_000_001 + B), 600)
+    before += [(Op.create_transfers, [pend], True), (Op.create_transfers, [res], True),
+               (Op.create_transfers, [lk], False)]
+    after = [[(Op.create_transfers, arrs[(DUAL_RUNS + r) * GROUP_K:(DUAL_RUNS + r + 1) * GROUP_K],
+               True)] for r in range(2)]
+    return before, after
+
+
+def drive_dual(led, Op, segments, op_no: int, follower: bool, lag: list, sampled=False):
+    """Commit `segments` through `led` as the replica does: each op is
+    prepared and executed by the native engine (a run of 16 transfer
+    requests as one native group), its reply built, and then, in op order,
+    handed to the follower at commit finalize (apply_commit; a sampled op
+    with its trace id and enqueue stamp). `lag` gets the apply lag after
+    each op. Returns (the last op number, the time of the first and of the
+    last apply_commit)."""
+    t_first = t_last = 0.0
+    for op, arrs, empty in segments:
+        items = []
+        for arr in arrs:
+            led.prepare(op, len(arr))
+            items.append((led.prepare_timestamp, arr))
+        if len(items) > 1:
+            pendings = led.try_execute_group_async(items)
+            if pendings is None:
+                fail("the native engine declined a group")
+        else:
+            pendings = [led.execute_async(op, *items[0])]
+        led.drain_many(pendings)
+        for (ts, arr), p in zip(items, pendings):
+            reply = led.drain_reply(p, op)
+            if empty and reply:
+                fail(f"op {op_no + 1} ({op.name}) failed: {np.frombuffer(reply, np.uint32)[:8]}")
+            op_no += 1
+            if follower:
+                t_last = time.perf_counter()
+                t_first = t_first or t_last
+                extra = {"trace": op_no, "lat_ns": time.perf_counter_ns()} if sampled else {}
+                led.apply_commit(op_no, op, ts, arr, p.codes, prepare_checksum=op_no, **extra)
+                lag.append(led.apply_lag_ops())
+    return op_no, t_first, t_last
+
+
+def dual_trace_share(path, card) -> None:
+    """The card's busy share over the applier's trace window: device
+    intervals (kernels, copies, memsets) merged over the span of every
+    event in the trace."""
+    if not os.path.exists(path):
+        fail(f"the applier's device trace window wrote no {path}")
+    with open(path) as f:
+        events = json.load(f)
+    events = [e for e in (events["traceEvents"] if isinstance(events, dict) else events)
+              if e.get("ph") == "X"]
+    device = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        log(f"  applier trace: {len(events)} events, no device events: busy share not measured")
+        return
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy, end = 0.0, lo
+    for a, b in device:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    log(f"  applier trace window: {(hi - lo) / 1e3:.4f} ms, device busy {busy / 1e3:.4f} ms "
+        f"({busy / (hi - lo):.4f}), {len(device)} device events [{card}]")
+
+
+def phase_dual(torch, types, card):
+    """The dual-commit follower at the deployment geometry, then the
+    corrupted-op check at 2^12 / 2^14. Returns the phase's launches."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.latency import device_leg_totals
+    from tigerbeetle_tpu_torch.metrics import Metrics
+    from tigerbeetle_tpu_torch.models.dual_ledger import DualLedger
+    from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+    from tigerbeetle_tpu_torch.tracer import Tracer
+
+    Op = types.Operation
+    before, after = dual_requests(types, np.random.default_rng(SEED + 8))
+    n_xfer = sum(len(a) for op, arrs, _ in before if op == Op.create_transfers for a in arrs)
+    n_ops = sum(len(arrs) for _, arrs, _ in before)
+
+    alone = NativeLedger(20, 24)
+    t0 = time.perf_counter()
+    drive_dual(alone, Op, before, 0, False, [])
+    alone_s = time.perf_counter() - t0
+    fp_alone = alone.fingerprint()
+    del alone
+
+    t0 = time.perf_counter()
+    led = DualLedger(20, 24, follower=True, warm_kernels=True)
+    metrics = Metrics()
+    led.instrument(metrics, Tracer())
+    torch.cuda.synchronize()
+    log(f"  DualLedger(20, 24, follower=True, warm_kernels=True): built and warmed in "
+        f"{time.perf_counter() - t0:.4f} s")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    lag = []
+    t0 = time.perf_counter()
+    op_no, t_first, t_last = drive_dual(led, Op, before, 0, True, lag)
+    dual_s = time.perf_counter() - t0
+    if not led.drain_applier(600):
+        fail("the applier did not drain")
+    t_drained = time.perf_counter()
+    torch.cuda.synchronize()
+    t_device = time.perf_counter()
+    fp_host = led.fingerprint()
+    if fp_host != fp_alone:
+        fail(f"the native engine's state differs with the follower running: {fp_host} {fp_alone}")
+    led.commitment_probe(op_no, fp_host)
+    stats = dict(led.shadow_stats)
+    log(f"  {n_ops} ops ({n_xfer} transfers) answered by the native engine in {dual_s:.4f} s with "
+        f"the follower running: {n_xfer / dual_s:.0f} transfers/s; alone (NativeLedger(20, 24), "
+        f"same requests and groups) {alone_s:.4f} s: {n_xfer / alone_s:.0f} transfers/s; "
+        f"ratio {alone_s / dual_s:.4f} [{card}]")
+    log(f"  applier: {n_xfer} transfers from the first apply_commit to drain_applier returning in "
+        f"{t_drained - t_first:.4f} s: {n_xfer / (t_drained - t_first):.0f} transfers/s; "
+        f"to the device done {t_device - t_first:.4f} s; drain after the last op "
+        f"{t_drained - t_last:.4f} s; largest apply_lag_ops {max(lag)} [{card}]")
+    log(f"  applier work: {stats['groups']} groups, {stats['solo']} solo batches, "
+        f"{stats['overlapped']} groups overlapped ({stats['overlapped'] / max(stats['groups'], 1):.4f}); "
+        f"stage {stats['stage_s']:.4f} s, idle {stats['idle_s']:.4f} s")
+
+    snap = led.snapshot_bytes()
+    t0 = time.perf_counter()
+    led.restore_bytes(snap)
+    if not led.drain_applier(600):
+        fail("the applier did not drain the install")
+    torch.cuda.synchronize()
+    log(f"  restore: native snapshot of {len(snap)} bytes installed on the card (K9 in the "
+        f"applier) in {time.perf_counter() - t0:.4f} s")
+    # the applier's device trace window over the first group after the
+    # restore; the anatomy samples the second, outside the window (the
+    # profiler's own host cost would land in its sub-legs)
+    trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace", "dual")
+    led.start_device_trace(trace_dir, window_s=0.0)
+    op_no, _, _ = drive_dual(led, Op, after[0], op_no, True, lag)
+    if not led.drain_applier(600):
+        fail("the applier did not drain the traced group")
+    op_no, _, _ = drive_dual(led, Op, after[1], op_no, True, lag, sampled=True)
+    report = led.finalize(600)
+    torch.cuda.synchronize()
+    dual_trace_share(os.path.join(trace_dir, "device_trace.json"), card)
+    launches = dict(K.LAUNCHES)
+    hl, cm = report.get("hash_log", {}), report.get("commitments", {})
+    log(f"  finalize: verified {report['verified']}, hash_log {hl}, commitments {cm}, "
+        f"code stream digest {report.get('code_stream_digest')}")
+    log(f"  launches in the dual phase: {launches}")
+    if report["verified"] is not True:
+        fail(f"the follower did not verify: {report}")
+    if not (hl.get("ok") and hl.get("ops") == 2 * GROUP_K and cm.get("ok")
+            and cm.get("checked") == 1):
+        fail(f"hash log or commitments not green: {hl} {cm}")
+    for name in ("fold", "group_commit", "commit_transfers_fast", "install_rows", "fingerprint"):
+        if not launches[name]:
+            fail(f"{name} was not launched in the dual phase: {launches}")
+    snap = metrics.snapshot()
+    legs = device_leg_totals(snap)
+    e2e = snap["histograms"].get("device.apply_e2e_us", {})
+    if e2e.get("count") != GROUP_K or legs.get("device_busy", {}).get("count") != GROUP_K:
+        fail(f"the applier's anatomy did not sample the {GROUP_K} ops of the last run: {legs}")
+    stats = dict(led.shadow_stats)
+    log(f"  applier anatomy of the {GROUP_K} sampled ops of the last run, mean us per op: "
+        + ", ".join(f"{k} {v['total_us'] / v['count']:.1f}" for k, v in legs.items())
+        + f"; e2e {e2e['mean']} us, max {e2e['max']} us; slowest "
+        f"{led.device_anatomy.slowest(1)}; the phase uploaded "
+        f"{snap['counters']['device.h2d_bytes']} bytes in {stats['groups']} groups and "
+        f"{stats['solo']} solo batches [{card}]")
+    del led
+
+    bad = DualLedger(12, 14, follower=True)
+    bad._test_corrupt_apply_op = 5
+    n = np.arange(32)
+    segs = [(Op.create_accounts, [accounts(types, np.arange(1, 17))], True)]
+    segs += [(Op.create_transfers,
+              [transfers(types, 1000 + 32 * g + n, 1 + n % 9, 1 + (n + 1) % 9, 1)], True)
+             for g in range(6)]
+    drive_dual(bad, Op, segs, 0, True, [])
+    report = bad.finalize(600)
+    hl = report.get("hash_log", {})
+    log(f"  corrupted op 5 at 2^12 / 2^14: verified {report['verified']}, hash_log {hl}")
+    if report["verified"] is not False or hl.get("first_divergent_op") != 5:
+        fail(f"the corrupted op was not named: {report}")
+    return launches
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its phase-4 checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -1292,7 +1633,10 @@ KERNELS = [
      "tigerbeetle_tpu_torch/csrc/fingerprint.cu", "tigerbeetle_tpu/models/ledger.py:325"),
     ("K9", "install_rows", "K9 install_rows",
      "tigerbeetle_tpu_torch/csrc/install.cu", "tigerbeetle_tpu/models/ledger.py:2561"),
+    ("K7", "fold", "K7 fold", "tigerbeetle_tpu_torch/csrc/fold.cu",
+     "tigerbeetle_tpu/models/ledger.py:365"),
 ]
+DUAL_KERNELS = ("fold",)  # the kernels of the dual phase's path alone
 
 
 def main() -> int:
@@ -1321,9 +1665,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     card = smi
+    log(f"  card: {card}; host machine: {platform.machine()}")
     t0 = time.perf_counter()
     lib = build.build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    from tigerbeetle_tpu_torch import native
+
+    t0 = time.perf_counter()
+    path = native.build()
+    log(f"  native engine built in {time.perf_counter() - t0:.1f} s: {path}")
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("   ", line.strip())
@@ -1338,6 +1688,7 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
     phase_seam_kernels(torch, L, types, constants, dev)
+    phase_fold_kernels(torch, L, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
     log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
@@ -1346,7 +1697,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     log(f"  launches on the main path: {launches}")
-    if not all(launches.values()):
+    if not all(v for k, v in launches.items() if k not in DUAL_KERNELS):
         fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
 
@@ -1360,13 +1711,17 @@ def main() -> int:
     log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
     times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns)
 
+    log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
+    dual_launches = phase_dual(torch, types, card)
+
     table = []
     for key, counter, name, source, replaces in KERNELS:
         (kt, _, _), (pt, _, _), bound_ms, bound_by = times[key]
         err = max(v for k, v in errs.items() if k.startswith(name))
+        n = (dual_launches if counter in DUAL_KERNELS else launches)[counter]
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[counter], "max_abs_err": err, "bit_exact": err == 0,
+            "launches": n, "max_abs_err": err, "bit_exact": err == 0,
             "ms": kt, "plain_ms": pt, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None,
         })

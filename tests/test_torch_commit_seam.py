@@ -200,7 +200,7 @@ def test_k5_group_fault_is_sticky():
     used = np.uint64(limit - 64 - 20)  # slot 1 fits, slot 2 does not
     js = dict(jax_state_np(pair.jax.state), xfer_used_slots=used)
     pair.jax.state = {k: jnp.asarray(v) for k, v in js.items()}
-    pair.port.state = convert.state_from_numpy(js)
+    pair.port.state = convert.state_from_numpy(js, "cpu")
     pj = pair.jax.try_execute_group_async(items)
     pt = pair.port.try_execute_group_async(items)
     summary = pt[0].group.summary.numpy().view(np.uint32)
@@ -259,7 +259,7 @@ def test_k6_state_fingerprint():
     want = {k: int(np.asarray(v)) for k, v in
             jledger.state_fingerprint({k: jnp.asarray(v) for k, v in st.items()}).items()}
     got = {k: int(v) & U64 for k, v in
-           tledger.state_fingerprint(convert.state_from_numpy(st)).items()}
+           tledger.state_fingerprint(convert.state_from_numpy(st, "cpu")).items()}
     assert got == want
     assert got["accounts"] == 40 and got["transfers"] == 40
     assert tledger.fp_rows_np(st["acct_rows"][:-1]) == jledger.fp_rows_np(st["acct_rows"][:-1]) \
@@ -321,7 +321,7 @@ def test_k9_install_snapshot_rows(case):
         rows[rng.choice(len(rows) - 1, 40, replace=False)] = 0xFFFFFFFF
         st["xfer_rows"] = rows
         pair.jax.state = {k: jnp.asarray(v) for k, v in st.items()}
-        pair.port.state = convert.state_from_numpy(st)
+        pair.port.state = convert.state_from_numpy(st, "cpu")
     for led in (pair.jax, pair.port):
         led.install_snapshot_rows(accounts, transfers, fulfill, commit_ts)
     pair.check()

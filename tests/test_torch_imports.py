@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: neither tigerbeetle_tpu_torch nor
-chip_smoke.py imports jax or anything of tigerbeetle_tpu, and its ledger
-defaults to the card."""
+chip_smoke.py imports jax or anything of tigerbeetle_tpu, and its ledgers
+default to the card."""
 
 import ast
 import pathlib
@@ -35,7 +35,12 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import tigerbeetle_tpu_torch, tigerbeetle_tpu_torch.state_machine\n"
         "import tigerbeetle_tpu_torch.models.ledger, tigerbeetle_tpu_torch.convert\n"
-        "import tigerbeetle_tpu_torch.kernels.build\n"
+        "import tigerbeetle_tpu_torch.kernels.build, tigerbeetle_tpu_torch.native\n"
+        "import tigerbeetle_tpu_torch.models.dual_ledger\n"
+        "import tigerbeetle_tpu_torch.models.native_ledger\n"
+        "import tigerbeetle_tpu_torch.metrics, tigerbeetle_tpu_torch.tracer\n"
+        "import tigerbeetle_tpu_torch.latency, tigerbeetle_tpu_torch.testing.hash_log\n"
+        "import tigerbeetle_tpu_torch.federation.commitment\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -57,6 +62,20 @@ def test_device_ledger_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DeviceLedger(TEST_PROCESS)
+
+
+def test_dual_ledger_defaults_to_cuda():
+    import torch
+
+    from tigerbeetle_tpu_torch.models.dual_ledger import DualLedger
+
+    if torch.cuda.is_available():
+        led = DualLedger(12, 14, follower=True)
+        assert led.device.device.type == "cuda"
+        assert led.finalize()["verified"] is True
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DualLedger(12, 14, follower=True)
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -112,7 +112,7 @@ def _run_both(base_np, jax_call, port_call):
     """Run one kernel on a fresh copy of the state in each package; return
     (JAX codes, port codes, JAX state as numpy, port state)."""
     js = {k: jnp.asarray(v) for k, v in base_np.items()}
-    ts = convert.state_from_numpy(base_np)
+    ts = convert.state_from_numpy(base_np, "cpu")
     js, r_j = jax_call(js)
     r_t = port_call(ts)
     return np.asarray(r_j), r_t.numpy().view(np.uint32), jax_state_np(js), ts
@@ -124,7 +124,7 @@ def test_k1_lookup(base):
     ids = list(range(1, 70)) + [0, (1 << 128) - 1, 1000, 1039, 1040, 2005, 3000, 3001]
     n = len(ids)
     js = {k: jnp.asarray(v) for k, v in base_np.items()}
-    ts = convert.state_from_numpy(base_np)
+    ts = convert.state_from_numpy(base_np, "cpu")
     key4 = tledger.ids_to_batch(ids, "cpu")["key4"]
     for table, jfn, log2 in (("acct_rows", kern.lookup_accounts, A_LOG2),
                              ("xfer_rows", kern.lookup_transfers, T_LOG2)):

@@ -17,6 +17,8 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     group_commit            K5  DeviceLedger._group_stepper
     fingerprint             K6  state_fingerprint
     install_rows            K9  DeviceLedger._install_fn
+    fold                    K7  fold_reply_codes and the fused folds of
+                                models/dual_ledger.py
 
 `chase` is no kernel of the ledger: a pointer chase that measures the
 card's dependent-load latency for the serial kernels' bounds.
@@ -25,6 +27,7 @@ card's dependent-load latency for the serial kernels' bounds.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +46,7 @@ LAUNCHES = {
     "group_commit": 0,
     "fingerprint": 0,
     "install_rows": 0,
+    "fold": 0,
 }
 
 _SIGNATURES = {
@@ -57,6 +61,7 @@ _SIGNATURES = {
                         _P, _P, _P, _P],
     "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P],
     "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "tb_fold": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
 }
 _SCRATCH = (
@@ -315,6 +320,52 @@ def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
             None if fulfill is None else _ptr(fulfill),
             *_scalars(state, f"{table}_count", f"{table}_used_slots", "fault"),
             _ptr(rows_b), None if ful_b is None else _ptr(ful_b), B, n, _ptr(scratch), _stream())
+
+
+FOLD_K_MAX = 16  # csrc/fold.cu FOLD_K_MAX
+_fold_tls = threading.local()
+
+
+def _fold_scratch(device):
+    """K7's zeroed u64 scratch words, one buffer per thread, device and
+    stream: the kernel leaves them zeroed, and a thread's launches on one
+    stream run in order, so no two folds share words in flight."""
+    bufs = _fold_tls.__dict__.setdefault("bufs", {})
+    key = (device, _stream())
+    buf = bufs.get(key)
+    if buf is None:
+        buf = bufs[key] = torch.zeros(FOLD_K_MAX, dtype=torch.int64, device=device)
+    return buf
+
+
+def fold(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
+    """K7: fold k slots of `flat` (int32, slot j at [j * n_pad, (j + 1) *
+    n_pad), lanes < ns[j]) into the chain `chk` (0-d int64, u64 bits) in
+    place; a slot advances the chain where `active[j]`. With a `ring` (1-d
+    int64), ring[idxs[j]] takes the chain value after slot j, in slot
+    order. `ns`, `active` and `idxs` are host sequences of length k."""
+    ns = np.ascontiguousarray(ns, dtype=np.int32)
+    k = ns.shape[0]
+    act = np.ascontiguousarray(active, dtype=np.uint8)
+    _need(flat, torch.int32, 1, "flat")
+    _need(chk, torch.int64, 0, "chk")
+    if not 1 <= k <= FOLD_K_MAX or act.shape != (k,) or flat.shape[0] < k * n_pad \
+            or ((ns < 0) | (ns > n_pad)).any():
+        raise ValueError(f"fold: flat {tuple(flat.shape)}, n_pad {n_pad}, ns {ns.tolist()}, "
+                         f"active {act.tolist()}")
+    ring_len = 0
+    idx = None
+    if ring is not None:
+        _need(ring, torch.int64, 1, "ring")
+        ring_len = ring.shape[0]
+        idx = np.ascontiguousarray(idxs, dtype=np.int32)
+        if idx.shape != (k,) or ((idx < 0) | (idx >= ring_len)).any():
+            raise ValueError(f"fold: ring indices {idx.tolist()} for a ring of {ring_len}")
+    # ns, active and idxs are read on the host during the call
+    _launch("tb_fold", "fold", _ptr(flat), n_pad, k, ns.ctypes.data, act.ctypes.data,
+            None if idx is None else idx.ctypes.data, _ptr(chk),
+            None if ring is None else _ptr(ring), ring_len, _ptr(_fold_scratch(flat.device)),
+            _stream())
 
 
 def chase(nxt, start: int, steps: int):

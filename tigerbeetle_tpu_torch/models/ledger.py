@@ -29,8 +29,10 @@ JAX planner, so both packages plan every batch identically):
   slot after slot, with one summary read for the whole group.
 
 Besides the commit path: the state fingerprint (K6, the digest the replica
-folds into its commitment chain) and the snapshot row install (K9, the
-restore path after a checkpoint restore or a state-sync jump).
+folds into its commitment chain), the reply-code fold (K7, the digest the
+dual-commit follower chains over every batch's codes, models/dual_ledger.py)
+and the snapshot row install (K9, the restore path after a checkpoint
+restore or a state-sync jump).
 
 Every kernel has a plain PyTorch version here (`*_plain`); the wrappers run
 it for CPU tensors and launch the CUDA kernel (tigerbeetle_tpu_torch.kernels)
@@ -50,12 +52,15 @@ slot sets FAULT_INSTALL. The host raises on a non-zero word.
 
 from __future__ import annotations
 
+from time import perf_counter_ns
+
 import numpy as np
 import torch
 
 from tigerbeetle_tpu_torch import kernels as _k
 from tigerbeetle_tpu_torch import types
 from tigerbeetle_tpu_torch.constants import DEFAULT_PROCESS, ConfigProcess
+from tigerbeetle_tpu_torch.metrics import NULL_METRICS
 from tigerbeetle_tpu_torch.models import validate
 from tigerbeetle_tpu_torch.models.validate import (
     F_BAL_CR,
@@ -67,6 +72,7 @@ from tigerbeetle_tpu_torch.models.validate import (
 )
 from tigerbeetle_tpu_torch.ops import hashtable as ht
 from tigerbeetle_tpu_torch.ops import u128
+from tigerbeetle_tpu_torch.tracer import NULL_TRACER
 from tigerbeetle_tpu_torch.types import Operation
 
 I32 = torch.int32
@@ -208,7 +214,7 @@ def key4_from_fields(f):
 # ----------------------------------------------------------------------
 
 
-def init_state(process: ConfigProcess = DEFAULT_PROCESS, device="cpu") -> dict:
+def init_state(process: ConfigProcess, device) -> dict:
     """Allocate the ledger on `device`. Tables have capacity+1 rows: the last
     row is the JAX kernels' write dump (never read, never written here).
     `bal_acc` is the balance-digit accumulator (all-zero between commits),
@@ -1012,6 +1018,70 @@ def fp_rows_np(rows: np.ndarray) -> tuple:
 
 
 # ----------------------------------------------------------------------
+# K7: the reply-code fold (reference seam: src/testing/hash_log.zig)
+#
+# A chained digest of the dense reply-code stream: each batch's codes hash
+# to one u64 (the wrapping sum over its lanes < n of a per-lane mix), which
+# is chained into the running value. The JAX package folds on the device,
+# and the native engine's codes fold on the host (fold_reply_codes_np); the
+# dual-commit follower compares the two. Change no constant alone.
+# ----------------------------------------------------------------------
+
+
+def _fold_batch_h(flat, n_pad: int, ns):
+    """int64 [k]: slot j's wrapping u64 sum over its lanes < ns[j] of
+    mix(zext(code) * FP_MUL + lane + 1)."""
+    k = len(ns)
+    codes = flat[:k * n_pad].reshape(k, n_pad).to(I64) & 0xFFFFFFFF
+    lane = torch.arange(n_pad, dtype=I64, device=flat.device)
+    m = _fp_mix(codes * u128.to_i64(int(_FP_MUL)) + lane + 1)
+    n = torch.as_tensor(np.asarray(ns, dtype=np.int64), device=flat.device)
+    return torch.where(lane < n[:, None], m, 0).sum(1)
+
+
+def fold_codes_plain(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
+    """Plain version of K7, in place: folds the k = len(ns) slots of `flat`
+    (int32, slot j at [j * n_pad, (j + 1) * n_pad), lanes < ns[j]) into the
+    chain `chk` (0-d int64 holding u64 bits); an inactive slot leaves the
+    chain as it is. With a `ring` (int64), ring[idxs[j]] takes the chain
+    value after slot j, in slot order. The JAX forms: `fold_reply_codes`
+    (k = 1), `_fold_ring_fn` (k = 1 with a ring), `_fold_group_fn` and
+    `_fold_group_ring_fn` (up to 16 slots)."""
+    batch_h = _fold_batch_h(flat, n_pad, ns)
+    c = chk.clone()
+    for j, n in enumerate(ns):
+        if active[j]:
+            c = _fp_mix(c ^ (batch_h[j] + int(n)))
+        if ring is not None:
+            ring[int(idxs[j])] = c
+    chk.copy_(c)
+
+
+def fold_codes(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
+    """K7 wrapper: the plain version for CPU tensors, the CUDA kernel else.
+    `ns`, `active` and `idxs` are host sequences."""
+    if _check_device(flat):
+        return _k.fold(chk, flat, n_pad, ns, active, ring, idxs)
+    return fold_codes_plain(chk, flat, n_pad, ns, active, ring, idxs)
+
+
+def fold_reply_codes_np(chk: int, codes: np.ndarray) -> int:
+    """The numpy twin of K7 for one batch (the JAX `fold_reply_codes`) over
+    the native engine's dense u32
+    codes (exact u64 wraparound): the host side of the comparison."""
+    with np.errstate(over="ignore"):
+        def mix(x):
+            x = (x ^ (x >> np.uint64(33))) * _FP_MIX1
+            x = (x ^ (x >> np.uint64(33))) * _FP_MIX2
+            return x ^ (x >> np.uint64(33))
+
+        lane = np.arange(len(codes), dtype=np.uint64)
+        m = mix(codes.astype(np.uint64) * _FP_MUL + lane + np.uint64(1))
+        batch_h = np.sum(m, dtype=np.uint64)
+        return int(mix(np.uint64(chk) ^ (batch_h + np.uint64(len(codes)))))
+
+
+# ----------------------------------------------------------------------
 # K9: snapshot row install
 # ----------------------------------------------------------------------
 
@@ -1645,6 +1715,17 @@ class DeviceLedger:
     - "fast" / "fast_pv" / "serial": force one tier (parity testing).
     """
 
+    # observability seams (metrics.py, tracer.py); instrument() re-points
+    # them at a shared registry, where the group staging fence waits and the
+    # uploaded event bytes report
+    metrics = NULL_METRICS
+    tracer = NULL_TRACER
+
+    def instrument(self, metrics, tracer) -> None:
+        self.metrics = metrics
+        self.tracer = tracer
+        self._c_h2d = metrics.counter("device.h2d_bytes")
+
     def __init__(self, process: ConfigProcess = DEFAULT_PROCESS,
                  mode: str = "auto", device=None):
         if device is None:
@@ -1669,6 +1750,10 @@ class DeviceLedger:
         self.hazards = HazardTracker()
         # (k, n_pad) -> the group commit's two staging buffers
         self._group_staging: dict = {}
+        # the group upload's issued time, for the dual follower's device
+        # anatomy: written and read by the thread that dispatches
+        self.last_h2d_done_ns = 0
+        self._c_h2d = self.metrics.counter("device.h2d_bytes")
 
     def prepare(self, operation: Operation, event_count: int) -> None:
         """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
@@ -1739,6 +1824,7 @@ class DeviceLedger:
             self._acct_used += n
         else:
             raise ValueError(operation)
+        self._c_h2d.add(arr.nbytes)
         packed, summary = _summarize(results, self.state["fault"])
         return PendingBatch(operation, n, packed, arr["flags"].copy(), summary, plan=plan_info)
 
@@ -1821,7 +1907,9 @@ class DeviceLedger:
         if slot["fence"] is not None:
             # the upload of the group that last used this buffer must have
             # landed before the buffer is written again
-            slot["fence"].synchronize()
+            with self.tracer.span("ledger.staging_wait"), \
+                    self.metrics.histogram("ledger.staging_wait_us").time():
+                slot["fence"].synchronize()
             slot["fence"] = None
         rows, used = slot["np"], slot["used"]
         ns = np.zeros(k, dtype=np.int32)  # padding slots: n = 0, no-ops
@@ -1842,6 +1930,8 @@ class DeviceLedger:
         if self.device.type == "cuda":
             slot["fence"] = torch.cuda.Event()
             slot["fence"].record()
+        self.last_h2d_done_ns = perf_counter_ns()
+        self._c_h2d.add(slot["rows"].nbytes)
         flat, summary = commit_transfers_group(
             self.state, dev_rows, ns, tss, self.kernels.a_log2, self.kernels.t_log2
         )

@@ -17,7 +17,8 @@ The counterpart of `tigerbeetle_tpu/state_machine.py`. The backend is
 anything with the ledger driver API (execute_dense / execute_async / drain /
 prepare / lookup_*; device backends also expose lookup_rows and the group
 commit, try_execute_group_async / drain_many): here the port's DeviceLedger,
-on a CUDA card or on the CPU.
+on a CUDA card or on the CPU, or its DualLedger (the native engine answers,
+the device ledger follows).
 """
 
 from __future__ import annotations
@@ -169,11 +170,15 @@ class StateMachine:
             self.backend, "execute_async"
         ):
             return self.commit(operation, timestamp, body)  # reads / oracle
-        events = (
-            decode_accounts(body)
-            if operation == Operation.create_accounts
-            else decode_transfers(body)
-        )
+        if getattr(self.backend, "zero_copy_events", False):
+            # the backend only reads the rows: skip the 1 MiB defensive copy
+            events = np.frombuffer(body, dtype=_EVENT_DTYPES[operation])
+        else:
+            events = (
+                decode_accounts(body)
+                if operation == Operation.create_accounts
+                else decode_transfers(body)
+            )
         return (operation, self.backend.execute_async(operation, timestamp, events))
 
     @staticmethod
