@@ -53,7 +53,31 @@ Phases (each failure exits non-zero):
    commitment probe green, and the fold and the group commit must have
    run. The same requests through a NativeLedger alone give the reply
    rate without the follower. At 2^12 / 2^14 slots, a corrupted op 5 must
-   fail the check at op 5.
+   fail the check at op 5;
+8. (run right after phase 3, on its ledger, before phases 5 and 6 commit
+   more) query_transfers by debit and credit account for 16 accounts against
+   the script's own record of the transfers it sent, looked up by id and in
+   timestamp order; query_accounts and query_transfers on ledger 2 must
+   raise QUERY_LIMIT; out-of-range values and unindexed fields must raise;
+   the filter scan (K8) against its plain version on six fields of both
+   tables (half-word, one, two and four words) at 2^20 / 2^24 slots, and
+   timed there;
+9. the bounded-memory ledger: StateMachine over DeviceLedger(2^20 account /
+   2^20 transfer slots, forest=Forest(Grid(MemoryStorage), memtable_max=
+   8192)) on cuda with the threaded IO worker: 10,000 accounts and 128
+   requests of 8190 transfers (8 of pendings first, the benchmark traffic,
+   then 8 of posts and voids of those pendings, spilled by then) must run
+   at least 2 spill cycles and reload at least 65,000 rows; every reply,
+   every account, a lookup of 8190 ids (half spilled) and the debit-account
+   queries of 16 accounts equal the native engine NativeLedger(20, 24) on
+   the same requests; it prints the rate, the request latency and each
+   cycle's legs; then the spill kernels (K10) against their plain versions
+   on a copy of the table before the first cycle (head, split, a cold
+   gather and the whole rebuild, which must equal the ledger's own) and at
+   2^24 on a copy of phase 3's state (split at 3/4 of live, gather, a
+   reload of 8192 rows), the reload's all-or-nothing gate on copies
+   (capacity at 2^24, an earlier fault, probe windows with no empty slot at
+   2^16), and their times.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -268,7 +292,7 @@ def hold(torch, name, start, run_kernel, run_plain):
     outs = [max_abs_diff(a, b) for a, b in zip(rk, rp) if a is not None or b is not None]
     err = max(outs + [compare_states(sk, sp)])
     hit = ""
-    if rp[0] is not None and rp[0].dtype == torch.int32:
+    if rp[0] is not None and rp[0].dtype == torch.int32 and rp[0].dim():
         codes = np.bincount(rp[0].cpu().numpy().astype(np.int64) & 0xFF)
         hit = f" codes={ {i: int(c) for i, c in enumerate(codes) if c} }"
     log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])}{hit}")
@@ -814,7 +838,7 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
         f"against {tps:.0f} transfers/s one request at a time [{card}] (commit_group_async, "
         "commit_finish_many and commit_finish; each group drained before the next)")
     log(f"  plan stats: {ledger.hazards.plan_stats}")
-    return sm, tps, g_tps
+    return sm, tps, g_tps, reqs
 
 
 def phase_snapshot(torch, L, SM, types, constants, dev, sm):
@@ -876,6 +900,7 @@ def phase_snapshot(torch, L, SM, types, constants, dev, sm):
     log(f"  one more group of {GROUP_K} x 8190 on both ledgers: fingerprints equal ({fp})")
     del second, sm2
     torch.cuda.empty_cache()
+    return bodies
 
 
 # ----------------------------------------------------------------------
@@ -1615,8 +1640,523 @@ def phase_dual(torch, types, card):
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 8: secondary-index queries on the main path's ledger
+# ----------------------------------------------------------------------
+
+QUERY_ACCOUNTS = 16
+
+
+def debit_credit(types, bodies):
+    """(ids, effective debit, effective credit) of the create_transfers
+    bodies the script sent, in order: a post or void is stored with its
+    pending's accounts."""
+    arrs = [np.frombuffer(b, dtype=types.TRANSFER_DTYPE) for b in bodies]
+    ids = np.concatenate([a["id_lo"] for a in arrs])
+    dr = np.concatenate([a["debit_account_id_lo"] for a in arrs])
+    cr = np.concatenate([a["credit_account_id_lo"] for a in arrs])
+    pid = np.concatenate([a["pending_id_lo"] for a in arrs])
+    pv = np.concatenate([(a["flags"] & 12) != 0 for a in arrs])
+    if pv.any():
+        order = np.argsort(ids)
+        at = order[np.searchsorted(ids, pid[pv], sorter=order)]
+        dr[pv], cr[pv] = dr[at], cr[at]
+    return ids, dr, cr
+
+
+def expected_query(lookup, ids, side, account):
+    """The rows a query for `account` must return: the record's ids with
+    that account on `side`, looked up by id, in timestamp order."""
+    want = [int(x) for x in ids[side == account]]
+    rows = []
+    for i in range(0, len(want), 8190):
+        rows += lookup(want[i:i + 8190])
+    return sorted(rows, key=lambda t: t.timestamp)
+
+
+def same_rows(a, b) -> bool:
+    import dataclasses
+
+    return [dataclasses.asdict(x) for x in a] == [dataclasses.asdict(x) for x in b]
+
+
+def phase_queries(torch, L, types, ledger, bodies, dev, card):
+    """query_transfers / query_accounts on the main path's ledger (2^20 /
+    2^24 slots) against the script's own record of what it sent; the
+    QUERY_LIMIT and argument errors; K8 bit-identical to its plain version
+    on four field shapes of both tables. Returns (launches, {check:
+    max_abs_err}, the K8 timing row)."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(SEED + 9)
+    ids, dr, cr = debit_credit(types, bodies)
+    chosen = [int(a) for a in rng.choice(np.arange(1, N_ACCOUNTS + 1), QUERY_ACCOUNTS,
+                                         replace=False)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = []
+    for a in chosen:
+        results.append((a, "debit_account_id", ledger.query_transfers("debit_account_id", a)))
+        results.append((a, "credit_account_id", ledger.query_transfers("credit_account_id", a)))
+    q_s = time.perf_counter() - t0
+    limits = []
+    for what, fn in (("accounts", ledger.query_accounts), ("transfers", ledger.query_transfers)):
+        try:
+            fn("ledger", 2)
+        except RuntimeError as e:
+            limits.append(f"{what}: {e}")
+        else:
+            fail(f"query_{what}('ledger', 2) did not raise QUERY_LIMIT")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"  {2 * QUERY_ACCOUNTS} transfer queries in {q_s:.4f} s "
+        f"({q_s / (2 * QUERY_ACCOUNTS) * 1e3:.4f} ms each, reply read included) [{card}]")
+    log(f"  launches on the query path: {launches}")
+    if not launches["filter_scan"]:
+        fail("the query path did not launch filter_scan")
+    n_rows = 0
+    for a, field, got in results:
+        side = dr if field == "debit_account_id" else cr
+        want = expected_query(ledger.lookup_transfers, ids, side, a)
+        if not want or not same_rows(got, want):
+            fail(f"query_transfers({field!r}, {a}): {len(got)} rows, the record gives {len(want)}")
+        n_rows += len(got)
+    log(f"  {2 * QUERY_ACCOUNTS} queries equal the record's transfers of {QUERY_ACCOUNTS} "
+        f"accounts looked up by id, in timestamp order ({n_rows} rows)")
+    log(f"  QUERY_LIMIT raised: {limits}")
+    for call, exc in ((lambda: ledger.query_transfers("code", 1 << 16), ValueError),
+                      (lambda: ledger.query_accounts("ledger", 1 << 32), ValueError),
+                      (lambda: ledger.query_transfers("flags", 1), KeyError)):
+        try:
+            call()
+        except exc:
+            pass
+        else:
+            fail(f"a query with a bad argument did not raise {exc.__name__}")
+    log("  out-of-range values raise ValueError, an unindexed field KeyError")
+
+    errs = {}
+    st = ledger.state
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    for table, field, value in (("xfer", "code", 1), ("xfer", "ledger", 2),
+                                ("xfer", "user_data_64", 0), ("xfer", "debit_account_id", chosen[0]),
+                                ("acct", "code", 1), ("acct", "user_data_128", 0)):
+        words = L.ACCOUNT_QUERY_WORDS if table == "acct" else L.TRANSFER_QUERY_WORDS
+        spec = words[field]
+        log2 = a_log2 if table == "acct" else t_log2
+        vw = [(value >> (32 * i)) & 0xFFFFFFFF for i in range(4)]
+        rows = st[f"{table}_rows"].clone()
+        k_rows, k_total = K.filter_scan(rows, log2, spec, vw)
+        torch.cuda.synchronize()
+        p_rows, p_total = L.filter_scan_plain(rows, spec, vw)
+        err = max(max_abs_diff(k_rows, p_rows), max_abs_diff(k_total, p_total))
+        name = f"K8 filter_scan ({table}.{field}, {spec[1]} word{'s' if spec[1] > 1 else ''}" \
+               f"{', half-word' if spec[2] else ''}; {int(p_total)} matches)"
+        errs[name] = err
+        log(f"  {name}: max_abs_err={err}")
+        if err:
+            fail(f"{name} differs from its plain version")
+        del rows
+
+    # timing: the query path's scan of the transfer table (the account id
+    # shares the key's sector) and a half-word field in another sector
+    SECTOR = 32
+    rows = st["xfer_rows"]
+    slots = rows.shape[0] - 1
+    out = {}
+    for field, sectors in (("debit_account_id", 1), ("code", 2)):
+        spec = L.TRANSFER_QUERY_WORDS[field]
+        vw = [chosen[0] if field == "debit_account_id" else 1, 0, 0, 0]
+        kt = timed(torch, lambda: K.filter_scan(rows, t_log2, spec, vw), 20)
+        pt = timed(torch, lambda: L.filter_scan_plain(rows, spec, vw), 3)
+        nbytes = slots * sectors * SECTOR + L.QUERY_LIMIT * 128 + 4
+        out[field] = (kt, pt, nbytes / H100_BYTES_PER_S * 1e3, "bytes")
+        log(f"  K8 ({field}, 2^{t_log2} slots): kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, "
+            f"p75 {kt[2]:.4f}], plain {pt[0]:.4f} ms, bound {out[field][2]:.6f} ms "
+            f"({nbytes} bytes) [{card}]")
+    torch.cuda.empty_cache()
+    return launches, errs, out["debit_account_id"]
+
+
+# ----------------------------------------------------------------------
+# phase 9: the bounded-memory ledger (spill, reload, queries over the LSM)
+# ----------------------------------------------------------------------
+
+SPILL_LOG2 = 20  # the transfer table of phase 9 (cut from 2^24: see PERF.md section 4)
+SPILL_REQUESTS = 128
+SPILL_PENDING = 8  # requests 0-7 are pendings; the last 8 post and void them
+GRID_BLOCKS = 16384  # 2 GiB of 128 KiB grid blocks
+
+
+def spill_requests(types, rng):
+    """10,000 accounts, then 128 requests of 8190 transfers: pendings
+    first, the benchmark traffic, and last the posts and voids of every
+    pending (which have been spilled by then)."""
+    B = 8190
+    Op = types.Operation
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    reqs = [(Op.create_accounts, acc[:B].tobytes()), (Op.create_accounts, acc[B:].tobytes())]
+    pend_ids = []
+    for r in range(SPILL_REQUESTS - SPILL_PENDING):
+        first = 5_000_000_000 + r * B
+        ids = np.arange(first + B, first, -1)
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        amt = rng.integers(1, 1_000_000, B).astype(np.uint64)
+        t = transfers(types, ids, dr, cr, amt, flags=2 if r < SPILL_PENDING else 0)
+        if r < SPILL_PENDING:
+            pend_ids.append(ids)
+        reqs.append((Op.create_transfers, t.tobytes()))
+    for r in range(SPILL_PENDING):
+        ids = np.arange(6_000_000_001 + r * B, 6_000_000_001 + (r + 1) * B)
+        t = transfers(types, ids, 0, 0, 0, ledger=0, code=0,
+                      flags=np.where(np.arange(B) % 2, 4, 8), pending_id=pend_ids[r])
+        reqs.append((Op.create_transfers, t.tobytes()))
+    return reqs
+
+
+def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_process):
+    """The bounded-memory path on cuda: StateMachine over DeviceLedger(2^20 /
+    2^20 slots, forest=...) with the default threaded IO, against the
+    native engine NativeLedger(20, 24) on the same requests; then K10
+    against its plain versions at 2^20 (the first cycle's head, split,
+    gather and rebuild on a copy of its table) and at 2^24 (on a copy of
+    the main path's state), and K10's timing rows. Returns (launches,
+    {check: max_abs_err}, {key: timing row})."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.io.storage import MemoryStorage, ZoneLayout
+    from tigerbeetle_tpu_torch.lsm.grid import BLOCK_SIZE, Grid
+    from tigerbeetle_tpu_torch.lsm.groove import Forest
+    from tigerbeetle_tpu_torch.models import spill as S
+    from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+
+    Op = types.Operation
+    rng = np.random.default_rng(SEED + 10)
+    reqs = spill_requests(types, rng)
+    process = constants.ConfigProcess(account_slots_log2=20, transfer_slots_log2=SPILL_LOG2)
+    layout = ZoneLayout(constants.TEST_CLUSTER, grid_size=(GRID_BLOCKS + 64) * BLOCK_SIZE)
+    storage = MemoryStorage(layout)
+    forest = Forest(Grid(storage, offset=0, block_count=GRID_BLOCKS), memtable_max=8192)
+    ledger = L.DeviceLedger(process, device=dev, forest=forest)
+    spill = ledger.spill
+    log(f"  DeviceLedger(ConfigProcess(20, {SPILL_LOG2}), forest=Forest(Grid(MemoryStorage, "
+        f"{GRID_BLOCKS} blocks of {BLOCK_SIZE} bytes = {GRID_BLOCKS * BLOCK_SIZE} bytes), "
+        f"memtable_max=8192)) on {dev}, IO {type(spill._io).__name__}; "
+        f"table limit {ledger._xfer_limit} rows")
+    sm = SM.StateMachine(ledger)
+
+    # the first cycle: the table as it was before it, and after it (clones
+    # in stream order, no synchronisation); the host time the wrapper adds
+    # is taken off the request's time
+    captured = {}
+    per_cycle = []
+    cycle = spill.cycle
+    harness = [0.0]
+
+    def traced_cycle(need):
+        t0 = time.perf_counter()
+        before = dict(spill.stats)
+        if not captured:
+            captured["pre"] = {k: v.clone() for k, v in ledger.state.items()}
+            captured["need"] = need
+        harness[0] += time.perf_counter() - t0
+        cycle(need)
+        t0 = time.perf_counter()
+        if "post" not in captured:
+            captured["post"] = {k: v.clone() for k, v in ledger.state.items()}
+        per_cycle.append({k: spill.stats[k] - before[k] for k in before})
+        harness[0] += time.perf_counter() - t0
+
+    # host legs the spill stats do not split out: the waits for the IO
+    # worker, the LSM multi-point reads of reloads, the worker's settles
+    legs = {"io_drain": 0.0, "fetch_forest": 0.0, "settle": 0.0}
+    hooked = {"io_drain": "io_drain", "_fetch_forest": "fetch_forest",
+              "_settle_forest": "settle"}
+
+    def timed_leg(name, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                legs[name] += time.perf_counter() - t0
+        return run
+
+    spill.cycle = traced_cycle
+    for attr, leg in hooked.items():
+        setattr(spill, attr, timed_leg(leg, getattr(spill, attr)))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    replies, seconds, marked = [], [], []
+    t_run = time.perf_counter()
+    for i, (op, body) in enumerate(reqs):
+        sm.prepare(op, body)
+        ts = sm.prepare_timestamp + 10**12
+        cycles = spill.stats["cycles"]
+        h0 = harness[0]
+        t0 = time.perf_counter()
+        replies.append(sm.commit(op, ts, body))
+        if op == Op.create_transfers:
+            seconds.append(time.perf_counter() - t0 - (harness[0] - h0))
+            if spill.stats["cycles"] != cycles or i >= len(reqs) - SPILL_PENDING:
+                what = "cycle" if spill.stats["cycles"] != cycles else "reloads"
+                marked.append(f"{i - 2} ({what}) {seconds[-1] * 1e3:.1f}")
+    ledger.check_fault()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(K.LAUNCHES)
+    spill.io_drain()
+    spill.cycle = cycle
+    for attr in hooked:
+        delattr(spill, attr)
+    stats = dict(spill.stats)
+    n_xfer = SPILL_REQUESTS * 8190
+    ms = np.array(seconds) * 1e3
+    log(f"  {SPILL_REQUESTS} x 8190 create_transfers through StateMachine in {sum(seconds):.4f} s: "
+        f"{n_xfer / sum(seconds):.0f} transfers/s; request latency median {np.median(ms):.4f} ms, "
+        f"p84 {np.percentile(ms, 84):.4f} ms, max {ms.max():.4f} ms (each request committed and "
+        f"drained before the next; the whole run {run_s:.4f} s) [{card}]")
+    log(f"  launches on the spill path: {launches}")
+    log(f"  spill.stats: {stats}")
+    for i, c in enumerate(per_cycle):
+        log(f"  cycle {i + 1}: spilled {c['spilled']}, t_scan {c['t_scan']:.4f} s, t_gather_d2h "
+            f"{c['t_gather_d2h']:.4f} s, t_stage {c['t_stage']:.4f} s, t_rebuild "
+            f"{c['t_rebuild']:.4f} s (LSM insertion runs on the IO worker) [{card}]")
+    log(f"  outside the cycles: reloaded {stats['reloaded']} rows in t_reload "
+        f"{stats['t_reload']:.4f} s; IO worker t_lsm_worker {stats['t_lsm_worker']:.4f} s "
+        f"over the run")
+    log(f"  host legs: waits for the IO worker (io_drain) {legs['io_drain']:.4f} s, LSM "
+        f"multi-point reads of reloads {legs['fetch_forest']:.4f} s, the worker's tree settles "
+        f"{legs['settle']:.4f} s; requests (number, kind, ms): {'; '.join(marked)}")
+    if stats["cycles"] < 2 or stats["reloaded"] < 65_000:
+        fail(f"the spill path ran {stats['cycles']} cycles and reloaded {stats['reloaded']} rows "
+             "(want at least 2 and 65,000)")
+    for k in ("spill_head", "spill_split", "spill_gather", "spill_reload"):
+        if not launches[k]:
+            fail(f"{k} was not launched on the spill path")
+    bad = [i for i, r in enumerate(replies) if r != b""]
+    if bad:
+        fail(f"requests {bad[:8]} failed on the spilling ledger")
+
+    # the native engine on the same requests
+    native = NativeLedger(20, 24)
+    sm_n = SM.StateMachine(native)
+    t0 = time.perf_counter()
+    for (op, body), rep in zip(reqs, replies):
+        sm_n.prepare(op, body)
+        if sm_n.commit(op, sm_n.prepare_timestamp + 10**12, body) != rep:
+            fail("a reply differs from the native engine's")
+    log(f"  every reply ({len(reqs)} requests) equals NativeLedger(20, 24)'s on the same "
+        f"requests (native alone {time.perf_counter() - t0:.4f} s)")
+    acct_ids = list(range(1, N_ACCOUNTS + 1))
+    for i in range(0, N_ACCOUNTS, 8190):
+        chunk = acct_ids[i:i + 8190]
+        if ledger.lookup_rows(Op.lookup_accounts, chunk) != \
+                native.lookup_rows(Op.lookup_accounts, chunk):
+            fail("an account's balances differ from the native engine's")
+    log(f"  all {N_ACCOUNTS} accounts equal the native engine's, byte for byte")
+    ids, dr, _ = debit_credit(types, [b for op, b in reqs if op == Op.create_transfers])
+    spilled = np.array([int(x) in spill.spilled for x in ids])
+    pick = np.concatenate([rng.choice(np.nonzero(spilled)[0], 4095, replace=False),
+                           rng.choice(np.nonzero(~spilled)[0], 4095, replace=False)])
+    look = [int(x) for x in ids[rng.permutation(pick)]]
+    t0 = time.perf_counter()
+    body = ledger.lookup_rows(Op.lookup_transfers, look)
+    look_s = time.perf_counter() - t0
+    if body != native.lookup_rows(Op.lookup_transfers, look) or len(body) != 128 * 8190:
+        fail("lookup_transfers of spilled and resident ids differs from the native engine's")
+    log(f"  lookup_transfers of 8190 ids (4095 spilled, 4095 resident) equals the native "
+        f"engine's byte for byte ({look_s:.4f} s)")
+    chosen = [int(a) for a in rng.choice(np.arange(1, N_ACCOUNTS + 1), QUERY_ACCOUNTS,
+                                         replace=False)]
+    n_rows = n_spilled = 0
+    t0 = time.perf_counter()
+    for a in chosen:
+        got = ledger.query_transfers("debit_account_id", a)
+        want = expected_query(native.lookup_transfers, ids, dr, a)
+        if not want or not same_rows(got, want):
+            fail(f"query_transfers('debit_account_id', {a}): {len(got)} rows, "
+                 f"the native engine's lookups of the record {len(want)}")
+        n_rows += len(got)
+        n_spilled += sum(t.id in spill.spilled for t in got)
+    log(f"  query_transfers('debit_account_id', a) for {QUERY_ACCOUNTS} accounts equals the "
+        f"native engine's lookups of the record ({n_rows} rows, {n_spilled} of them spilled; "
+        f"{time.perf_counter() - t0:.4f} s)")
+    spill.io_drain()
+    spill._io._ex.shutdown()
+    del native, sm_n
+
+    errs = {}
+
+    def held(name, k_out, p_out, sk=None, sp=None):
+        k_out = k_out if isinstance(k_out, tuple) else (k_out,)
+        p_out = p_out if isinstance(p_out, tuple) else (p_out,)
+        err = max([max_abs_diff(a, b) for a, b in zip(k_out, p_out)] + [0])
+        if sk is not None:
+            err = max(err, compare_states({k: v[:-1] if v.dim() else v for k, v in sk.items()},
+                                          {k: v[:-1] if v.dim() else v for k, v in sp.items()}))
+        errs[name] = err
+        log(f"  {name}: max_abs_err={err}")
+        if err:
+            fail(f"{name} differs from its plain version")
+
+    # K10 at 2^20 on the table before the first cycle
+    pre, post = captured["pre"], captured["post"]
+    t_log2 = SPILL_LOG2
+    head = K.spill_head(pre["xfer_rows"], pre["fault"], t_log2)
+    held(f"K10 spill_head (2^{t_log2})", head, S.spill_head_plain(pre["xfer_rows"], pre["fault"]))
+    live = int(head[0])
+    keep = min(int(live * S.KEEP_FRAC), ledger._xfer_limit - captured["need"])
+    n_cold = live - keep
+    cold, hot = K.spill_split(pre["xfer_rows"], t_log2, n_cold)
+    held(f"K10 spill_split (2^{t_log2}, the first cycle: n_cold {n_cold} of {live})",
+         (cold, hot), S.spill_split_plain(pre["xfer_rows"], n_cold))
+    held(f"K10 spill_gather (2^{t_log2}, the first cold chunk)",
+         K.spill_gather(pre["xfer_rows"], pre["fulfill"], cold[:S.CHUNK]),
+         S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"], cold[:S.CHUNK]))
+    fresh_k, fresh_p = S.fresh_table(t_log2, dev), S.fresh_table(t_log2, dev)
+    lane = torch.arange(S.CHUNK, device=dev)
+    for start in range(0, live - n_cold, S.CHUNK):
+        rows_b, ful_b = S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"],
+                                             hot[start:start + S.CHUNK])
+        active = lane < min(S.CHUNK, live - n_cold - start)
+        K.spill_reload(fresh_k, rows_b, ful_b, active, t_log2)
+        S.spill_reload_plain(fresh_p, rows_b, ful_b, active, t_log2)
+    torch.cuda.synchronize()
+    held(f"K10 spill_reload (2^{t_log2}, the first cycle's rebuild, "
+         f"{(live - n_cold + S.CHUNK - 1) // S.CHUNK} chunks)", (), (), fresh_k, fresh_p)
+    rebuilt = {k: post[k] for k in fresh_k}
+    held("  the rebuild equals the ledger's own", (), (), fresh_k, rebuilt)
+    del captured, pre, post, fresh_k, fresh_p
+
+    # K10 at 2^24 on a copy of the main path's state
+    big = {k: main_state[k].clone() for k in ("xfer_rows", "fulfill", "xfer_claim",
+                                              "xfer_used_slots", "fault")}
+    b_log2 = main_process.transfer_slots_log2
+    head = K.spill_head(big["xfer_rows"], big["fault"], b_log2)
+    held(f"K10 spill_head (2^{b_log2})", head, S.spill_head_plain(big["xfer_rows"], big["fault"]))
+    live = int(head[0])
+    n_cold = live * 3 // 4
+    cold, hot = K.spill_split(big["xfer_rows"], b_log2, n_cold)
+    held(f"K10 spill_split (2^{b_log2}, n_cold {n_cold} of {live})", (cold, hot),
+         S.spill_split_plain(big["xfer_rows"], n_cold))
+    held(f"K10 spill_gather (2^{b_log2}, 8192 cold rows)",
+         K.spill_gather(big["xfer_rows"], big["fulfill"], cold[:S.CHUNK]),
+         S.spill_gather_plain(big["xfer_rows"], big["fulfill"], cold[:S.CHUNK]))
+
+    def new_chunk(i):
+        """8192 stored rows: 4096 resident ones (skipped) and 4096 with new
+        ids, different for every `i`."""
+        pos = (torch.arange(S.CHUNK, device=dev) + i * (S.CHUNK // 2)) % n_cold
+        rows_b, ful_b = S.spill_gather_plain(big["xfer_rows"], big["fulfill"], cold[pos])
+        half = S.CHUNK // 2
+        rows_b[half:, 0] = (torch.arange(half, device=dev) + i * half + 1).to(torch.int32)
+        rows_b[half:, 1:4] = 0x5A5A5A5A
+        return rows_b, ful_b
+
+    rows_b, ful_b = new_chunk(0)
+    all_on = torch.ones(S.CHUNK, dtype=torch.bool, device=dev)
+    sk = {k: v.clone() for k, v in big.items()}
+    pk = K.spill_reload(sk, rows_b, ful_b, all_on, b_log2)
+    pp = S.spill_reload_plain(big, rows_b, ful_b, all_on, b_log2)
+    held(f"K10 spill_reload (2^{b_log2}, 8192 rows: 4096 resident, 4096 new)", pk, pp, sk, big)
+    del sk
+    reload_gates(torch, L, S, types, constants, dev, big, b_log2, new_chunk, errs)
+
+    # timing rows at these shapes
+    SECTOR = 32
+    slots = 1 << b_log2
+    out = {}
+
+    def bound(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+    out["K10h"] = (timed(torch, lambda: K.spill_head(big["xfer_rows"], big["fault"], b_log2), 20),
+                   timed(torch, lambda: S.spill_head_plain(big["xfer_rows"], big["fault"]), 3),
+                   *bound(slots * SECTOR + 8), None)
+    size = slots + S.CHUNK
+    out["K10s"] = (timed(torch, lambda: K.spill_split(big["xfer_rows"], b_log2, n_cold), 10),
+                   timed(torch, lambda: S.spill_split_plain(big["xfer_rows"], n_cold), 3),
+                   *bound(slots * 2 * SECTOR + 2 * size * 4), None)
+    idx = cold[:S.CHUNK]
+    out["K10g"] = (timed(torch, lambda: K.spill_gather(big["xfer_rows"], big["fulfill"], idx), 20),
+                   timed(torch, lambda: S.spill_gather_plain(big["xfer_rows"], big["fulfill"], idx),
+                         5),
+                   *bound(S.CHUNK * (4 + 2 * (128 + 4))),
+                   timed(torch, lambda: torch.index_select(big["xfer_rows"], 0, idx), 20))
+    chunks = [new_chunk(i + 1) for i in range(16)]
+    probes = probe_counts(torch, L.ht, chunks[0][0][:, :4].contiguous(), big["xfer_rows"],
+                          b_log2, 32)
+    it = iter(chunks)
+    kt = timed(torch, lambda: K.spill_reload(big, *next(it), all_on, b_log2), 10)
+    pt = timed(torch, lambda: S.spill_reload_plain(big, *next(it), all_on, b_log2), 3)
+    # rows and fulfill words in, the new half written, one key sector per probe
+    out["K10r"] = (kt, pt, *bound(S.CHUNK * (128 + 4 + 1) + S.CHUNK // 2 * (128 + 4)
+                                  + probes * SECTOR), None)
+    if int(big["fault"]):
+        fail(f"the timed reloads faulted: {int(big['fault'])}")
+    for k, (kt, pt, b, by, lib) in out.items():
+        extra = f", torch.index_select {lib[0]:.4f} ms" if lib else ""
+        log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], plain "
+            f"{pt[0]:.4f} ms, bound {b:.6f} ms ({by}){extra} [{card}]")
+    del big, chunks
+    torch.cuda.empty_cache()
+    return launches, errs, out
+
+def reload_gates(torch, L, S, types, constants, dev, big, b_log2, new_chunk, errs):
+    """K10 reload's gate against its plain version, on clones: the chunk is
+    all or nothing. At 2^24: used_slots just below half the slots
+    (FAULT_CAPACITY), and an earlier fault word that must stay as it was;
+    at 2^16 (phase 2's geometry): probe windows with no empty slot, so new
+    keys neither resolve (FAULT_PROBE) nor find a slot (FAULT_CLAIM). A
+    faulted reload writes nothing but the fault word."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    all_on = torch.ones(S.CHUNK, dtype=torch.bool, device=dev)
+
+    def gate(name, start, rows_b, ful_b, log2, want_bits, want_exact):
+        name = f"K10 spill_reload (gate: {name})"
+        (probe,), sp = hold(torch, name, start,
+                            lambda s: K.spill_reload(s, rows_b, ful_b, all_on, log2),
+                            lambda s: S.spill_reload_plain(s, rows_b, ful_b, all_on, log2))
+        fault = int(sp["fault"])
+        if (fault & want_bits) != want_bits or (want_exact and fault != want_bits):
+            fail(f"{name}: fault word {fault:#x}, expected {want_bits:#x}")
+        if compare_states({k: v for k, v in sp.items() if k != "fault"},
+                          {k: v for k, v in start.items() if k != "fault"}):
+            fail(f"{name}: a faulted reload wrote to the table")
+        errs[name] = 0  # hold() failed the run on any difference
+        log(f"    probe word {int(probe)}; the table is as it was")
+
+    rows_b, ful_b = new_chunk(100)
+    full = dict(big)
+    full["xfer_used_slots"] = big["xfer_used_slots"].clone().fill_((1 << b_log2) // 2 - 100)
+    gate(f"2^{b_log2}, used_slots 100 below half, 4096 new rows", full, rows_b, ful_b, b_log2,
+         L.FAULT_CAPACITY, True)
+    faulted = dict(big)
+    faulted["fault"] = big["fault"].clone().fill_(L.FAULT_INSTALL)
+    gate(f"2^{b_log2}, an earlier fault", faulted, rows_b, ful_b, b_log2, L.FAULT_INSTALL, True)
+
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    t_log2 = process.transfer_slots_log2
+    rng = np.random.default_rng(SEED + 11)
+    base, _ = seeded_state(L, types, process, rng, dev)
+    rows_np, ful_np = live_rows(base, "xfer")
+    half = S.CHUNK // 2
+    pick = rng.choice(len(rows_np), half, replace=False)
+    fresh = rows_np[pick].copy()
+    fresh[:, 0] = np.arange(9_000_001, 9_000_001 + half, dtype=np.uint32)  # new ids
+    rows_b = torch.from_numpy(np.concatenate([rows_np[pick], fresh]).view(np.int32)).to(dev)
+    ful_b = torch.from_numpy(np.concatenate([ful_np[pick], ful_np[pick]]).view(np.int32)).to(dev)
+    tbl = ("xfer_rows", "fulfill", "xfer_claim", "xfer_used_slots", "fault")
+    start = exhausted(torch, base, rng, tombs=4000)
+    gate(f"2^{t_log2}, no empty slot in any window, 4000 tombstones, 4096 resident and 4096 "
+         "new rows", {k: start[k] for k in tbl}, rows_b, ful_b, t_log2,
+         L.FAULT_PROBE | L.FAULT_CLAIM, True)
+
+
 KERNELS = [
-    # key, launch counter, name (the prefix of its phase-4 checks), source, replaces
+    # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
      "tigerbeetle_tpu/ops/hashtable.py:127"),
     ("K2f", "commit_accounts_fast", "K2 commit_accounts fast",
@@ -1635,8 +2175,21 @@ KERNELS = [
      "tigerbeetle_tpu_torch/csrc/install.cu", "tigerbeetle_tpu/models/ledger.py:2561"),
     ("K7", "fold", "K7 fold", "tigerbeetle_tpu_torch/csrc/fold.cu",
      "tigerbeetle_tpu/models/ledger.py:365"),
+    ("K8", "filter_scan", "K8 filter_scan", "tigerbeetle_tpu_torch/csrc/filter_scan.cu",
+     "tigerbeetle_tpu/models/ledger.py:767"),
+    ("K10h", "spill_head", "K10 spill_head", "tigerbeetle_tpu_torch/csrc/spill_split.cu",
+     "tigerbeetle_tpu/models/spill.py:243"),
+    ("K10s", "spill_split", "K10 spill_split", "tigerbeetle_tpu_torch/csrc/spill_split.cu",
+     "tigerbeetle_tpu/models/spill.py:252"),
+    ("K10g", "spill_gather", "K10 spill_gather", "tigerbeetle_tpu_torch/csrc/spill_reload.cu",
+     "tigerbeetle_tpu/models/spill.py:271"),
+    ("K10r", "spill_reload", "K10 spill_reload", "tigerbeetle_tpu_torch/csrc/spill_reload.cu",
+     "tigerbeetle_tpu/models/spill.py:274"),
 ]
-DUAL_KERNELS = ("fold",)  # the kernels of the dual phase's path alone
+# the kernels of the paths of phases 7, 8 and 9 alone
+DUAL_KERNELS = ("fold",)
+QUERY_KERNELS = ("filter_scan",)
+SPILL_KERNELS = ("spill_head", "spill_split", "spill_gather", "spill_reload")
 
 
 def main() -> int:
@@ -1692,14 +2245,21 @@ def main() -> int:
     phase_ledgers(torch, L, types, constants, dev)
 
     log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
-    sm, tps, g_tps = phase_main_path(torch, L, SM, types, constants, dev, card)
-    phase_snapshot(torch, L, SM, types, constants, dev, sm)
+    sm, tps, g_tps, reqs = phase_main_path(torch, L, SM, types, constants, dev, card)
+    snapshot_bodies = phase_snapshot(torch, L, SM, types, constants, dev, sm)
     torch.cuda.synchronize()
     launches = dict(K.LAUNCHES)
     log(f"  launches on the main path: {launches}")
-    if not all(v for k, v in launches.items() if k not in DUAL_KERNELS):
+    if not all(v for k, v in launches.items()
+               if k not in DUAL_KERNELS + QUERY_KERNELS + SPILL_KERNELS):
         fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
+
+    log("== phase 8: queries on phase 3's ledger (2^20 / 2^24 slots; run here, before "
+        "phases 5 and 6 commit transfers that the query record does not hold)")
+    bodies = [b for _k, op, b in reqs if op == types.Operation.create_transfers]
+    query_launches, query_errs, k8_row = phase_queries(
+        torch, L, types, ledger, bodies + snapshot_bodies, dev, card)
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")
@@ -1714,16 +2274,31 @@ def main() -> int:
     log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)
 
+    log(f"== phase 9: the bounded-memory ledger, DeviceLedger(ConfigProcess(20, {SPILL_LOG2}), "
+        "forest=...) on cuda against NativeLedger(20, 24)")
+    spill_launches, spill_errs, spill_rows = phase_spill(
+        torch, L, SM, types, constants, dev, card, ledger.state, ledger.process)
+
+    errs.update(query_errs)
+    errs.update(spill_errs)
+    times["K8"] = k8_row
+    library = {}
+    for key, (kt, pt, b, by, lib) in spill_rows.items():
+        times[key] = (kt, pt, b, by)
+        library[key] = lib[0] if lib else None
+    path_launches = {c: dual_launches for c in DUAL_KERNELS}
+    path_launches.update({c: query_launches for c in QUERY_KERNELS})
+    path_launches.update({c: spill_launches for c in SPILL_KERNELS})
     table = []
     for key, counter, name, source, replaces in KERNELS:
         (kt, _, _), (pt, _, _), bound_ms, bound_by = times[key]
         err = max(v for k, v in errs.items() if k.startswith(name))
-        n = (dual_launches if counter in DUAL_KERNELS else launches)[counter]
+        n = path_launches.get(counter, launches)[counter]
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "max_abs_err": err, "bit_exact": err == 0,
             "ms": kt, "plain_ms": pt, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": library.get(key),
         })
     log(f"  main path: {tps:.0f} transfers/s one request at a time, {g_tps:.0f} transfers/s "
         f"in groups of {GROUP_K}; whole run {time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: neither tigerbeetle_tpu_torch nor
-chip_smoke.py imports jax or anything of tigerbeetle_tpu, and its ledgers
-default to the card."""
+chip_smoke.py nor group_ab.py imports jax or anything of tigerbeetle_tpu,
+and its ledgers default to the card."""
 
 import ast
 import pathlib
@@ -10,7 +10,8 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "tigerbeetle_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+PORT_FILES = sorted((REPO / "tigerbeetle_tpu_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "group_ab.py"]
 
 
 def _imported_modules(path: pathlib.Path):
@@ -41,6 +42,11 @@ def test_import_loads_no_jax():
         "import tigerbeetle_tpu_torch.metrics, tigerbeetle_tpu_torch.tracer\n"
         "import tigerbeetle_tpu_torch.latency, tigerbeetle_tpu_torch.testing.hash_log\n"
         "import tigerbeetle_tpu_torch.federation.commitment\n"
+        "import tigerbeetle_tpu_torch.models.spill, tigerbeetle_tpu_torch.stdx\n"
+        "import tigerbeetle_tpu_torch.io.storage, tigerbeetle_tpu_torch.vsr.free_set\n"
+        "import tigerbeetle_tpu_torch.lsm.cache, tigerbeetle_tpu_torch.lsm.grid\n"
+        "import tigerbeetle_tpu_torch.lsm.tree, tigerbeetle_tpu_torch.lsm.manifest_log\n"
+        "import tigerbeetle_tpu_torch.lsm.groove\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -62,6 +68,37 @@ def test_device_ledger_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DeviceLedger(TEST_PROCESS)
+
+
+def test_spilling_ledger_defaults_to_cuda():
+    import torch
+
+    from tigerbeetle_tpu_torch.constants import TEST_CLUSTER, TEST_PROCESS
+    from tigerbeetle_tpu_torch.io.storage import MemoryStorage, ZoneLayout
+    from tigerbeetle_tpu_torch.lsm.grid import Grid
+    from tigerbeetle_tpu_torch.lsm.groove import Forest
+    from tigerbeetle_tpu_torch.models.ledger import DeviceLedger
+
+    storage = MemoryStorage(ZoneLayout(TEST_CLUSTER, grid_size=16 * 1024 * 1024))
+    forest = Forest(Grid(storage, offset=0, block_count=64, cache_blocks=16))
+    if torch.cuda.is_available():
+        assert DeviceLedger(TEST_PROCESS, forest=forest).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceLedger(TEST_PROCESS, forest=forest)
+
+
+def test_native_checksum_of_empty_body():
+    """The port's own build of native/aegis.cc gives the reference's pinned
+    checksum of an empty body (src/vsr.zig:238)."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is missing: the native library is built with it at first use")
+    from tigerbeetle_tpu_torch import native
+
+    assert native.checksum(b"") == native.CHECKSUM_BODY_EMPTY
+    assert native.library_path().parent.parent == REPO / "build" / "tb_native"
 
 
 def test_dual_ledger_defaults_to_cuda():

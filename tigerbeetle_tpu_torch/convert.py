@@ -6,6 +6,12 @@ device: every u32 word becomes an int32 and every u64 an int64 with the same
 bits. `state_to_numpy` turns it back. The tests start both implementations
 from one state with these and compare every leaf afterwards.
 `ring_from_numpy` does the same for the dual follower's u64 digest ring.
+
+`carry_ledger` carries a whole ledger across at a checkpoint, a spilling one
+included: the device state, the host's occupancy counters, prepare clock and
+planner state, and the spill store (the grid's storage bytes and
+`SpillManager.checkpoint_meta()`, restored through the port's own
+`SpillManager.restore`). Both ledgers then continue identically.
 """
 
 from __future__ import annotations
@@ -37,3 +43,30 @@ def state_to_numpy(s: dict) -> dict:
     return {
         k: v.detach().cpu().numpy().view(_UNSIGNED[v.dtype]) for k, v in s.items()
     }
+
+
+def carry_ledger(port, src, state_np: dict, storage_data=None, spill_meta=None) -> None:
+    """Carry the ledger `src` into the port's DeviceLedger `port` (same
+    geometry; built with a forest over a MemoryStorage of the same layout
+    when `src` spills). `state_np` is src's state as numpy arrays; the host
+    side (occupancy counters, prepare clock, the hazard tracker's limit
+    accounts, pending registry, amount bound and plan stats) is read from
+    src's attributes, which are plain Python and numpy values. With a spill
+    store, `storage_data` is the bytes of src's MemoryStorage after
+    `spill_meta = src.spill.checkpoint_meta()`."""
+    port.state = state_from_numpy(state_np, port.device)
+    port._acct_used = int(src._acct_used)
+    port._xfer_used = int(src._xfer_used)
+    port.prepare_timestamp = int(src.prepare_timestamp)
+    h, t = src.hazards, port.hazards
+    t.amount_sum = int(h.amount_sum)
+    t.limit_account_ids = set(h.limit_account_ids)
+    t._limit_lo = np.array(h._limit_lo, dtype=np.uint64)
+    t.pending_accounts = dict(h.pending_accounts)
+    t.plan_stats = dict(h.plan_stats)
+    if spill_meta is not None:
+        storage = port.spill.forest.grid.storage
+        if len(storage.data) != len(storage_data):
+            raise ValueError(f"storage of {len(storage.data)} bytes, {len(storage_data)} given")
+        storage.data[:] = storage_data
+        port.spill.restore(spill_meta)

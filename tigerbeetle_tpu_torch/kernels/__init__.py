@@ -19,6 +19,11 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     install_rows            K9  DeviceLedger._install_fn
     fold                    K7  fold_reply_codes and the fused folds of
                                 models/dual_ledger.py
+    filter_scan             K8  LedgerKernels.filter_scan
+    spill_head              K10 SpillKernels._cycle_head (models/spill.py)
+    spill_split             K10 SpillKernels._split_idx
+    spill_gather            K10 SpillKernels._gather
+    spill_reload            K10 SpillKernels._reload
 
 `chase` is no kernel of the ledger: a pointer chase that measures the
 card's dependent-load latency for the serial kernels' bounds.
@@ -36,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U64 = ctypes.c_uint64
 _I64 = ctypes.c_longlong
+_U32 = ctypes.c_uint32
 
 LAUNCHES = {
     "lookup": 0,
@@ -47,6 +53,11 @@ LAUNCHES = {
     "fingerprint": 0,
     "install_rows": 0,
     "fold": 0,
+    "filter_scan": 0,
+    "spill_head": 0,
+    "spill_split": 0,
+    "spill_gather": 0,
+    "spill_reload": 0,
 }
 
 _SIGNATURES = {
@@ -62,6 +73,11 @@ _SIGNATURES = {
     "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P],
     "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "tb_fold": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _P],
+    "tb_spill_head": [_P, _I, _P, _P, _P],
+    "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
+    "tb_spill_gather": [_P, _P, _P, _I, _P, _P, _P],
+    "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
 }
 _SCRATCH = (
@@ -70,6 +86,9 @@ _SCRATCH = (
     "tb_commit_transfers_fast_scratch",
     "tb_commit_transfers_serial_scratch",
     "tb_install_rows_scratch",
+    "tb_filter_scan_scratch",
+    "tb_spill_split_scratch",
+    "tb_spill_reload_scratch",
 )
 
 _lib = None
@@ -366,6 +385,96 @@ def fold(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
             None if idx is None else idx.ctypes.data, _ptr(chk),
             None if ring is None else _ptr(ring), ring_len, _ptr(_fold_scratch(flat.device)),
             _stream())
+
+
+QUERY_LIMIT = 8192  # csrc/filter_scan.cu QUERY_LIMIT
+SPILL_CHUNK = 8192  # csrc/spill_split.cu SPILL_CHUNK
+
+
+def filter_scan(rows, cap_log2: int, spec, value_words):
+    """K8: the live rows of `rows` whose field `spec` = (word0, nwords,
+    halfword) equals `value_words` (four u32 ints, low first). Returns
+    (int32 [QUERY_LIMIT, 32]: the first matches in slot order, then the dump
+    row; int32 0-d: the total match count)."""
+    _check_rows(rows, "rows", cap_log2)
+    word0, nwords, halfword = spec
+    vw = [int(v) & 0xFFFFFFFF for v in value_words]
+    if len(vw) != 4 or nwords not in (1, 2, 4) or not 0 <= word0 <= 32 - nwords:
+        raise ValueError(f"filter_scan: field {spec}, value words {vw}")
+    dev = rows.device
+    out = torch.empty((QUERY_LIMIT, 32), dtype=torch.int32, device=dev)
+    total = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = _scratch("tb_filter_scan_scratch", cap_log2, dev)
+    _launch("tb_filter_scan", "filter_scan", _ptr(rows), cap_log2, word0, nwords, int(halfword),
+            *vw, _ptr(out), _ptr(total), _ptr(scratch), _stream())
+    return out, total
+
+
+def spill_head(rows, fault, cap_log2: int):
+    """K10 cycle head: int32 [2] = [live transfers (the dump row excluded),
+    the fault word]."""
+    _check_rows(rows, "rows", cap_log2)
+    _need(fault, torch.int32, 0, "fault")
+    out = torch.zeros(2, dtype=torch.int32, device=rows.device)
+    _launch("tb_spill_head", "spill_head", _ptr(rows), cap_log2, _ptr(fault), _ptr(out),
+            _stream())
+    return out
+
+
+def spill_split(rows, cap_log2: int, n_cold: int):
+    """K10 split: (cold, hot) int32 [(1 << cap_log2) + SPILL_CHUNK] each,
+    the live slots below / at or above the n_cold-th smallest masked
+    timestamp, in slot order, padded with the dump slot."""
+    _check_rows(rows, "rows", cap_log2)
+    if not 0 <= n_cold <= 1 << cap_log2:
+        raise ValueError(f"spill_split: n_cold {n_cold} for {1 << cap_log2} slots")
+    dev = rows.device
+    size = (1 << cap_log2) + SPILL_CHUNK
+    cold = torch.empty(size, dtype=torch.int32, device=dev)
+    hot = torch.empty(size, dtype=torch.int32, device=dev)
+    scratch = _scratch("tb_spill_split_scratch", cap_log2, dev)
+    _launch("tb_spill_split", "spill_split", _ptr(rows), cap_log2, n_cold, _ptr(cold), _ptr(hot),
+            _ptr(scratch), _stream())
+    return cold, hot
+
+
+def spill_gather(rows, fulfill, idx):
+    """K10 gather: (rows [B, 32], fulfill [B]) at the slots `idx` (int32
+    [B], each at most the dump slot)."""
+    _need(rows, torch.int32, 2, "rows")
+    _need(fulfill, torch.int32, 1, "fulfill")
+    _need(idx, torch.int32, 1, "idx")
+    if rows.shape[1] != 32 or fulfill.shape[0] != rows.shape[0]:
+        raise ValueError(f"spill_gather: rows {tuple(rows.shape)}, fulfill {tuple(fulfill.shape)}")
+    B = idx.shape[0]
+    out = torch.empty((B, 32), dtype=torch.int32, device=rows.device)
+    ful = torch.empty(B, dtype=torch.int32, device=rows.device)
+    _launch("tb_spill_gather", "spill_gather", _ptr(rows), _ptr(fulfill), _ptr(idx), B,
+            _ptr(out), _ptr(ful), _stream())
+    return out, ful
+
+
+def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):
+    """K10 reload: the stored rows `rows_b` [B, 32] with their fulfill words
+    `ful_b` [B], lanes where `active` (bool [B]), into the transfer table of
+    `tbl` (a dict with xfer_rows, fulfill, xfer_claim, xfer_used_slots and
+    fault) in place, all or nothing. Returns the probe word (int32 0-d)."""
+    B = _check_batch(rows_b, rows_b.shape[0])
+    _check_rows(tbl["xfer_rows"], "xfer_rows", cap_log2)
+    for name in ("fulfill", "xfer_claim"):
+        _need(tbl[name], torch.int32, 1, name)
+    _need(ful_b, torch.int32, 1, "ful_b")
+    _need(active, torch.bool, 1, "active")
+    if B == 0 or ful_b.shape[0] != B or active.shape[0] != B:
+        raise ValueError(f"spill_reload: rows {tuple(rows_b.shape)}, fulfill {tuple(ful_b.shape)}, "
+                         f"active {tuple(active.shape)}")
+    used, fault = _scalars(tbl, "xfer_used_slots", "fault")
+    probe = torch.empty((), dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_spill_reload_scratch", B, rows_b.device)
+    _launch("tb_spill_reload", "spill_reload", _ptr(tbl["xfer_rows"]), _ptr(tbl["fulfill"]),
+            _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b),
+            _ptr(active), B, _ptr(probe), _ptr(scratch), _stream())
+    return probe
 
 
 def chase(nxt, start: int, steps: int):

@@ -30,9 +30,15 @@ JAX planner, so both packages plan every batch identically):
 
 Besides the commit path: the state fingerprint (K6, the digest the replica
 folds into its commitment chain), the reply-code fold (K7, the digest the
-dual-commit follower chains over every batch's codes, models/dual_ledger.py)
-and the snapshot row install (K9, the restore path after a checkpoint
-restore or a state-sync jump).
+dual-commit follower chains over every batch's codes, models/dual_ledger.py),
+the snapshot row install (K9, the restore path after a checkpoint restore or
+a state-sync jump) and the equality filter scan behind the secondary-index
+queries (K8, `query_accounts` / `query_transfers`).
+
+With an LSM forest attached (`DeviceLedger(forest=...)`), the transfer
+table is bounded: its cold tail spills to the forest and referenced rows
+reload before a commit (models/spill.py, K10), and lookups, queries and
+`extract` merge the spilled rows back in.
 
 Every kernel has a plain PyTorch version here (`*_plain`); the wrappers run
 it for CPU tensors and launch the CUDA kernel (tigerbeetle_tpu_torch.kernels)
@@ -60,6 +66,7 @@ import torch
 from tigerbeetle_tpu_torch import kernels as _k
 from tigerbeetle_tpu_torch import types
 from tigerbeetle_tpu_torch.constants import DEFAULT_PROCESS, ConfigProcess
+from tigerbeetle_tpu_torch.lsm import groove as groove_fields
 from tigerbeetle_tpu_torch.metrics import NULL_METRICS
 from tigerbeetle_tpu_torch.models import validate
 from tigerbeetle_tpu_torch.models.validate import (
@@ -87,6 +94,27 @@ _WAVE_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
 _WAVE_GOLDEN2 = np.uint64(0xC2B2AE3D27D4EB4F)
 
 ROW_WORDS = 32  # 128-byte wire rows as u32 words
+
+# Equality-query field specs: name -> (first u32 word, word count, halfword),
+# derived from the one declaration of the indexed field layouts
+# (lsm/groove.py, the reference's secondary index trees,
+# src/state_machine.zig:103-206), so that the device filter scan and the LSM
+# index scan agree on every field name.
+
+
+def _query_words(index_fields) -> dict:
+    out = {}
+    for name, off, w in index_fields:
+        assert off % 4 == 0 and w in (2, 4, 8, 16), (name, off, w)
+        out[name] = (off // 4, max(w // 4, 1), w == 2)
+    return out
+
+
+ACCOUNT_QUERY_WORDS = _query_words(groove_fields.ACCOUNT_INDEX_FIELDS)
+TRANSFER_QUERY_WORDS = _query_words(groove_fields.TRANSFER_INDEX_FIELDS)
+# Query replies are message-bounded like every other reply (reference:
+# src/state_machine.zig:59-64: results must fit one message).
+QUERY_LIMIT = 8192
 
 # Sticky fault bits (see module docstring "Fault protocol").
 FAULT_PROBE = 1  # fast-tier lookup window exhausted (batch was a no-op)
@@ -1117,6 +1145,44 @@ def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
 
 
 # ----------------------------------------------------------------------
+# K8: the equality filter scan (secondary-index queries over the tables)
+# ----------------------------------------------------------------------
+
+
+def filter_scan_plain(rows, spec, value_words):
+    """Plain version of K8 (`LedgerKernels.filter_scan`): the live rows of
+    `rows` (the dump row excluded) whose field `spec` = (word0, nwords,
+    halfword) equals `value_words` (four u32 ints, low first; a half-word
+    field compares the low 16 bits of word0). Returns (int32 [QUERY_LIMIT,
+    32]: the first matches in slot order, padded with the dump row; int32
+    0-d: the total match count)."""
+    word0, nwords, halfword = spec
+    dump = rows.shape[0] - 1
+    occ = ht.occupied_mask(rows)
+    occ[dump] = False
+    vw = [int(v) & 0xFFFFFFFF for v in value_words]
+    if halfword:
+        m = (rows[:, word0].to(I64) & 0xFFFF) == vw[0]
+    else:
+        m = (rows[:, word0].to(I64) & 0xFFFFFFFF) == vw[0]
+        for i in range(1, nwords):
+            m = m & ((rows[:, word0 + i].to(I64) & 0xFFFFFFFF) == vw[i])
+    mask = occ & m
+    total = mask.sum().to(I32)
+    hits = torch.nonzero(mask).squeeze(1)[:QUERY_LIMIT]
+    idx = torch.full((QUERY_LIMIT,), dump, dtype=I64, device=rows.device)
+    idx[:hits.shape[0]] = hits
+    return rows[idx], total
+
+
+def filter_scan(rows, cap_log2: int, spec, value_words):
+    """K8 wrapper: the plain version for CPU tensors, the CUDA kernel else."""
+    if _check_device(rows):
+        return _k.filter_scan(rows, cap_log2, spec, value_words)
+    return filter_scan_plain(rows, spec, value_words)
+
+
+# ----------------------------------------------------------------------
 # the kernels behind one table geometry
 # ----------------------------------------------------------------------
 
@@ -1168,6 +1234,13 @@ class LedgerKernels:
 
     def lookup_transfers(self, state, ids):
         return table_lookup(ids["key4"], state["xfer_rows"], self.t_log2)
+
+    def filter_scan(self, state, table: str, field: str, value_words):
+        """K8 over the "acct" or "xfer" table: (first QUERY_LIMIT matching
+        rows in slot order, total match count)."""
+        spec = (ACCOUNT_QUERY_WORDS if table == "acct" else TRANSFER_QUERY_WORDS)[field]
+        log2 = self.a_log2 if table == "acct" else self.t_log2
+        return filter_scan(state[f"{table}_rows"], log2, spec, value_words)
 
 
 # ----------------------------------------------------------------------
@@ -1673,17 +1746,19 @@ class PendingBatch:
     [2] int32 (count of non-zero codes, fault word). A batch of a group
     commit instead points into its `group` at slot `group_idx`. `plan` is
     the planner's (decision, wave count) for create_transfers dispatched
-    alone, else None."""
+    alone, else None. `epoch` is the ledger's occupancy epoch at dispatch (a
+    spill cycle since then has recounted the occupancy)."""
 
     __slots__ = ("operation", "n", "results", "flags", "dense", "summary",
-                 "failures", "codes_np", "group", "group_idx", "plan")
+                 "failures", "codes_np", "group", "group_idx", "plan", "epoch")
 
     def __init__(self, operation, n, results, flags, summary=None, group=None,
-                 group_idx=0, plan=None):
+                 group_idx=0, plan=None, epoch=0):
         self.operation = operation
         self.n = n
         self.results = results
         self.flags = flags  # host u16 [n] (occupancy reconciliation)
+        self.epoch = epoch
         self.dense = None  # cached drain() result (drain is idempotent)
         self.summary = summary
         self.failures = None  # failure count once drained
@@ -1713,6 +1788,12 @@ class DeviceLedger:
       serial for each transfer batch, and accounts go serial only for linked
       chains or duplicate ids.
     - "fast" / "fast_pv" / "serial": force one tier (parity testing).
+
+    `forest` (an lsm.groove.Forest) attaches the spill store: the transfer
+    table then spills its cold tail to the forest instead of raising at the
+    load-factor limit (models/spill.py). `spill_io` picks the store's IO
+    executor: "threaded" (a worker thread) or "deferred" (jobs run at the
+    caller's pump/drain, for deterministic runs).
     """
 
     # observability seams (metrics.py, tracer.py); instrument() re-points
@@ -1725,9 +1806,12 @@ class DeviceLedger:
         self.metrics = metrics
         self.tracer = tracer
         self._c_h2d = metrics.counter("device.h2d_bytes")
+        if self.spill is not None:
+            self.spill.instrument(metrics, tracer)
 
     def __init__(self, process: ConfigProcess = DEFAULT_PROCESS,
-                 mode: str = "auto", device=None):
+                 mode: str = "auto", device=None, forest=None,
+                 spill_io: str = "threaded"):
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -1754,6 +1838,12 @@ class DeviceLedger:
         # anatomy: written and read by the thread that dispatches
         self.last_h2d_done_ns = 0
         self._c_h2d = self.metrics.counter("device.h2d_bytes")
+        self._occupancy_epoch = 0  # bumped by spill cycles (drain reconcile)
+        self.spill = None
+        if forest is not None:
+            from tigerbeetle_tpu_torch.models.spill import SpillManager
+
+            self.spill = SpillManager(self, forest, io=spill_io)
 
     def prepare(self, operation: Operation, event_count: int) -> None:
         """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
@@ -1780,6 +1870,10 @@ class DeviceLedger:
         dev = self.device
         if operation == Operation.create_transfers:
             arr = events if isinstance(events, np.ndarray) else types.transfers_to_np(events)
+            if self.spill is not None:
+                # spill the cold tail and reload the spilled rows this batch
+                # references, so that the kernels' lookups see the whole store
+                self.spill.admit(arr, n)
             if self._xfer_used + n > self._xfer_limit:
                 raise RuntimeError(
                     f"transfer table at load-factor limit "
@@ -1826,7 +1920,8 @@ class DeviceLedger:
             raise ValueError(operation)
         self._c_h2d.add(arr.nbytes)
         packed, summary = _summarize(results, self.state["fault"])
-        return PendingBatch(operation, n, packed, arr["flags"].copy(), summary, plan=plan_info)
+        return PendingBatch(operation, n, packed, arr["flags"].copy(), summary, plan=plan_info,
+                            epoch=self._occupancy_epoch)
 
     def _execute_waves(self, arr, n: int, timestamp: int, plan):
         """Conflict-scheduled wave execution (the HazardTracker.plan layout):
@@ -1882,11 +1977,12 @@ class DeviceLedger:
     def try_execute_group_async(self, items) -> list[PendingBatch] | None:
         """Commit `items` = [(timestamp, transfers ndarray), ...] as one
         fused group (K5), or return None when fusion does not apply: forced
-        mode, fewer than 2 items, the load limit would be crossed, or a
+        mode, a spill store (its reloads change the state between batches),
+        fewer than 2 items, the load limit would be crossed, or a
         batch not proven fast-tier (the planner's amount bound and stats
         are then rolled back, since the caller plans each batch again).
         A failed build or launch raises."""
-        if self.mode != "auto" or len(items) < 2:
+        if self.mode != "auto" or self.spill is not None or len(items) < 2:
             return None
         if len(items) > GROUP_KS[0]:
             # the caller zips the pendings with its items: never truncate
@@ -1941,7 +2037,7 @@ class DeviceLedger:
         group = PendingGroup(flat, n_pad, k, summary)
         return [
             PendingBatch(Operation.create_transfers, len(arr), flat, arr["flags"].copy(),
-                         group=group, group_idx=i)
+                         group=group, group_idx=i, epoch=self._occupancy_epoch)
             for i, (_ts, arr) in enumerate(items)
         ]
 
@@ -2070,7 +2166,10 @@ class DeviceLedger:
         dense = pending.codes_np.tolist()
         applied = int(applied_insert_mask(dense, pending.flags).sum())
         if pending.operation == Operation.create_transfers:
-            self._xfer_used += applied - pending.n
+            # a spill cycle after dispatch recounted the occupancy exactly:
+            # this batch is in that count already
+            if pending.epoch == self._occupancy_epoch:
+                self._xfer_used += applied - pending.n
         else:
             self._acct_used += applied - pending.n
         # cache only after the fault check and reconcile: a drain retried
@@ -2107,13 +2206,14 @@ class DeviceLedger:
 
     def lookup_rows(self, operation: Operation, ids: list[int]) -> bytes:
         """Found objects' 128-byte wire rows, request order, missing skipped:
-        the reply body."""
-        kernel = (
-            self.kernels.lookup_accounts
-            if operation == Operation.lookup_accounts
-            else self.kernels.lookup_transfers
-        )
-        found, rows = self._lookup(kernel, ids)
+        the reply body. Transfers found in neither the table nor the spill
+        store are the missing ones."""
+        if operation == Operation.lookup_accounts:
+            found, rows = self._lookup(self.kernels.lookup_accounts, ids)
+            return rows[found].tobytes()
+        found, rows = self._lookup(self.kernels.lookup_transfers, ids)
+        if self.spill is not None:
+            return self.spill.merge_lookup_rows(ids, found, rows)
         return rows[found].tobytes()
 
     def lookup_accounts(self, ids: list[int]) -> list[types.Account]:
@@ -2122,15 +2222,66 @@ class DeviceLedger:
         return [types.Account.from_np(arr[i]) for i in range(len(ids)) if found[i]]
 
     def lookup_transfers(self, ids: list[int]) -> list[types.Transfer]:
-        found, rows = self._lookup(self.kernels.lookup_transfers, ids)
+        body = self.lookup_rows(Operation.lookup_transfers, ids)
+        arr = np.frombuffer(body, dtype=types.TRANSFER_DTYPE)
+        return [types.Transfer.from_np(arr[i]) for i in range(len(arr))]
+
+    # ------------------------------------------------------------------
+    # secondary-index equality queries (K8 over the tables, plus the LSM
+    # index trees over the spilled tail)
+    # ------------------------------------------------------------------
+
+    def _query_scan(self, table: str, field: str, value: int) -> np.ndarray:
+        words = ACCOUNT_QUERY_WORDS if table == "acct" else TRANSFER_QUERY_WORDS
+        _, nwords, halfword = words[field]  # KeyError: not an indexed field
+        width_bits = 16 if halfword else nwords * 32
+        if not 0 <= value < (1 << width_bits):
+            raise ValueError(f"{field} value out of range: {value}")
+        vw = [(value >> (32 * i)) & 0xFFFFFFFF for i in range(4)]
+        rows_d, total_d = self.kernels.filter_scan(self.state, table, field, vw)
+        total = int(total_d)
+        if total > QUERY_LIMIT:
+            raise RuntimeError(f"query matches {total} rows > QUERY_LIMIT {QUERY_LIMIT}")
+        return rows_d[:total].cpu().numpy().view(np.uint32)
+
+    def query_accounts(self, field: str, value: int) -> list[types.Account]:
+        """Accounts whose `field` equals `value`, ascending timestamp (the
+        analog of a reference index-tree range query; accounts never spill,
+        so the device scan is the whole store)."""
+        rows = self._query_scan("acct", field, value)
+        arr = np.frombuffer(rows.tobytes(), dtype=types.ACCOUNT_DTYPE)
+        out = [types.Account.from_np(arr[i]) for i in range(len(arr))]
+        return sorted(out, key=lambda a: a.timestamp)
+
+    def query_transfers(self, field: str, value: int) -> list[types.Transfer]:
+        """Transfers whose `field` equals `value`, ascending timestamp: the
+        device filter scan over the table merged with the LSM index trees
+        over the spilled tail (lsm/groove.py query)."""
+        rows = self._query_scan("xfer", field, value)
         arr = np.frombuffer(rows.tobytes(), dtype=types.TRANSFER_DTYPE)
-        return [types.Transfer.from_np(arr[i]) for i in range(len(ids)) if found[i]]
+        by_ts = {
+            int(arr[i]["timestamp"]): types.Transfer.from_np(arr[i])
+            for i in range(len(arr))
+        }
+        if self.spill is not None and self.spill.spilled:
+            self.spill.io_drain()  # queued inserts must land before scans
+            g = self.spill.forest.transfers
+            for ts in g.query(field, value):
+                if ts in by_ts:
+                    continue  # the table wins (stale LSM rows of reloaded ids)
+                row = g.get_by_timestamp(ts)
+                t = types.Transfer.from_np(np.frombuffer(row, dtype=types.TRANSFER_DTYPE)[0])
+                if t.id in self.spill.spilled:
+                    by_ts[ts] = t
+            if len(by_ts) > QUERY_LIMIT:
+                raise RuntimeError(f"query matches {len(by_ts)} rows > QUERY_LIMIT")
+        return [by_ts[ts] for ts in sorted(by_ts)]
 
     # -- parity extraction --
 
     def extract(self):
         """Pull the full state to host dicts (accounts, transfers, posted) for
-        comparison against the oracle."""
+        comparison against the oracle, spilled transfers included."""
         acct_rows = self.state["acct_rows"][:-1].cpu().numpy().view(np.uint32)
         xfer_rows = self.state["xfer_rows"][:-1].cpu().numpy().view(np.uint32)
         fulfill = self.state["fulfill"][:-1].cpu().numpy().view(np.uint32)
@@ -2150,6 +2301,8 @@ class DeviceLedger:
             transfers[t.id] = t
             if ful[i]:
                 posted[t.timestamp] = int(ful[i])
+        if self.spill is not None:
+            self.spill.extract_into(transfers, posted)
         return accounts, transfers, posted
 
     @property
