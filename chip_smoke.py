@@ -77,7 +77,22 @@ Phases (each failure exits non-zero):
    2^24 on a copy of phase 3's state (split at 3/4 of live, gather, a
    reload of 8192 rows), the reload's all-or-nothing gate on copies
    (capacity at 2^24, an earlier fault, probe windows with no empty slot at
-   2^16), and their times.
+   2^16), and their times;
+10. the sharded ledger on one card (K11): each sharded kernel against its
+   plain version on the card at 2^12 / 2^14 slots per shard and 8 shards,
+   on every failure path and fault gate (an exhausted shard, claim
+   contention on one slot, overflow, both capacity gates, a sticky fault,
+   a linked chain across four shards broken mid-chain, post and void across
+   shards); then StateMachine over ShardedLedger(8, ConfigProcess()) (2^20
+   account and 2^24 transfer slots per shard, about 19 GiB) with phase 3's
+   requests (10,000 accounts, 64 x 8190 benchmark transfers on the fast
+   tier, 8190 pendings, their posts and voids and the linked request on the
+   serial tier): every reply and all 10,000 accounts equal
+   NativeLedger(20, 24)'s, and every K11 kernel ran; each kernel against its
+   plain version on two copies of that state at the path's shapes (the
+   serial ones on 1810 accounts and on 8190 transfers: linked chains, posts
+   and voids), their times, and a checkpoint blob restored
+   into a fresh ledger on the card answering alike.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -921,6 +936,36 @@ def linked_request(types, rng, ids, n_chain_events):
     return lk
 
 
+def hold_on(torch, errs, name, sk, sp, run_kernel, run_plain, where, plain_ms=None):
+    """Run a kernel on `sk` and its plain version on `sp`, two copies of
+    one state kept from check to check: their outputs and every leaf must
+    be equal. Records errs[name] (and the plain run's time in
+    plain_ms[name]); returns the kernel's first output."""
+    rk = run_kernel(sk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp = run_plain(sp)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not isinstance(rk, tuple):
+        rk, rp = (rk,), (rp,)
+    outs = [max_abs_diff(a, b) for a, b in zip(rk, rp) if a is not None or b is not None]
+    err = max(outs + [compare_states(sk, sp)])
+    errs[name] = err
+    if plain_ms is not None:
+        plain_ms[name] = plain_s * 1e3
+    what = ""
+    if rp[0] is not None and rp[0].dtype == torch.bool:
+        what = f" found={int(rp[0].sum())}"
+    elif rp[0] is not None and rp[0].dtype == torch.int32:
+        c = np.bincount(rp[0].cpu().numpy().astype(np.int64))
+        what = f" codes={ {i: int(x) for i, x in enumerate(c) if x} }"
+    log(f"  {name}: max_abs_err={err}{what} (plain {plain_s:.1f} s)")
+    if err != 0:
+        fail(f"{name} differs from its plain version at {where}")
+    return rk[0]
+
+
 def phase_main_shapes(torch, L, types, ledger, dev):
     """Each kernel and its plain version on two copies of the main path's
     state (2^20 / 2^24 slots), on batches of the main path's shapes, in the
@@ -938,25 +983,8 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     B = 8190
 
     def check(name, run_kernel, run_plain):
-        rk = run_kernel(sk)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rp = run_plain(sp)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-        if not isinstance(rk, tuple):
-            rk, rp = (rk,), (rp,)
-        outs = [max_abs_diff(a, b) for a, b in zip(rk, rp) if a is not None or b is not None]
-        err = max(outs + [compare_states(sk, sp)])
-        errs[name] = err
-        codes = ""
-        if rp[0] is not None and rp[0].dtype == torch.int32:
-            c = np.bincount(rp[0].cpu().numpy().astype(np.int64))
-            codes = f" codes={ {i: int(x) for i, x in enumerate(c) if x} }"
-        log(f"  {name}: max_abs_err={err}{codes} (plain {plain_s:.1f} s)")
-        if err != 0:
-            fail(f"{name} differs from its plain version at the main path's shape")
-        return rk[0]
+        return hold_on(torch, errs, name, sk, sp, run_kernel, run_plain,
+                       "the main path's shape")
 
     for lo, hi in ((1, B + 1), (B + 1, N_ACCOUNTS + 1)):
         key4 = L.ids_to_batch(list(range(lo, hi)), dev)["key4"]
@@ -2155,6 +2183,521 @@ def reload_gates(torch, L, S, types, constants, dev, big, b_log2, new_chunk, err
          L.FAULT_PROBE | L.FAULT_CLAIM, True)
 
 
+# ----------------------------------------------------------------------
+# phase 10: the sharded ledger on one card
+# ----------------------------------------------------------------------
+
+MESH_SHARDS = 8
+MESH_KERNELS = ("mesh_lookup", "mesh_commit_accounts_fast", "mesh_commit_accounts_serial",
+                "mesh_commit_transfers_fast", "mesh_commit_transfers_serial")
+
+
+def owners_of(M, ids):
+    ids = np.asarray(ids, dtype=np.uint64)
+    return M.owner_of_ids_np(ids, np.zeros_like(ids), MESH_SHARDS)
+
+
+def on_distinct_shards(M, start, k):
+    """The first k ids from `start` on k distinct owner shards."""
+    out, seen = [], set()
+    i = start
+    while len(out) < k:
+        s = int(owners_of(M, [i])[0])
+        if s not in seen:
+            seen.add(s)
+            out.append(i)
+        i += 1
+    return out
+
+
+def mesh_seeded_state(M, types, process, rng, dev):
+    """A small sharded ledger (plain versions on the CPU): accounts on two
+    ledgers, transfers, open pendings, and the tombstones of a rolled-back
+    chain; returns (its state on `dev`, the last timestamp)."""
+    led = M.ShardedLedger(MESH_SHARDS, process, device="cpu")
+    Op = types.Operation
+    accts = accounts(types, np.arange(1, 3001))
+    accts["ledger"][2000:] = 3  # ledger mismatches
+    ts = 10_000
+    led.execute_dense(Op.create_accounts, ts, accts)
+    dr, cr = random_pairs(rng, 4000, 1999)
+    ts += 10_000
+    led.execute_dense(Op.create_transfers, ts,
+                      transfers(types, np.arange(100_001, 104_001), dr, cr,
+                                rng.integers(1, 1000, 4000)))
+    dr, cr = random_pairs(rng, 3000, 1999)
+    ts += 10_000
+    led.execute_dense(Op.create_transfers, ts,
+                      transfers(types, np.arange(200_001, 203_001), dr, cr,
+                                rng.integers(1, 1000, 3000), flags=2))
+    ts += 10_000
+    led.execute_dense(Op.create_transfers, ts,
+                      transfers(types, [300_001, 300_002, 300_003], [1, 2, 3], [4, 5, 6],
+                                [5, 5, 0], flags=[1, 1, 0]))
+    led.check_fault()
+    return {k: v.to(dev) for k, v in led.state.items()}, ts
+
+
+def mesh_exhausted(torch, state, rng, shard, tombs):
+    """A copy of `state` whose shard `shard` has no empty transfer slot
+    left: its empty rows get random words, then `tombs` of its rows are
+    tombstoned."""
+    out = clone_state(state)
+    rows = out["xfer_rows"][shard].cpu().numpy()
+    empty = np.nonzero((rows[:-1, :4] == 0).all(1))[0]
+    rows[empty] = rng.integers(-(1 << 31), 1 << 31, (len(empty), 32)).astype(np.int32)
+    rows[rng.choice(len(rows) - 1, tombs, replace=False)] = -1
+    out["xfer_rows"][shard].copy_(torch.from_numpy(rows))
+    return out
+
+
+def mesh_serial_batch(M, types, rng, n):
+    """serial_transfer_batch (chains, balancing, duplicates, in-batch and
+    registered post/void) plus a chain of four over accounts on four
+    distinct shards, broken at its third link."""
+    t = serial_transfer_batch(types, rng, n)
+    acct = on_distinct_shards(M, 1, 4)  # ids of ledger-2 accounts (1..1999)
+    j = np.arange(60, 64)
+    t["flags"][j] = [1, 1, 1, 0]
+    t["debit_account_id_lo"][j] = acct
+    t["credit_account_id_lo"][j] = acct[1:] + acct[:1]
+    t["amount_lo"][j] = [5, 7, 0, 9]
+    return t
+
+
+def claim_contenders(M, ht, torch, state, t_log2, first):
+    """Four fresh transfer ids owned by one shard whose first probe is the
+    same free slot of that shard's table."""
+    ids = np.arange(first, first + 200_000, dtype=np.int64)
+    owner = owners_of(M, ids)
+    k4 = torch.from_numpy(np.stack([ids & 0xFFFFFFFF, ids >> 32, 0 * ids, 0 * ids], 1)
+                          .astype(np.uint32).view(np.int32))
+    base = ht.hash_key4(k4, t_log2).numpy()
+    free = (state["xfer_rows"][:, :-1, :4] == 0).all(-1).cpu().numpy()[owner, base]
+    key = owner * (1 << t_log2) + base
+    order = np.argsort(key[free], kind="stable")
+    k_sorted = key[free][order]
+    start = np.nonzero(k_sorted[3:] == k_sorted[:-3])[0][0]
+    return [int(x) for x in ids[free][order][start:start + 4]]
+
+
+def mesh_gates(torch, L, M, ht, types, constants, dev):
+    """Each K11 kernel against its plain version on the card at 2^12 / 2^14
+    slots per shard, on every failure path and fault gate. Returns
+    {check name: max_abs_err}."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    process = constants.ConfigProcess(account_slots_log2=12, transfer_slots_log2=14)
+    a_log2, t_log2 = 12, 14
+    rng = np.random.default_rng(SEED + 11)
+    base, ts = mesh_seeded_state(M, types, process, rng, dev)
+    errs = {}
+
+    def check(name, run_kernel, run_plain, start=None):
+        hold(torch, name, base if start is None else start, run_kernel, run_plain)
+        errs[name] = 0
+
+    def xfer(name, arr, n, serial, start=None, t=None):
+        rows = M.batch_rows(arr)
+        kern = K.mesh_commit_transfers_serial if serial else K.mesh_commit_transfers_fast
+        plain = M.commit_transfers_serial_plain if serial else M.commit_transfers_fast_plain
+        t = ts + 10_000 if t is None else t
+        rows = torch.from_numpy(rows).to(dev)
+        check(name, lambda s: kern(s, rows, n, t, a_log2, t_log2),
+              lambda s: plain(s, rows, n, t, a_log2, t_log2), start)
+
+    def acct(name, arr, n, serial, start=None):
+        rows = torch.from_numpy(M.batch_rows(arr)).to(dev)
+        kern = K.mesh_commit_accounts_serial if serial else K.mesh_commit_accounts_fast
+        plain = M.commit_accounts_serial_plain if serial else M.commit_accounts_fast_plain
+        check(name, lambda s: kern(s, rows, n, ts + 10_000, a_log2),
+              lambda s: plain(s, rows, n, ts + 10_000, a_log2), start)
+
+    B = 8190
+    ids = np.concatenate([np.arange(1, 6001), np.arange(7_000_000, 7_000_000 + B - 6001), [0]])
+    key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+    check("K11 mesh_lookup (accounts: present, missing, zero)",
+          lambda s: K.mesh_lookup(key4, s["acct_rows"], a_log2),
+          lambda s: M.lookup_plain(s["acct_rows"], key4, a_log2))
+    acct("K11 mesh_commit_accounts fast (4096, failures)",
+         account_batch(types, rng, 4096, 1_000_000, False), 4096, False)
+    acct("K11 mesh_commit_accounts serial (512, chains, duplicates)",
+         account_batch(types, rng, 512, 1_100_000, True), 512, True)
+    xfer("K11 mesh_commit_transfers fast (8190, failures)",
+         fast_transfer_batch(types, rng, B, False), B, False)
+    xfer("K11 mesh_commit_transfers serial (256: a chain across four shards broken "
+         "mid-chain, post and void across shards)", mesh_serial_batch(M, types, rng, 256),
+         256, True)
+    group = claim_contenders(M, ht, torch, base, t_log2, 40_000_000)
+    arr = transfers(types, group, [1, 3, 5, 7], [2, 4, 6, 8], [1, 2, 3, 4])
+    xfer(f"K11 mesh_commit_transfers fast (claim contention: 4 lanes, one slot of shard "
+         f"{int(owners_of(M, group[:1])[0])})", arr, 4, False)
+
+    # the fault gates
+    arr = transfers(types, [800_001, 800_002], [1, 1], [2, 2], [0, 0], flags=[2, 0])
+    arr["amount_hi"] = 1 << 63  # 2^127 pending + 2^127 posted: dp + dpo overflows
+    xfer("K11 mesh_commit_transfers fast (overflow backstop)", arr, 2, False)
+    arr = fast_transfer_batch(types, rng, B, False)
+    ins = np.bincount(owners_of(M, arr["id_lo"]), minlength=MESH_SHARDS)
+    full = clone_state(base)
+    full["xfer_used_slots"][0] = (1 << t_log2) // 2 - int(ins[0]) // 2  # owned inserts overflow
+    xfer("K11 mesh_commit_transfers fast (capacity gate of shard 0)", arr, B, False, full)
+    full = clone_state(base)
+    full["xfer_used_slots"][5] = (1 << t_log2) // 2 - 63  # all 64 events charged to each shard
+    xfer("K11 mesh_commit_transfers serial (capacity gate: 64 events, room for 63 on shard 5)",
+         mesh_serial_batch(M, types, rng, 64), 64, True, full)
+    full = clone_state(base)
+    full["acct_used_slots"][2] = (1 << a_log2) // 2 - 63
+    acct("K11 mesh_commit_accounts serial (capacity gate: 64 events, room for 63 on shard 2)",
+         account_batch(types, rng, 64, 1_200_000, True), 64, True, full)
+    faulted = clone_state(base)
+    faulted["fault"].fill_(1)
+    acct("K11 mesh_commit_accounts fast (sticky fault)",
+         account_batch(types, rng, 256, 2_000_000, False), 256, False, faulted)
+    xfer("K11 mesh_commit_transfers serial (sticky fault)", mesh_serial_batch(M, types, rng, 64),
+         64, True, faulted)
+    # one shard's windows with no empty slot: its lookups do not resolve;
+    # the fast commit faults before writing, the serial scan goes on with
+    # FAULT_SERIAL
+    full = mesh_exhausted(torch, base, rng, 3, tombs=1000)
+    ids = np.concatenate([np.arange(100_001, 104_001), np.arange(8_000_000, 8_000_000 + 4190)])
+    key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+    check("K11 mesh_lookup (transfers, shard 3 exhausted)",
+          lambda s: K.mesh_lookup(key4, s["xfer_rows"], t_log2),
+          lambda s: M.lookup_plain(s["xfer_rows"], key4, t_log2), full)
+    xfer("K11 mesh_commit_transfers fast (shard 3 exhausted)",
+         fast_transfer_batch(types, rng, B, False), B, False, full)
+    xfer("K11 mesh_commit_transfers serial (shard 3 exhausted)",
+         mesh_serial_batch(M, types, rng, 128), 128, True, full)
+    return errs
+
+
+def mesh_probe_counts(torch, M, ht, key4, rows, log2, window):
+    """Probes the keys need on their owner shards' tables (to the hit or
+    the first empty slot)."""
+    owners = M.owner_of_key4(key4, rows.shape[0])
+    return sum(probe_counts(torch, ht, key4[owners == s].contiguous(), rows[s], log2, window)
+               for s in range(rows.shape[0]) if bool((owners == s).any()))
+
+
+def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps_main):
+    """The sharded ledger on one card: the fault gates at 2^12 / 2^14, the
+    main path at ConfigProcess() per shard against NativeLedger(20, 24),
+    each kernel against its plain version on copies of that state, their
+    times, and a checkpoint round trip. Returns (launches, {check:
+    max_abs_err}, {key: timing row})."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+
+    Op = types.Operation
+    t0 = time.perf_counter()
+    errs = mesh_gates(torch, L, M, ht, types, constants, dev)
+    log(f"  fault gates held in {time.perf_counter() - t0:.1f} s")
+
+    process = constants.ConfigProcess()
+    reqs = main_path_requests(types, np.random.default_rng(SEED + 1))  # phase 3's requests
+    torch.cuda.reset_peak_memory_stats()
+    ledger = M.ShardedLedger(MESH_SHARDS, process, device=dev)
+    nbytes = sum(v.numel() * v.element_size() for v in ledger.state.values())
+    log(f"  ShardedLedger({MESH_SHARDS}, ConfigProcess()) on {dev}: 2^{process.account_slots_log2}"
+        f" account and 2^{process.transfer_slots_log2} transfer slots per shard, state "
+        f"{nbytes} bytes ({nbytes / 2**30:.2f} GiB)")
+    sm = SM.StateMachine(ledger)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    replies, seconds = run_requests(sm, reqs, Op)
+    ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
+    id_bytes = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
+    chunks = [id_bytes[16 * i:16 * min(i + 8190, N_ACCOUNTS)] for i in range(0, N_ACCOUNTS, 8190)]
+    looked = [sm.commit(Op.lookup_accounts, 0, c) for c in chunks]
+    ledger.check_fault()
+    torch.cuda.synchronize()
+    launches = {k: K.LAUNCHES[k] for k in MESH_KERNELS}
+    log(f"  launches on the sharded path: {launches}")
+    missing = [k for k, v in launches.items() if not v]
+    if missing:
+        fail(f"{missing} were not launched on the sharded path")
+
+    native = NativeLedger(20, 24)
+    sm_n = SM.StateMachine(native)
+    for (kind, op, body), rep in zip(reqs, replies):
+        sm_n.prepare(op, body)
+        if sm_n.commit(op, sm_n.prepare_timestamp + 10**12, body) != rep:
+            fail(f"a {kind} reply differs from the native engine's")
+    for c, got in zip(chunks, looked):
+        if sm_n.commit(Op.lookup_accounts, 0, c) != got:
+            fail("an account differs from the native engine's")
+    if len(b"".join(looked)) != 128 * N_ACCOUNTS:
+        fail("a lookup missed accounts")
+    lk_reply = replies[[k for k, _o, _b in reqs].index("linked")]
+    if not lk_reply:
+        fail("the linked request reported no broken chain")
+    log(f"  every reply ({len(reqs)} requests) and all {N_ACCOUNTS} accounts equal "
+        "NativeLedger(20, 24)'s on the same requests")
+    total = sum(seconds)
+    tps = N_REQUESTS * 8190 / total
+    ms = np.array(seconds) * 1e3
+    log(f"  {N_REQUESTS} x 8190 create_transfers in {total:.4f} s: {tps:.0f} transfers/s one "
+        f"request at a time (median {np.median(ms):.4f} ms, p84 {np.percentile(ms, 84):.4f} ms), "
+        f"against {tps_main:.0f} on DeviceLedger in phase 3 [{card}]")
+
+    shape_errs, serial_plain_ms = mesh_main_shapes(torch, L, M, types, ledger, dev)
+    errs.update(shape_errs)
+    log(f"  peak memory with the ledger and two copies: {torch.cuda.max_memory_allocated()} "
+        "bytes")
+    times = mesh_timing(torch, L, M, ht, types, ledger, dev, hbm_ns, serial_plain_ms)
+    del sm, ledger
+    torch.cuda.empty_cache()
+    mesh_round_trip(torch, M, types, constants, dev)
+    return launches, errs, times
+
+
+def serial_request(types, rng, ids, pend):
+    """A request of the sharded path's serial tier at its size: the linked
+    request's chains of three over its first 600 events (every tenth
+    broken), then posts and voids of the open pendings `pend`. Returns the
+    request and the accounts each event moves (a post/void moves its
+    pending's)."""
+    lk = linked_request(types, rng, ids[:600], 600)
+    m = len(ids) - 600
+    pv = transfers(types, ids[600:], 0, 0, 0, ledger=0, code=0,
+                   flags=np.where(np.arange(m) % 2, 4, 8), pending_id=pend["id_lo"][:m])
+    moved = np.concatenate([lk, pend[:m]])
+    return np.concatenate([lk, pv]), moved
+
+
+def mesh_main_shapes(torch, L, M, types, ledger, dev):
+    """Each K11 kernel and its plain version on two copies of the sharded
+    main path's state, at the path's shapes: lookups of 8190 accounts and
+    transfers, fast commits of 8190 accounts, transfers and pendings, the
+    serial accounts on the path's 1810-event request (one linked pair) and
+    the serial transfers on 8190 events (serial_request over those
+    pendings). Returns ({check name: max_abs_err}, {kernel key: the serial
+    plain run's ms})."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    sk, sp = clone_state(ledger.state), clone_state(ledger.state)
+    rng = np.random.default_rng(SEED + 12)
+    errs, plain_ms = {}, {}
+    B = 8190
+    NA = N_ACCOUNTS - B  # the path's second account request
+
+    def check(name, run_kernel, run_plain):
+        return hold_on(torch, errs, name, sk, sp, run_kernel, run_plain,
+                       "the sharded path's shape", plain_ms)
+
+    def pad(arr):
+        return torch.from_numpy(M.batch_rows(arr)).to(dev)
+
+    for table, log2, ids in (("acct_rows", a_log2, rng.integers(1, N_ACCOUNTS + 1, B)),
+                             ("xfer_rows", t_log2, 1_000_000_001 + rng.integers(0, 64 * B, B))):
+        key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+        check(f"K11 mesh_lookup ({B} {'accounts' if table == 'acct_rows' else 'transfers'})",
+              lambda s: K.mesh_lookup(key4, s[table], log2),
+              lambda s: M.lookup_plain(s[table], key4, log2))
+    ts = 3 * 10**12
+    rows = pad(accounts(types, np.arange(20_000_001, 20_000_001 + B)))
+    check(f"K11 mesh_commit_accounts fast ({B})",
+          lambda s: K.mesh_commit_accounts_fast(s, rows, B, ts, a_log2),
+          lambda s: M.commit_accounts_fast_plain(s, rows, B, ts, a_log2))
+    a = accounts(types, np.arange(21_000_001, 21_000_001 + NA))
+    a["flags"][100:102] = [1, 0]
+    rows = pad(a)
+    ts += B
+    as_name = f"K11 mesh_commit_accounts serial ({NA}, one linked pair)"
+    check(as_name, lambda s: K.mesh_commit_accounts_serial(s, rows, NA, ts, a_log2),
+          lambda s: M.commit_accounts_serial_plain(s, rows, NA, ts, a_log2))
+    for what, first, flags in (("transfers", 7_000_000_000, 0), ("pendings", 7_100_000_000, 2)):
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        arr = transfers(types, np.arange(first + B, first, -1), dr, cr,
+                        rng.integers(1, 1_000_000, B).astype(np.uint64), flags=flags)
+        rows = pad(arr)
+        ts += B
+        check(f"K11 mesh_commit_transfers fast ({B} {what})",
+              lambda s: K.mesh_commit_transfers_fast(s, rows, B, ts, a_log2, t_log2),
+              lambda s: M.commit_transfers_fast_plain(s, rows, B, ts, a_log2, t_log2))
+    arr, _ = serial_request(types, rng, np.arange(7_300_000_001, 7_300_000_001 + B), arr)
+    rows = pad(arr)
+    ts += B
+    ts_name = (f"K11 mesh_commit_transfers serial ({B}: 200 linked chains, every tenth broken, "
+               f"then {B - 600} posts and voids)")
+    codes = check(ts_name,
+                  lambda s: K.mesh_commit_transfers_serial(s, rows, B, ts, a_log2, t_log2),
+                  lambda s: M.commit_transfers_serial_plain(s, rows, B, ts, a_log2, t_log2))
+    if int(sk["fault"]) != 0:
+        fail(f"the sharded main-shape checks faulted: {int(sk['fault'])}")
+    if int((codes[600:B] == 0).sum()) != B - 600:
+        fail("a post or void of an open pending did not commit")
+    del sk, sp
+    torch.cuda.empty_cache()
+    return errs, {"K11as": plain_ms[as_name], "K11ts": plain_ms[ts_name]}
+
+
+def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, serial_plain_ms):
+    """Each K11 kernel at the sharded path's shapes on its state, beside
+    its plain version (for the serial ones, the plain run of
+    mesh_main_shapes on the same kind of request, `serial_plain_ms`);
+    {key: (kernel ms, plain ms, bound ms, bound_by)}. A serial kernel's
+    latency bound counts the dependent loads the function needs: one per
+    event, and one more for a post/void, whose accounts are known only
+    once its pending's row is read."""
+    from tigerbeetle_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(SEED + 13)
+    st = ledger.state
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    out = {}
+    B = 8190
+    NA = N_ACCOUNTS - B
+    SECTOR = 32
+
+    def bound(nbytes, trips=0):
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_latency = trips * latency_ns * 1e-6
+        return (by_latency, "latency") if by_latency > by_bytes else (by_bytes, "bytes")
+
+    def pad(arr):
+        return torch.from_numpy(M.batch_rows(arr)).to(dev)
+
+    def once(key):
+        ms = serial_plain_ms[key]
+        return ms, ms, ms
+
+    key4 = L.ids_to_batch([int(x) for x in rng.integers(1, N_ACCOUNTS + 1, B)], dev)["key4"]
+    probes = mesh_probe_counts(torch, M, ht, key4, st["acct_rows"], a_log2, 32)
+    nbytes = B * (16 + 128 + 128 + 2) + (probes - B) * SECTOR
+    out["K11l"] = (timed(torch, lambda: K.mesh_lookup(key4, st["acct_rows"], a_log2), 20),
+                   timed(torch, lambda: M.lookup_plain(st["acct_rows"], key4, a_log2), 5),
+                   *bound(nbytes))
+
+    next_id = [30_000_000]
+
+    def fresh_accounts(n, linked):
+        a = accounts(types, np.arange(next_id[0], next_id[0] + n))
+        if linked:
+            a["flags"][100:102] = [1, 0]
+        next_id[0] += n
+        return pad(a)
+
+    for key, n, serial in (("K11af", B, False), ("K11as", NA, True)):
+        batches = [fresh_accounts(n, serial) for _ in range(10 if serial else 13)]
+        probes = mesh_probe_counts(torch, M, ht, batches[0][:n, :4].contiguous(),
+                                  st["acct_rows"], a_log2, 64 if serial else 32)
+        nbytes = n * (128 + 4 + 128) + probes * SECTOR
+        kern = K.mesh_commit_accounts_serial if serial else K.mesh_commit_accounts_fast
+        it = iter(batches)
+        kt = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), 10)
+        pt = once(key) if serial else timed(
+            torch, lambda: M.commit_accounts_fast_plain(st, next(it), n, 10**13, a_log2), 3)
+        out[key] = (kt, pt, *bound(nbytes, n if serial else 0))
+
+    next_xfer = [8_000_000_000]
+
+    def fresh_transfers(flags=0):
+        ids = np.arange(next_xfer[0], next_xfer[0] + B)
+        next_xfer[0] += B
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        return transfers(types, ids, dr, cr, rng.integers(1, 1000, B).astype(np.uint64),
+                         flags=flags)
+
+    def xfer_bytes(arr, moved, window):
+        """Rows in, codes and rows out, the probe sectors of the ids, each
+        distinct account moved (`moved`) read and written once, and for a
+        post/void its pending's row read and fulfill word written."""
+        rows = torch.from_numpy(L._to_rows_np(arr)).to(dev)
+        mv = torch.from_numpy(L._to_rows_np(moved)).to(dev)
+        distinct = torch.unique(torch.cat([mv[:, 4:8], mv[:, 8:12]]), dim=0)
+        ap = mesh_probe_counts(torch, M, ht, distinct, st["acct_rows"], a_log2, window)
+        tp = mesh_probe_counts(torch, M, ht, rows[:, :4].contiguous(), st["xfer_rows"], t_log2,
+                              window)
+        pv = torch.from_numpy((arr["flags"] & 12) != 0).to(dev)
+        n_pv = int(pv.sum())
+        pp = mesh_probe_counts(torch, M, ht, rows[pv, 16:20].contiguous(), st["xfer_rows"],
+                               t_log2, window)
+        n, touched = len(arr), distinct.shape[0]
+        return (n * (128 + 4 + 128) + tp * SECTOR + touched * 2 * 128 + (ap - touched) * SECTOR
+                + n_pv * (128 + 4) + (pp - n_pv) * SECTOR), n_pv
+
+    arrs = [fresh_transfers() for _ in range(13)]
+    nbytes, _ = xfer_bytes(arrs[0], arrs[0], 32)
+    it = iter([pad(a) for a in arrs])
+    kt = timed(torch, lambda: K.mesh_commit_transfers_fast(st, next(it), B, 10**13, a_log2,
+                                                           t_log2), 10)
+    pt = timed(torch, lambda: M.commit_transfers_fast_plain(st, next(it), B, 10**13, a_log2,
+                                                            t_log2), 3)
+    out["K11tf"] = (kt, pt, *bound(nbytes))
+
+    # K11ts on serial_request, each over pendings the fast kernel commits
+    # first (untimed)
+    reqs = []
+    for _ in range(10):
+        pend = fresh_transfers(flags=2)
+        K.mesh_commit_transfers_fast(st, pad(pend), B, 10**13, a_log2, t_log2)
+        ids = np.arange(next_xfer[0], next_xfer[0] + B)
+        next_xfer[0] += B
+        reqs.append(serial_request(types, rng, ids, pend))
+    nbytes, n_pv = xfer_bytes(*reqs[0], 64)
+    it = iter([pad(r) for r, _ in reqs])
+    kt = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
+                                                             t_log2), 10)
+    out["K11ts"] = (kt, once("K11ts"), *bound(nbytes, B + n_pv))
+    # and on the path's own linked request (no post/void: one load each)
+    lk = [pad(linked_request(types, rng, np.arange(9_000_000_000 + i * B,
+                                                   9_000_000_000 + (i + 1) * B), 600))
+          for i in range(10)]
+    it = iter(lk)
+    full = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
+                                                                t_log2), 10)
+    ledger.check_fault()
+    for k, (kt, pt, b, by) in out.items():
+        log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
+            f"plain {pt[0]:.4f} ms, bound {b:.6f} ms ({by})")
+    log(f"  K11ts on a whole linked request of {B} events: {full[0]:.4f} ms [p25 {full[1]:.4f}, "
+        f"p75 {full[2]:.4f}], bound {B * latency_ns * 1e-6:.6f} ms (latency)")
+    return out
+
+
+def mesh_round_trip(torch, M, types, constants, dev):
+    """snapshot_bytes -> restore_bytes into a fresh ledger on the card at
+    2^12 / 2^14: lookups and one more request answer alike on both."""
+    Op = types.Operation
+    process = constants.ConfigProcess(account_slots_log2=12, transfer_slots_log2=14)
+    rng = np.random.default_rng(SEED + 14)
+    a = M.ShardedLedger(MESH_SHARDS, process, device=dev)
+    ts = 10_000
+    a.execute_dense(Op.create_accounts, ts, accounts(types, np.arange(1, 1001)))
+    for r in range(3):
+        ts += 4000
+        dr, cr = random_pairs(rng, 4000, 1000)
+        t = transfers(types, np.arange(1 + 4000 * r, 4001 + 4000 * r), dr, cr,
+                      rng.integers(1, 1000, 4000), flags=np.where(rng.random(4000) < 0.2, 2, 0))
+        a.execute_dense(Op.create_transfers, ts, t)
+    ts += 256
+    a.execute_dense(Op.create_transfers, ts, mesh_serial_batch(M, types, rng, 256))
+    blob = a.snapshot_bytes()
+    b = M.ShardedLedger(MESH_SHARDS, process, device=dev)
+    b.restore_bytes(blob)
+    if b.snapshot_bytes() != blob:
+        fail("a restored sharded ledger snapshots other bytes")
+    ids = list(range(1, 1001)) + [5000]
+    t_ids = list(range(1, 12_001, 7)) + [10**9]
+    dr, cr = random_pairs(rng, 2000, 1000)
+    more = transfers(types, np.arange(50_001, 52_001), dr, cr, rng.integers(1, 1000, 2000))
+    ts += 2000
+    same = (a.lookup_rows(Op.lookup_accounts, ids) == b.lookup_rows(Op.lookup_accounts, ids)
+            and a.lookup_rows(Op.lookup_transfers, t_ids) == b.lookup_rows(Op.lookup_transfers,
+                                                                          t_ids)
+            and a.execute_dense(Op.create_transfers, ts, more)
+            == b.execute_dense(Op.create_transfers, ts, more)
+            and a.lookup_rows(Op.lookup_accounts, ids) == b.lookup_rows(Op.lookup_accounts, ids)
+            and a.snapshot_bytes() == b.snapshot_bytes())
+    if not same:
+        fail("a restored sharded ledger answers otherwise than the original")
+    log(f"  checkpoint round trip at 2^12 / 2^14: a blob of {len(blob)} bytes restores; lookups "
+        "and one more request answer alike")
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -2185,8 +2728,20 @@ KERNELS = [
      "tigerbeetle_tpu/models/spill.py:271"),
     ("K10r", "spill_reload", "K10 spill_reload", "tigerbeetle_tpu_torch/csrc/spill_reload.cu",
      "tigerbeetle_tpu/models/spill.py:274"),
+    ("K11l", "mesh_lookup", "K11 mesh_lookup", "tigerbeetle_tpu_torch/csrc/mesh_lookup.cu",
+     "tigerbeetle_tpu/parallel/mesh.py:844"),
+    ("K11af", "mesh_commit_accounts_fast", "K11 mesh_commit_accounts fast",
+     "tigerbeetle_tpu_torch/csrc/mesh_commit_accounts.cu", "tigerbeetle_tpu/parallel/mesh.py:340"),
+    ("K11as", "mesh_commit_accounts_serial", "K11 mesh_commit_accounts serial",
+     "tigerbeetle_tpu_torch/csrc/mesh_commit_accounts.cu", "tigerbeetle_tpu/parallel/mesh.py:723"),
+    ("K11tf", "mesh_commit_transfers_fast", "K11 mesh_commit_transfers fast",
+     "tigerbeetle_tpu_torch/csrc/mesh_commit_transfers.cu",
+     "tigerbeetle_tpu/parallel/mesh.py:224"),
+    ("K11ts", "mesh_commit_transfers_serial", "K11 mesh_commit_transfers serial",
+     "tigerbeetle_tpu_torch/csrc/mesh_serial_transfers.cu",
+     "tigerbeetle_tpu/parallel/mesh.py:431"),
 ]
-# the kernels of the paths of phases 7, 8 and 9 alone
+# the kernels of the paths of phases 7, 8, 9 and 10 alone
 DUAL_KERNELS = ("fold",)
 QUERY_KERNELS = ("filter_scan",)
 SPILL_KERNELS = ("spill_head", "spill_split", "spill_gather", "spill_reload")
@@ -2251,7 +2806,7 @@ def main() -> int:
     launches = dict(K.LAUNCHES)
     log(f"  launches on the main path: {launches}")
     if not all(v for k, v in launches.items()
-               if k not in DUAL_KERNELS + QUERY_KERNELS + SPILL_KERNELS):
+               if k not in DUAL_KERNELS + QUERY_KERNELS + SPILL_KERNELS + MESH_KERNELS):
         fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
 
@@ -2279,8 +2834,19 @@ def main() -> int:
     spill_launches, spill_errs, spill_rows = phase_spill(
         torch, L, SM, types, constants, dev, card, ledger.state, ledger.process)
 
+    log("== phase 10: the sharded ledger on one card, ShardedLedger(8, ConfigProcess()) on cuda "
+        "against NativeLedger(20, 24)")
+    del sm, ledger
+    torch.cuda.empty_cache()
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+
+    mesh_launches, mesh_errs, mesh_times = phase_mesh(
+        torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps)
+
     errs.update(query_errs)
     errs.update(spill_errs)
+    errs.update(mesh_errs)
+    times.update(mesh_times)
     times["K8"] = k8_row
     library = {}
     for key, (kt, pt, b, by, lib) in spill_rows.items():
@@ -2289,6 +2855,7 @@ def main() -> int:
     path_launches = {c: dual_launches for c in DUAL_KERNELS}
     path_launches.update({c: query_launches for c in QUERY_KERNELS})
     path_launches.update({c: spill_launches for c in SPILL_KERNELS})
+    path_launches.update({c: mesh_launches for c in MESH_KERNELS})
     table = []
     for key, counter, name, source, replaces in KERNELS:
         (kt, _, _), (pt, _, _), bound_ms, bound_by = times[key]

@@ -46,7 +46,7 @@ def test_import_loads_no_jax():
         "import tigerbeetle_tpu_torch.io.storage, tigerbeetle_tpu_torch.vsr.free_set\n"
         "import tigerbeetle_tpu_torch.lsm.cache, tigerbeetle_tpu_torch.lsm.grid\n"
         "import tigerbeetle_tpu_torch.lsm.tree, tigerbeetle_tpu_torch.lsm.manifest_log\n"
-        "import tigerbeetle_tpu_torch.lsm.groove\n"
+        "import tigerbeetle_tpu_torch.lsm.groove, tigerbeetle_tpu_torch.parallel.mesh\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -86,6 +86,20 @@ def test_spilling_ledger_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DeviceLedger(TEST_PROCESS, forest=forest)
+
+
+def test_sharded_ledger_defaults_to_cuda():
+    import torch
+
+    from tigerbeetle_tpu_torch.constants import ConfigProcess
+    from tigerbeetle_tpu_torch.parallel.mesh import ShardedLedger
+
+    small = ConfigProcess(account_slots_log2=4, transfer_slots_log2=6)
+    if torch.cuda.is_available():
+        assert ShardedLedger(2, small).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ShardedLedger(2, small)
 
 
 def test_native_checksum_of_empty_body():

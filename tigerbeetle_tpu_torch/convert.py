@@ -12,6 +12,7 @@ included: the device state, the host's occupancy counters, prepare clock and
 planner state, and the spill store (the grid's storage bytes and
 `SpillManager.checkpoint_meta()`, restored through the port's own
 `SpillManager.restore`). Both ledgers then continue identically.
+`carry_sharded` does the same for a sharded ledger (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -57,6 +58,29 @@ def carry_ledger(port, src, state_np: dict, storage_data=None, spill_meta=None) 
     port.state = state_from_numpy(state_np, port.device)
     port._acct_used = int(src._acct_used)
     port._xfer_used = int(src._xfer_used)
+    _carry_host(port, src)
+    if spill_meta is not None:
+        storage = port.spill.forest.grid.storage
+        if len(storage.data) != len(storage_data):
+            raise ValueError(f"storage of {len(storage.data)} bytes, {len(storage_data)} given")
+        storage.data[:] = storage_data
+        port.spill.restore(spill_meta)
+
+
+def carry_sharded(port, src, state_np: dict) -> None:
+    """Carry the sharded ledger `src` into the port's ShardedLedger `port`
+    (same shard count and geometry). `state_np` is src's state as numpy
+    arrays; the per-shard occupancy counters, the prepare clock and the
+    hazard tracker are read from src's attributes."""
+    port.state = state_from_numpy(state_np, port.device)
+    port._acct_used = np.array(src._acct_used, dtype=np.int64)
+    port._xfer_used = np.array(src._xfer_used, dtype=np.int64)
+    _carry_host(port, src)
+
+
+def _carry_host(port, src) -> None:
+    """The prepare clock and the hazard tracker's limit accounts, pending
+    registry, amount bound and plan stats."""
     port.prepare_timestamp = int(src.prepare_timestamp)
     h, t = src.hazards, port.hazards
     t.amount_sum = int(h.amount_sum)
@@ -64,9 +88,3 @@ def carry_ledger(port, src, state_np: dict, storage_data=None, spill_meta=None) 
     t._limit_lo = np.array(h._limit_lo, dtype=np.uint64)
     t.pending_accounts = dict(h.pending_accounts)
     t.plan_stats = dict(h.plan_stats)
-    if spill_meta is not None:
-        storage = port.spill.forest.grid.storage
-        if len(storage.data) != len(storage_data):
-            raise ValueError(f"storage of {len(storage.data)} bytes, {len(storage_data)} given")
-        storage.data[:] = storage_data
-        port.spill.restore(spill_meta)

@@ -27,7 +27,8 @@ __device__ __forceinline__ void settle(int i, const int64_t* cand, int32_t* want
 __global__ void claim_select(const uint32_t* __restrict__ keys, int key_stride,
                              const int32_t* __restrict__ active, int B,
                              const uint32_t* __restrict__ rows, const uint32_t* claim,
-                             int cap_log2, int64_t* slot, ClaimScratch sc, int round) {
+                             int cap_log2, int64_t* slot, ClaimScratch sc, int round,
+                             const int32_t* __restrict__ shard) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   if (round == 0) {
@@ -39,11 +40,12 @@ __global__ void claim_select(const uint32_t* __restrict__ keys, int key_stride,
   }
   if (!active[i] || sc.won[i]) return;
   Probe pr = probe_of(key_at(keys + (size_t)i * key_stride), cap_log2);
+  size_t base = shard == nullptr ? 0 : (size_t)shard[i] * (((size_t)1 << cap_log2) + 1);
   for (int j = 0; j < WINDOW; j++) {
-    uint32_t p = pr.at(j);
-    Key4 k = key_at(rows + (size_t)p * ROW_WORDS);
+    size_t p = base + pr.at(j);
+    Key4 k = key_at(rows + p * ROW_WORDS);
     if ((key_empty(k) || key_tomb(k)) && claim[p] == CLAIM_FREE) {
-      sc.cand[i] = p;
+      sc.cand[i] = (int64_t)p;
       sc.want[i] = 1;
       return;
     }
@@ -69,12 +71,12 @@ __global__ void claim_finish(const int32_t* __restrict__ active, int B, uint32_t
 
 void claim_slots(const uint32_t* keys, int key_stride, const int32_t* active, int B,
                  const uint32_t* rows, uint32_t* claim, int cap_log2, int64_t* slot,
-                 ClaimScratch sc, uint32_t* bad, cudaStream_t stream) {
+                 ClaimScratch sc, uint32_t* bad, cudaStream_t stream, const int32_t* shard) {
   const int rounds = 4;
   int g = grid_for(B);
   for (int round = 0; round < rounds; round++) {
     claim_select<<<g, LANES_PER_BLOCK, 0, stream>>>(keys, key_stride, active, B, rows, claim,
-                                                     cap_log2, slot, sc, round);
+                                                     cap_log2, slot, sc, round, shard);
     claim_min<<<g, LANES_PER_BLOCK, 0, stream>>>(B, claim, sc);
   }
   claim_finish<<<g, LANES_PER_BLOCK, 0, stream>>>(active, B, claim, slot, sc, bad);

@@ -18,6 +18,13 @@ struct ClaimScratch {
 // slot, 1 << cap_log2, for lanes that are inactive or lost every round),
 // ORs FAULT_CLAIM into *bad if an active lane found no slot, and releases
 // every claim before the last launch returns. Launches on `stream`.
+//
+// With `shard` (the sharded ledger, mesh_*.cu), `rows` and `claim` hold one
+// table of (1 << cap_log2) + 1 rows per shard and lane i claims in table
+// shard[i]: its slot is then the row index into the whole allocation, and
+// contention is per (shard, slot), as every shard of the JAX mesh runs its
+// own claim rounds over the lanes it owns.
 void claim_slots(const uint32_t* keys, int key_stride, const int32_t* active, int B,
                  const uint32_t* rows, uint32_t* claim, int cap_log2, int64_t* slot,
-                 ClaimScratch sc, uint32_t* bad, cudaStream_t stream);
+                 ClaimScratch sc, uint32_t* bad, cudaStream_t stream,
+                 const int32_t* shard = nullptr);

@@ -25,6 +25,14 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     spill_gather            K10 SpillKernels._gather
     spill_reload            K10 SpillKernels._reload
 
+The sharded ledger's kernels (K11; JAX counterparts in
+tigerbeetle_tpu/parallel/mesh.py `ShardedLedgerKernels`):
+    mesh_lookup                   _lookup_accounts_shard/_transfers_shard
+    mesh_commit_accounts_fast     _commit_accounts_fast
+    mesh_commit_accounts_serial   _commit_accounts_serial
+    mesh_commit_transfers_fast    _commit_transfers_fast
+    mesh_commit_transfers_serial  _commit_transfers_serial
+
 `chase` is no kernel of the ledger: a pointer chase that measures the
 card's dependent-load latency for the serial kernels' bounds.
 """
@@ -58,6 +66,11 @@ LAUNCHES = {
     "spill_split": 0,
     "spill_gather": 0,
     "spill_reload": 0,
+    "mesh_lookup": 0,
+    "mesh_commit_accounts_fast": 0,
+    "mesh_commit_accounts_serial": 0,
+    "mesh_commit_transfers_fast": 0,
+    "mesh_commit_transfers_serial": 0,
 }
 
 _SIGNATURES = {
@@ -79,6 +92,14 @@ _SIGNATURES = {
     "tb_spill_gather": [_P, _P, _P, _I, _P, _P, _P],
     "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
+    "tb_mesh_lookup": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "tb_mesh_commit_accounts_fast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P,
+                                     _P],
+    "tb_mesh_commit_accounts_serial": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
+    "tb_mesh_commit_transfers_fast": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _U64, _P, _P, _P],
+    "tb_mesh_commit_transfers_serial": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _U64, _P, _P, _P],
 }
 _SCRATCH = (
     "tb_commit_accounts_fast_scratch",
@@ -89,6 +110,10 @@ _SCRATCH = (
     "tb_filter_scan_scratch",
     "tb_spill_split_scratch",
     "tb_spill_reload_scratch",
+    "tb_mesh_commit_accounts_fast_scratch",
+    "tb_mesh_commit_accounts_serial_scratch",
+    "tb_mesh_commit_transfers_fast_scratch",
+    "tb_mesh_commit_transfers_serial_scratch",
 )
 
 _lib = None
@@ -475,6 +500,113 @@ def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):
             _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b),
             _ptr(active), B, _ptr(probe), _ptr(scratch), _stream())
     return probe
+
+
+MESH_SHARDS_MAX = 64  # csrc/owner.cuh MESH_SHARDS_MAX
+
+
+def _mesh_table(t, name: str, cap_log2: int, width: int = 32) -> int:
+    """Check a sharded table [S, (1 << cap_log2) + 1(, 32)]; returns S."""
+    _need(t, torch.int32, 3 if width else 2, name)
+    S = t.shape[0]
+    want = (S, (1 << cap_log2) + 1) + ((width,) if width else ())
+    if tuple(t.shape) != want or not 1 <= S <= MESH_SHARDS_MAX:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want} with 1 <= S <= "
+                         f"{MESH_SHARDS_MAX}")
+    return S
+
+
+def _mesh_scalars(state, used: str, count: str, S: int) -> list[int]:
+    _need(state[used], torch.int64, 1, used)
+    if state[used].shape[0] != S:
+        raise ValueError(f"{used}: {state[used].shape[0]} counters for {S} shards")
+    commit_ts, n, fault = _scalars(state, "commit_ts", count, "fault")
+    return [commit_ts, n, _ptr(state[used]), fault]
+
+
+def mesh_lookup(key4, rows, cap_log2: int):
+    """K11 lookup: probe `key4` [B, 4] on each key's owner shard of the
+    sharded table `rows` [S, capacity + 1, 32]; returns (found, rows [B,
+    32], all zero where not found, resolved)."""
+    _need(key4, torch.int32, 2, "key4")
+    S = _mesh_table(rows, "rows", cap_log2)
+    B = key4.shape[0]
+    dev = rows.device
+    found = torch.empty(B, dtype=torch.bool, device=dev)
+    resolved = torch.empty(B, dtype=torch.bool, device=dev)
+    out = torch.empty((B, 32), dtype=torch.int32, device=dev)
+    _launch("tb_mesh_lookup", "mesh_lookup", _ptr(key4), B, _ptr(rows), cap_log2, S,
+            _ptr(found), _ptr(resolved), _ptr(out), _stream())
+    return found, out, resolved
+
+
+def mesh_commit_accounts_fast(state, rows_b, n: int, timestamp: int, a_log2: int):
+    """K11 fast account commit of `rows_b` into the sharded `state` in
+    place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
+    _mesh_table(state["acct_claim"], "acct_claim", a_log2, 0)
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_mesh_commit_accounts_fast_scratch", B, rows_b.device)
+    _launch("tb_mesh_commit_accounts_fast", "mesh_commit_accounts_fast",
+            _ptr(state["acct_rows"]), _ptr(state["acct_claim"]), a_log2, S,
+            *_mesh_scalars(state, "acct_used_slots", "acct_count", S),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def mesh_commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
+    """K11 serial account commit of `rows_b` into the sharded `state` in
+    place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_mesh_commit_accounts_serial_scratch", B, rows_b.device)
+    _launch("tb_mesh_commit_accounts_serial", "mesh_commit_accounts_serial",
+            _ptr(state["acct_rows"]), a_log2, S,
+            *_mesh_scalars(state, "acct_used_slots", "acct_count", S),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def mesh_commit_transfers_fast(state, rows_b, n: int, timestamp: int, a_log2: int,
+                               t_log2: int):
+    """K11 fast transfer commit of `rows_b` into the sharded `state` in
+    place; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
+    if _mesh_table(state["xfer_rows"], "xfer_rows", t_log2) != S \
+            or _mesh_table(state["bal_acc"], "bal_acc", a_log2) != S \
+            or _mesh_table(state["fulfill"], "fulfill", t_log2, 0) != S \
+            or _mesh_table(state["xfer_claim"], "xfer_claim", t_log2, 0) != S:
+        raise ValueError("sharded state: tables of different shard counts")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_mesh_commit_transfers_fast_scratch", B, rows_b.device)
+    _launch("tb_mesh_commit_transfers_fast", "mesh_commit_transfers_fast",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2, S,
+            _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
+            *_mesh_scalars(state, "xfer_used_slots", "xfer_count", S),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
+
+
+def mesh_commit_transfers_serial(state, rows_b, n: int, timestamp: int, a_log2: int,
+                                 t_log2: int):
+    """K11 serial transfer commit of `rows_b` into the sharded `state` in
+    place, event by event; returns int32 codes."""
+    B = _check_batch(rows_b, n)
+    S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
+    if _mesh_table(state["xfer_rows"], "xfer_rows", t_log2) != S \
+            or _mesh_table(state["fulfill"], "fulfill", t_log2, 0) != S:
+        raise ValueError("sharded state: tables of different shard counts")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_mesh_commit_transfers_serial_scratch", B, rows_b.device)
+    _launch("tb_mesh_commit_transfers_serial", "mesh_commit_transfers_serial",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2, S,
+            _ptr(state["fulfill"]),
+            *_mesh_scalars(state, "xfer_used_slots", "xfer_count", S),
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+    return results
 
 
 def chase(nxt, start: int, steps: int):

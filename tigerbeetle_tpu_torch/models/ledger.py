@@ -95,6 +95,12 @@ _WAVE_GOLDEN2 = np.uint64(0xC2B2AE3D27D4EB4F)
 
 ROW_WORDS = 32  # 128-byte wire rows as u32 words
 
+# Flags that force the serial tier in the all-or-nothing hazard check of the
+# sharded ledger (`HazardTracker.transfers_hazard`): linked | post | void |
+# balancing_debit | balancing_credit. Only no-flag and pending-only events
+# are safe on its fast tier.
+_SLOW_FLAGS = 0b111101
+
 # Equality-query field specs: name -> (first u32 word, word count, halfword),
 # derived from the one declaration of the indexed field layouts
 # (lsm/groove.py, the reference's secondary index trees,
@@ -1335,6 +1341,23 @@ class HazardTracker:
                 + (int(np.sum(hi >> np.uint64(32), dtype=np.uint64)) << 32)) << 64)
         )
 
+    def transfers_hazard(self, arr: np.ndarray) -> bool:
+        """True if the batch needs the serial tier: the all-or-nothing check
+        of the sharded ledger (the device ledger plans with plan()). The
+        running amount sum bounds any balance the store can hold (posts move
+        pending to posted, voids remove, balancing clamps to available <=
+        sum), so it counts every batch."""
+        self.amount_sum += self._batch_amount_sum(arr)
+        if self.amount_sum >= (1 << 127):
+            return True  # overflow no longer provably impossible
+        if (arr["flags"] & _SLOW_FLAGS).any():
+            return True
+        if self.has_dup_ids(arr):
+            return True
+        if self.limit_account_ids and self._touches_limit(arr).any():
+            return True
+        return False
+
     def accounts_hazard(self, arr: np.ndarray) -> bool:
         if (arr["flags"] & validate.A_LINKED).any():
             return True
@@ -1776,7 +1799,51 @@ def _summarize(results, fault):
     return torch.cat([results, f]), torch.cat([count, f])
 
 
-class DeviceLedger:
+class HostLedgerBase:
+    """The host surface the device ledger and the sharded ledger
+    (parallel/mesh.py) share, as the JAX package's HostLedgerBase: the
+    prepare clock (reference: src/state_machine.zig:336-343), the lookups
+    (reference: src/state_machine.zig:701-736) and the commit clock.
+    Subclasses provide `state`, `device` and `kernels.lookup_accounts` /
+    `kernels.lookup_transfers`, which return (found, rows, resolved)."""
+
+    prepare_timestamp = 0
+
+    def prepare(self, operation: Operation, event_count: int) -> None:
+        """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
+        if operation in (Operation.create_accounts, Operation.create_transfers):
+            self.prepare_timestamp += event_count
+
+    def _lookup(self, kernel, ids: list[int]):
+        found, rows, resolved = kernel(self.state, ids_to_batch(ids, self.device))
+        if not bool(resolved.all()):
+            raise RuntimeError("lookup probe-window overflow: grow the table")
+        return found.cpu().numpy(), rows.cpu().numpy().view(np.uint32)
+
+    def lookup_rows(self, operation: Operation, ids: list[int]) -> bytes:
+        """Found objects' 128-byte wire rows, request order, missing skipped:
+        the reply body."""
+        kernel = (self.kernels.lookup_accounts if operation == Operation.lookup_accounts
+                  else self.kernels.lookup_transfers)
+        found, rows = self._lookup(kernel, ids)
+        return rows[found].tobytes()
+
+    def lookup_accounts(self, ids: list[int]) -> list[types.Account]:
+        found, rows = self._lookup(self.kernels.lookup_accounts, ids)
+        arr = np.frombuffer(rows.tobytes(), dtype=types.ACCOUNT_DTYPE)
+        return [types.Account.from_np(arr[i]) for i in range(len(ids)) if found[i]]
+
+    def lookup_transfers(self, ids: list[int]) -> list[types.Transfer]:
+        body = self.lookup_rows(Operation.lookup_transfers, ids)
+        arr = np.frombuffer(body, dtype=types.TRANSFER_DTYPE)
+        return [types.Transfer.from_np(arr[i]) for i in range(len(arr))]
+
+    @property
+    def commit_timestamp(self) -> int:
+        return int(self.state["commit_ts"]) & ((1 << 64) - 1)
+
+
+class DeviceLedger(HostLedgerBase):
     """Host wrapper: owns the device state and mirrors the oracle's execute()
     API, so it is a drop-in backend for StateMachine and for parity tests.
 
@@ -1844,11 +1911,6 @@ class DeviceLedger:
             from tigerbeetle_tpu_torch.models.spill import SpillManager
 
             self.spill = SpillManager(self, forest, io=spill_io)
-
-    def prepare(self, operation: Operation, event_count: int) -> None:
-        """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
-        if operation in (Operation.create_accounts, Operation.create_transfers):
-            self.prepare_timestamp += event_count
 
     # ------------------------------------------------------------------
     # execution
@@ -2198,33 +2260,13 @@ class DeviceLedger:
     # lookups (reference: src/state_machine.zig:701-736)
     # ------------------------------------------------------------------
 
-    def _lookup(self, kernel, ids: list[int]):
-        found, rows, resolved = kernel(self.state, ids_to_batch(ids, self.device))
-        if not bool(resolved.all()):
-            raise RuntimeError("lookup probe-window overflow: grow the table")
-        return found.cpu().numpy(), rows.cpu().numpy().view(np.uint32)
-
     def lookup_rows(self, operation: Operation, ids: list[int]) -> bytes:
-        """Found objects' 128-byte wire rows, request order, missing skipped:
-        the reply body. Transfers found in neither the table nor the spill
-        store are the missing ones."""
-        if operation == Operation.lookup_accounts:
-            found, rows = self._lookup(self.kernels.lookup_accounts, ids)
-            return rows[found].tobytes()
-        found, rows = self._lookup(self.kernels.lookup_transfers, ids)
-        if self.spill is not None:
+        """The reply body; transfers found in neither the table nor the
+        spill store are the missing ones."""
+        if operation == Operation.lookup_transfers and self.spill is not None:
+            found, rows = self._lookup(self.kernels.lookup_transfers, ids)
             return self.spill.merge_lookup_rows(ids, found, rows)
-        return rows[found].tobytes()
-
-    def lookup_accounts(self, ids: list[int]) -> list[types.Account]:
-        found, rows = self._lookup(self.kernels.lookup_accounts, ids)
-        arr = np.frombuffer(rows.tobytes(), dtype=types.ACCOUNT_DTYPE)
-        return [types.Account.from_np(arr[i]) for i in range(len(ids)) if found[i]]
-
-    def lookup_transfers(self, ids: list[int]) -> list[types.Transfer]:
-        body = self.lookup_rows(Operation.lookup_transfers, ids)
-        arr = np.frombuffer(body, dtype=types.TRANSFER_DTYPE)
-        return [types.Transfer.from_np(arr[i]) for i in range(len(arr))]
+        return super().lookup_rows(operation, ids)
 
     # ------------------------------------------------------------------
     # secondary-index equality queries (K8 over the tables, plus the LSM
@@ -2304,10 +2346,6 @@ class DeviceLedger:
         if self.spill is not None:
             self.spill.extract_into(transfers, posted)
         return accounts, transfers, posted
-
-    @property
-    def commit_timestamp(self) -> int:
-        return int(self.state["commit_ts"]) & ((1 << 64) - 1)
 
 
 def _occupied_rows(rows: np.ndarray) -> np.ndarray:

@@ -115,7 +115,14 @@ def lookup(key4, rows, cap_log2: int, window: int = WINDOW):
     All-0 and all-1 keys are never found; they resolve like absent keys.
     """
     pos = probe_positions(key4, cap_log2, window)
-    k4 = rows[pos, :4]  # [..., W, 4]
+    return resolve(key4, pos, rows[pos, :4], window)
+
+
+def resolve(key4, pos, k4, window: int):
+    """`lookup`'s answer for key4 [..., 4] from the key words `k4` [..., W,
+    4] read at its probe positions `pos` [..., W]. `k4` may have leading
+    axes in front of key4's (one table per shard): the answers then have
+    them too."""
     key_probeable = ~_is_empty(key4) & ~_is_tomb(key4)
     hit = (k4 == key4.unsqueeze(-2)).all(dim=-1) & key_probeable.unsqueeze(-1)
     empty = _is_empty(k4)
@@ -126,7 +133,7 @@ def lookup(key4, rows, cap_log2: int, window: int = WINDOW):
     found = hit_j < empty_j
     resolved = found | (empty_j < window)
     sel = torch.where(found, hit_j, free_j.clamp(max=window - 1))
-    return _take(pos, sel), found, resolved
+    return _take(pos.expand(*sel.shape, window), sel), found, resolved
 
 
 def claim_slots(key4, active, rows, claim, cap_log2: int,
@@ -174,6 +181,11 @@ def probe_free(key4, rows, cap_log2: int, window: int = WINDOW_SCALAR):
     """First free (empty or tombstone) probe position for a key known to be
     absent (the serial tier's insert target). Returns (slot, ok)."""
     pos = probe_positions(key4, cap_log2, window)
-    k4 = rows[pos, :4]
+    return resolve_free(pos, rows[pos, :4], window)
+
+
+def resolve_free(pos, k4, window: int):
+    """`probe_free`'s answer from the key words `k4` [..., W, 4] read at the
+    probe positions `pos` [..., W] (leading axes as in `resolve`)."""
     free_j = _first(_is_empty(k4) | _is_tomb(k4), window)
-    return _take(pos, free_j.clamp(max=window - 1)), free_j < window
+    return _take(pos.expand(*free_j.shape, window), free_j.clamp(max=window - 1)), free_j < window
