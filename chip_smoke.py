@@ -7,14 +7,18 @@ Phases (each failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit, the host's
    machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
    the native engine from `native/ledger.cc`; the card's dependent-load
-   latency (a pointer chase), the unit of the serial kernels' bounds;
+   latency from device memory and from shared memory (pointer chases), the
+   units of the serial kernels' bounds;
 2. every kernel against its plain PyTorch version on the card, at a reduced
    table geometry (2^14 account / 2^16 transfer slots): result codes and
    every state tensor must be bit-identical, on batches that exercise every
    failure path and the fault gates (overflow, capacity, sticky fault,
    exhausted probe windows, a group whose second slot faults, a group with
    a padding slot, an install with no free slot, tombstones and a nonzero
-   dump row under the fingerprint); the reply-code fold (K7) on padding
+   dump row under the fingerprint; the one-launch K3 also on its capacity
+   guard, a sticky fault, windows with no free slot, claim contention, one
+   lane, 8192 lanes holding 8190 events and a wave mask); the reply-code
+   fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot;
 3. the main path at deployment size: StateMachine over
@@ -36,7 +40,8 @@ Phases (each failure exits non-zero):
    the fold (K7) on the results of a real group (16 x 8192) and of a real
    request (8190);
 5. a torch.profiler trace of more main-path requests (the card's busy and
-   idle share) and a cProfile of the host's share;
+   idle share; one K3 kernel and no memset a request) and a cProfile of the
+   host's share;
 6. each kernel timed on the main path's state at its main-path shape,
    beside its plain version and its bound;
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
@@ -83,16 +88,20 @@ Phases (each failure exits non-zero):
    on every failure path and fault gate (an exhausted shard, claim
    contention on one slot, overflow, both capacity gates, a sticky fault,
    a linked chain across four shards broken mid-chain, post and void across
-   shards); then StateMachine over ShardedLedger(8, ConfigProcess()) (2^20
-   account and 2^24 transfer slots per shard, about 19 GiB) with phase 3's
-   requests (10,000 accounts, 64 x 8190 benchmark transfers on the fast
-   tier, 8190 pendings, their posts and voids and the linked request on the
-   serial tier): every reply and all 10,000 accounts equal
-   NativeLedger(20, 24)'s, and every K11 kernel ran; each kernel against its
-   plain version on two copies of that state at the path's shapes (the
-   serial ones on 1810 accounts and on 8190 transfers: linked chains, posts
-   and voids), their times, and a checkpoint blob restored
-   into a fresh ledger on the card answering alike.
+   shards), and the serial transfer kernel on the hazard requests of
+   tigerbeetle_tpu_torch/testing/hazards.py; then StateMachine over
+   ShardedLedger(8, ConfigProcess()) (2^20 account and 2^24 transfer slots
+   per shard, about 19 GiB) with phase 3's requests (10,000 accounts, 64 x
+   8190 benchmark transfers and 8190 pendings on the fast tier, their
+   posts and voids and the linked request on the serial tier): every reply
+   and all 10,000 accounts equal NativeLedger(20, 24)'s, and every K11
+   kernel ran; the rate of the 64 benchmark requests and the wall time of
+   the two-phase and linked ones; each kernel against its plain version on
+   two copies of that state at the path's shapes (the serial ones on 1810
+   accounts and on 8190 transfers: linked chains, posts and voids), their
+   times (the serial transfer kernel's bound one shared-memory round trip
+   an event), and a checkpoint blob restored into a fresh ledger on the
+   card answering alike.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -312,6 +321,13 @@ def hold(torch, name, start, run_kernel, run_plain):
         hit = f" codes={ {i: int(c) for i, c in enumerate(codes) if c} }"
     log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])}{hit}")
     if err != 0:
+        where = [(f"output {k}", a, b) for k, (a, b) in enumerate(zip(rk, rp)) if a is not None]
+        where += [(k, sk[k], sp[k]) for k in sk]
+        for what, a, b in where:
+            if a.shape == b.shape and not torch.equal(a, b):
+                idx = (a != b).nonzero()[:4].tolist()
+                log(f"    {what}: {int((a != b).sum())} differ; at {idx}: kernel "
+                    f"{[int(a[tuple(i)]) for i in idx]}, plain {[int(b[tuple(i)]) for i in idx]}")
         fail(f"{name} differs from its plain version")
     return rp, sp
 
@@ -356,6 +372,8 @@ def phase_kernels(torch, L, types, constants, dev):
                                                 t_log2, pv),
               lambda s: L.commit_transfers_fast_plain(s, rows, B, ts + 10_000, a_log2,
                                                       t_log2, pv, mask))
+
+    k3_gates(torch, L, types, K, check, base, rng, ts, a_log2, t_log2)
 
     n = 512
     arr = serial_transfer_batch(types, rng, n)
@@ -411,6 +429,61 @@ def phase_kernels(torch, L, types, constants, dev):
           lambda s: K.commit_accounts_fast(s, rows, 256, ts + 40_000, a_log2),
           lambda s: L.commit_accounts_fast_plain(s, rows, 256, ts + 40_000, a_log2),
           start=faulted)
+
+
+def k3_gates(torch, L, types, K, check, base, rng, ts, a_log2, t_log2):
+    """K3, one cluster launch, against its plain version on its gates: the
+    capacity guard, the sticky fault, windows with no free slot, claim
+    contention, one lane, a slot of 8192 lanes holding 8190 events, and a
+    wave mask without fast_pv."""
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+    from tigerbeetle_tpu_torch.testing.hazards import shared_window_ids
+
+    def k3(name, arr, n, pv=False, mask=None, start=None):
+        rows = L.transfers_to_batch(arr, rows_dev)["rows"]
+        t = ts + 70_000
+        check(name,
+              lambda s: K.commit_transfers_fast(s, rows, mask, n, t, a_log2, t_log2, pv),
+              lambda s: L.commit_transfers_fast_plain(s, rows, n, t, a_log2, t_log2, pv, mask),
+              start)
+
+    rows_dev = base["acct_rows"].device
+    B = 8190
+    arr = fast_transfer_batch(types, rng, B, False)
+    arr["id_lo"] += 10_000_000
+    full = clone_state(base)
+    full["xfer_used_slots"].fill_((1 << t_log2) // 2 - 100)
+    k3("K3 commit_transfers (capacity guard)", arr, B, start=full)
+    faulted = clone_state(base)
+    faulted["fault"].fill_(2)
+    k3("K3 commit_transfers (sticky fault)", arr, B, start=faulted)
+    # no empty slot and no tombstone in any window: no lane wants a slot in
+    # round 0, so the claim rounds end there, and the ok lanes of every
+    # warp and block report FAULT_CLAIM beside FAULT_PROBE
+    k3("K3 commit_transfers (windows with no free slot)", arr, B,
+       start=exhausted(torch, base, rng, tombs=0))
+    # eight lanes, far apart, whose ids share their first probe position, a
+    # free slot: the lowest lane wins it, the others claim on in later rounds
+    lanes = [4000, 17, 900, 3, 7000, 2500, 60, 8100]
+    start = 30_000_000
+    while True:
+        group = shared_window_ids(t_log2, 1, len(lanes), start)
+        key4 = L.ids_to_batch(group[:1], rows_dev)["key4"]
+        if not bool((base["xfer_rows"][ht.hash_key4(key4, t_log2)[0], :4] != 0).any()):
+            break
+        start += 1 << 18
+    arr["id_lo"][lanes] = group
+    arr["debit_account_id_lo"][lanes] = 11
+    arr["credit_account_id_lo"][lanes] = 12
+    arr["amount_lo"][lanes] = 5
+    arr["flags"][lanes] = 0
+    k3("K3 commit_transfers (claim contention: 8 lanes, one first probe)", arr, B)
+    k3("K3 commit_transfers (one lane)", arr[3:4], 1)
+    wide = fast_transfer_batch(types, rng, 8192, False)
+    wide["id_lo"] += 20_000_000
+    k3("K3 commit_transfers (8192 lanes, 8190 events)", wide, B)
+    mask = torch.from_numpy(rng.random(8192) < 0.5).to(rows_dev)
+    k3("K3 commit_transfers (fast, wave mask)", wide, B, mask=mask)
 
 
 def plain_batch(types, rng, n, first_id, n_accounts=1999):
@@ -726,18 +799,21 @@ def commit_group(sm, Op, batches):
 
 def run_requests(sm, reqs, Op, t0=10**12):
     """Commit every request through StateMachine, one at a time; returns
-    the replies and the seconds each create_transfers request of the
-    benchmark traffic took, reply included."""
+    the replies and the seconds each took, reply included."""
     replies = []
     seconds = []
-    for kind, op, body in reqs:
+    for _kind, op, body in reqs:
         sm.prepare(op, body)
         ts = sm.prepare_timestamp + t0
         start = time.perf_counter()
         replies.append(sm.commit(op, ts, body))
-        if kind == "transfers":
-            seconds.append(time.perf_counter() - start)
+        seconds.append(time.perf_counter() - start)
     return replies, seconds
+
+
+def transfer_seconds(reqs, seconds):
+    """The seconds of the benchmark traffic's create_transfers requests."""
+    return [s for (kind, _o, _b), s in zip(reqs, seconds) if kind == "transfers"]
 
 
 def phase_main_path(torch, L, SM, types, constants, dev, card):
@@ -752,6 +828,7 @@ def phase_main_path(torch, L, SM, types, constants, dev, card):
     torch.cuda.synchronize()
     K.reset_launches()
     replies, seconds = run_requests(sm, reqs, Op)
+    seconds = transfer_seconds(reqs, seconds)
     group_seconds = []
     for g in range(GROUPS):
         batches = prepare_group(sm, Op, group_bodies[g * GROUP_K:(g + 1) * GROUP_K])
@@ -1027,6 +1104,15 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     # the follower's solo fold on a request's packed results (codes, fault)
     fold_check(f"K7 fold (solo, {B} lanes of a K3 request, ring)",
                torch.cat([codes, sk["fault"].reshape(1)]), B, [B], [B % 4096])
+    # a group slot's shape: 8192 lanes, 8190 events
+    dr, cr = random_pairs(rng, 8192, N_ACCOUNTS)
+    ts += B
+    slot = L.transfers_to_batch(transfers(types, np.arange(7_050_000_001, 7_050_008_193), dr, cr,
+                                          rng.integers(1, 1_000_000, 8192).astype(np.uint64)),
+                                dev)["rows"]
+    check("K3 commit_transfers fast (8192 lanes, 8190 transfers)",
+          lambda s: K.commit_transfers_fast(s, slot, None, B, ts, a_log2, t_log2, False),
+          lambda s: L.commit_transfers_fast_plain(s, slot, B, ts, a_log2, t_log2, False))
     pend_ids = np.arange(7_100_000_001, 7_100_000_001 + B)
     dr, cr = random_pairs(rng, B, N_ACCOUNTS)
     ts += B
@@ -1168,6 +1254,13 @@ def phase_trace(torch, SM, types, sm, dev, n_requests=16):
                 names[e["name"][:60]] = names.get(e["name"][:60], 0.0) + e["dur"]
         for name, us in sorted(names.items(), key=lambda x: -x[1])[:10]:
             log(f"    device {us / 1e3 / n_requests:.4f} ms per request: {name}")
+        k3 = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+                 and "xfer_commit" in e.get("name", ""))
+        memsets = sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset")
+        log(f"  K3 kernels in the trace: {k3} for {n_requests} requests; memsets: {memsets}")
+        if k3 != n_requests or memsets >= n_requests:
+            fail(f"the trace shows {k3} K3 kernels and {memsets} memsets for {n_requests} fast "
+                 "requests: want one K3 kernel and no memset a request")
     table = prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=12)
     for line in table.splitlines():
         log("   ", line)
@@ -1232,6 +1325,19 @@ def load_latency_ns(torch, K, dev, nbytes: int, steps: int) -> float:
     K.chase(nxt, next(starts), steps)
     ms = timed(torch, lambda: K.chase(nxt, next(starts), steps), 4)[0]
     return ms * 1e6 / steps
+
+
+def shared_latency_ns(torch, K, dev, words: int = 8192, steps=(1 << 14, 1 << 16)) -> float:
+    """Nanoseconds per dependent shared-memory load: the chase of
+    csrc/chase.cu over a random cycle of `words` words in one block's shared
+    memory, the difference of two step counts over their difference (the
+    copy into shared memory and the launch cancel)."""
+    perm = torch.randperm(words, device=dev)
+    nxt = torch.empty(words, dtype=torch.int32, device=dev)
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    K.chase_shared(nxt, 0, steps[0])
+    ms = [timed(torch, lambda: K.chase_shared(nxt, 0, n), 5)[0] for n in steps]
+    return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0])
 
 
 def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
@@ -2111,7 +2217,9 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
                    timed(torch, lambda: S.spill_gather_plain(big["xfer_rows"], big["fulfill"], idx),
                          5),
                    *bound(S.CHUNK * (4 + 2 * (128 + 4))),
-                   timed(torch, lambda: torch.index_select(big["xfer_rows"], 0, idx), 20))
+                   # the whole of `_gather`: the rows and their fulfill words
+                   timed(torch, lambda: (torch.index_select(big["xfer_rows"], 0, idx),
+                                         torch.index_select(big["fulfill"], 0, idx)), 20))
     chunks = [new_chunk(i + 1) for i in range(16)]
     probes = probe_counts(torch, L.ht, chunks[0][0][:, :4].contiguous(), big["xfer_rows"],
                           b_log2, 32)
@@ -2124,7 +2232,7 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     if int(big["fault"]):
         fail(f"the timed reloads faulted: {int(big['fault'])}")
     for k, (kt, pt, b, by, lib) in out.items():
-        extra = f", torch.index_select {lib[0]:.4f} ms" if lib else ""
+        extra = f", torch.index_select of rows and fulfill {lib[0]:.4f} ms" if lib else ""
         log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], plain "
             f"{pt[0]:.4f} ms, bound {b:.6f} ms ({by}){extra} [{card}]")
     del big, chunks
@@ -2369,7 +2477,40 @@ def mesh_gates(torch, L, M, ht, types, constants, dev):
          fast_transfer_batch(types, rng, B, False), B, False, full)
     xfer("K11 mesh_commit_transfers serial (shard 3 exhausted)",
          mesh_serial_batch(M, types, rng, 128), 128, True, full)
+    serial_hazards(torch, M, types, process, rng, dev, errs)
     return errs
+
+
+def serial_hazards(torch, M, types, process, rng, dev, errs):
+    """K11ts against its plain version on the lookahead's hazard requests
+    (tigerbeetle_tpu_torch/testing/hazards.py) over their accounts: codes
+    and every leaf equal."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.testing import hazards as H
+
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    led = M.ShardedLedger(MESH_SHARDS, process, device="cpu")
+    led.execute_dense(types.Operation.create_accounts, 10_000,
+                      types.accounts_to_np(H.hazard_accounts()))
+    led.check_fault()
+    start = {k: v.to(dev) for k, v in led.state.items()}
+    for case in H.CASES:
+        arr = types.transfers_to_np(H.hazard_request(case, rng, t_log2, MESH_SHARDS))
+        rows = torch.from_numpy(M.batch_rows(arr)).to(dev)
+        n, ts = len(arr), 10**12
+        sp = clone_state(start)
+        rp = M.commit_transfers_serial_plain(sp, rows, n, ts, a_log2, t_log2)
+        sk = clone_state(start)
+        rk = K.mesh_commit_transfers_serial(sk, rows, n, ts, a_log2, t_log2)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(rk, rp), compare_states(sk, sp))
+        name = f"K11 mesh_commit_transfers serial (hazard {case}, {n} events)"
+        errs[name] = err
+        if err != 0:
+            fail(f"{name} differs from its plain version")
+        codes = np.bincount(rp.cpu().numpy().astype(np.int64) & 0xFF)
+        log(f"  {name}: equals the plain version, fault={int(sp['fault'])} "
+            f"codes={ {i: int(c) for i, c in enumerate(codes) if c} }")
 
 
 def mesh_probe_counts(torch, M, ht, key4, rows, log2, window):
@@ -2380,7 +2521,7 @@ def mesh_probe_counts(torch, M, ht, key4, rows, log2, window):
                for s in range(rows.shape[0]) if bool((owners == s).any()))
 
 
-def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps_main):
+def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns, tps_main):
     """The sharded ledger on one card: the fault gates at 2^12 / 2^14, the
     main path at ConfigProcess() per shard against NativeLedger(20, 24),
     each kernel against its plain version on copies of that state, their
@@ -2405,7 +2546,8 @@ def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps_mai
     sm = SM.StateMachine(ledger)
     torch.cuda.synchronize()
     K.reset_launches()
-    replies, seconds = run_requests(sm, reqs, Op)
+    replies, req_seconds = run_requests(sm, reqs, Op)
+    seconds = transfer_seconds(reqs, req_seconds)
     ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
     id_bytes = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
     chunks = [id_bytes[16 * i:16 * min(i + 8190, N_ACCOUNTS)] for i in range(0, N_ACCOUNTS, 8190)]
@@ -2440,12 +2582,16 @@ def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps_mai
     log(f"  {N_REQUESTS} x 8190 create_transfers in {total:.4f} s: {tps:.0f} transfers/s one "
         f"request at a time (median {np.median(ms):.4f} ms, p84 {np.percentile(ms, 84):.4f} ms), "
         f"against {tps_main:.0f} on DeviceLedger in phase 3 [{card}]")
+    log("  the two-phase and linked requests, 8190 events each, through StateMachine (reply "
+        "included): " + ", ".join(f"{k} {s * 1e3:.4f} ms" for (k, _o, _b), s in
+                                   zip(reqs, req_seconds) if k in ("pending", "resolve", "linked"))
+        + " (resolve and linked on the serial tier)")
 
     shape_errs, serial_plain_ms = mesh_main_shapes(torch, L, M, types, ledger, dev)
     errs.update(shape_errs)
     log(f"  peak memory with the ledger and two copies: {torch.cuda.max_memory_allocated()} "
         "bytes")
-    times = mesh_timing(torch, L, M, ht, types, ledger, dev, hbm_ns, serial_plain_ms)
+    times = mesh_timing(torch, L, M, ht, types, ledger, dev, hbm_ns, smem_ns, serial_plain_ms)
     del sm, ledger
     torch.cuda.empty_cache()
     mesh_round_trip(torch, M, types, constants, dev)
@@ -2534,14 +2680,17 @@ def mesh_main_shapes(torch, L, M, types, ledger, dev):
     return errs, {"K11as": plain_ms[as_name], "K11ts": plain_ms[ts_name]}
 
 
-def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, serial_plain_ms):
+def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial_plain_ms):
     """Each K11 kernel at the sharded path's shapes on its state, beside
     its plain version (for the serial ones, the plain run of
     mesh_main_shapes on the same kind of request, `serial_plain_ms`);
-    {key: (kernel ms, plain ms, bound ms, bound_by)}. A serial kernel's
-    latency bound counts the dependent loads the function needs: one per
-    event, and one more for a post/void, whose accounts are known only
-    once its pending's row is read."""
+    {key: (kernel ms, plain ms, bound ms, bound_by)}. The serial account
+    kernel's latency bound counts the dependent device-memory loads the
+    function needs: one per event. K11ts resolves its lookups ahead of the
+    walk, so its bound is the larger of its bytes and one dependent
+    shared-memory round trip an event (`smem_ns`): event i may read what
+    event i - 1 wrote. Its old bound, a device-memory load an event and one
+    more a post/void, is printed beside it."""
     from tigerbeetle_tpu_torch import kernels as K
 
     rng = np.random.default_rng(SEED + 13)
@@ -2641,20 +2790,33 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, serial_plain_ms
     it = iter([pad(r) for r, _ in reqs])
     kt = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
                                                              t_log2), 10)
-    out["K11ts"] = (kt, once("K11ts"), *bound(nbytes, B + n_pv))
-    # and on the path's own linked request (no post/void: one load each)
-    lk = [pad(linked_request(types, rng, np.arange(9_000_000_000 + i * B,
-                                                   9_000_000_000 + (i + 1) * B), 600))
-          for i in range(10)]
-    it = iter(lk)
+
+    def walk_bound(nbytes):
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_chain = B * smem_ns * 1e-6
+        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
+
+    out["K11ts"] = (kt, once("K11ts"), *walk_bound(nbytes))
+    # and on the path's own linked request
+    lk_arrs = [linked_request(types, rng, np.arange(9_000_000_000 + i * B,
+                                                    9_000_000_000 + (i + 1) * B), 600)
+               for i in range(10)]
+    lk_bytes, _ = xfer_bytes(lk_arrs[0], lk_arrs[0], 64)
+    it = iter([pad(a) for a in lk_arrs])
     full = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
                                                                 t_log2), 10)
     ledger.check_fault()
     for k, (kt, pt, b, by) in out.items():
         log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
             f"plain {pt[0]:.4f} ms, bound {b:.6f} ms ({by})")
+    log(f"  K11ts's old bound, a device-memory load an event and one more a post/void: "
+        f"{(B + n_pv) * latency_ns * 1e-6:.6f} ms; its bytes alone "
+        f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms; {B} shared-memory round trips "
+        f"{B * smem_ns * 1e-6:.6f} ms")
+    lb, lby = walk_bound(lk_bytes)
     log(f"  K11ts on a whole linked request of {B} events: {full[0]:.4f} ms [p25 {full[1]:.4f}, "
-        f"p75 {full[2]:.4f}], bound {B * latency_ns * 1e-6:.6f} ms (latency)")
+        f"p75 {full[2]:.4f}], bound {lb:.6f} ms ({lby}; old bound "
+        f"{B * latency_ns * 1e-6:.6f} ms)")
     return out
 
 
@@ -2790,8 +2952,9 @@ def main() -> int:
 
     hbm_ns = load_latency_ns(torch, K, dev, 1 << 30, 1 << 15)
     l2_ns = load_latency_ns(torch, K, dev, 1 << 23, 1 << 15)
-    log(f"  dependent-load latency: {hbm_ns:.1f} ns over 1 GiB, {l2_ns:.1f} ns over 8 MiB "
-        f"[{card}]")
+    smem_ns = shared_latency_ns(torch, K, dev)
+    log(f"  dependent-load latency: {hbm_ns:.1f} ns over 1 GiB, {l2_ns:.1f} ns over 8 MiB, "
+        f"{smem_ns:.2f} ns in shared memory [{card}]")
 
     log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
@@ -2841,7 +3004,7 @@ def main() -> int:
     from tigerbeetle_tpu_torch.parallel import mesh as M
 
     mesh_launches, mesh_errs, mesh_times = phase_mesh(
-        torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, tps)
+        torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns, tps)
 
     errs.update(query_errs)
     errs.update(spill_errs)

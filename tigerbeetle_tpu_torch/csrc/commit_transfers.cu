@@ -1,31 +1,56 @@
 // K3: create_transfers fast-tier commit (modes fast and fast_pv, with the
-// wave mask).
+// wave mask), as one launch of one thread-block cluster.
 //
 // Replaces tigerbeetle_tpu/models/ledger.py LedgerKernels._commit_transfers
 // (:805-993, jitted :733; under a wave mask also through _wave_stepper
-// :2261).
+// :2261), with ops/hashtable.py `claim_slots` (:162) for the inserts.
 //
 // Bound on an H100: bytes. Per event it reads the 128-byte batch row, one
 // 32-byte sector per probe of the debit, credit and id chains (fast_pv:
 // also the pending and its two accounts), the touched account rows, and
 // writes the stored row; the integer work is a few hundred operations.
+// What held the launch-per-phase design back was not bytes but its 13
+// launches and a memset per call (about 8 us each against 1.3 us of
+// bytes): every phase needs all of the one before, and blocks run in no
+// order, so each barrier was a kernel boundary.
 //
-// Design: five phases in launch order, because blocks run in no order and
-// each phase needs all of the one before:
-//   (a) `xfer_validate`, one thread per event: probes, the validation
-//       ladders (validate.cuh), result codes, and atomicAdd of the amount's
-//       16-bit digits into the `bal_acc` rows of the touched accounts,
-//       which is exact in any order; then the claim rounds (claim.cu);
-//   (b) `xfer_fold`, one thread per (event, side): the carry fold of the
-//       slot's digit sums into the pre-batch account row, and the overflow
-//       backstop. Lanes touching one account fold the same row.
-//   (c) `xfer_finalize`, one thread: the fault gate, decided on the device
-//       (no host sync per batch);
-//   (d) `xfer_apply`: if the gate passed, the account rows, the stored
-//       transfer rows, `fulfill` and `commit_ts` (max, not set: waves run
-//       lanes out of order); in any case `bal_acc` back to zero.
-// Rows read in (a) and (b) are the pre-batch snapshot; nothing writes a
-// table before (d).
+// Design: one kernel over one cluster of K3_CLUSTER blocks of K3_THREADS
+// threads (512 threads, so that the validation ladder's ~120 registers
+// fit; 16 blocks, H100's largest, non-portable cluster: a cluster lives in
+// one GPC, and its SMs' L1-to-L2 transactions bound the phases that move
+// rows). Lane loops stride over the cluster, so any B works. A cluster
+// barrier (`cluster.sync()`) stands where a kernel boundary stood:
+//   (0) each block zeroes its header in shared memory: fault bits, the
+//       ok count and the commit_ts candidate (each warp's share, folded by
+//       the block's first thread), and in block 0 the rounds' want flags,
+//       which every warp reaches through distributed shared memory (one
+//       32-bit atomicOr a warp). With one header in block 0 and 64-bit
+//       atomics from every warp through map_shared_rank, the ok count's
+//       atomicAdd held but commit_ts's atomicMax lost updates on an H100
+//       (it came out short), so the 64-bit sums stay in each block;
+//   (a) one lane per event: probes, the validation ladders (validate.cuh),
+//       result codes, and atomicAdd of the amount's 16-bit digits into the
+//       `bal_acc` rows of the touched accounts, which is exact in any order;
+//       rows that the ladder does not read are not loaded. Then round 0 of
+//       the claims (claim.cuh): the claim column is all free between calls,
+//       so its select is the first free slot of the id's window, and its
+//       atomicMin follows at once;
+//   (b) claim rounds 1-3, select | barrier | atomicMin | barrier; a round
+//       after one that no lane contended in would want nothing either (the
+//       column and the tables are as it found them), so that ends them;
+//   (c) after the last round's settle and release, one row per (event,
+//       side): the carry fold of the slot's digit sums into the pre-batch
+//       account row's balances, and the overflow backstop;
+//   (d) one thread: the fault gate (and commit_ts, the unsigned max of the
+//       applied events' timestamps: waves run lanes out of order), sent to
+//       every block's shared memory;
+//   (e) if the gate passed, the account rows' balances, the stored transfer
+//       rows and `fulfill`; in any case `bal_acc` back to zero.
+// Phases (c) and (e) move each 128-byte row with eight lanes, 16 bytes a
+// lane (one transaction a row, not eight). Rows read in (a)-(c) are the
+// pre-batch snapshot; nothing writes a table before (e). Scratch written by
+// one phase and read by another thread is read past L1 (__ldcg).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "claim.cuh"
@@ -33,9 +58,24 @@
 #include "hash.cuh"
 #include "validate.cuh"
 
+namespace cg = cooperative_groups;
+
+#define K3_CLUSTER 16
+#define K3_THREADS 512
+#define FULL_MASK 0xFFFFFFFFu
+
+// A block's header: its fault bits, ok count and the unsigned max of its
+// ok events' timestamps (block 0's `want` flags serve the whole cluster).
 struct XferHdr {
-  uint32_t bad, proceed;
-  ull ok_n;
+  uint32_t bad, any_ok;
+  uint32_t want[CLAIM_ROUNDS];
+  ull ok_n, ts_max;
+};
+
+// One warp's share of phase (a), written by its first lane.
+struct WarpSums {
+  uint32_t bad, ok_n;
+  ull ts_max;
 };
 
 struct XferFast {
@@ -57,21 +97,19 @@ struct XferFast {
   int pv_mode;
   int32_t* results;
   // scratch
-  XferHdr* hdr;
   int32_t* ok;
   int32_t* lane_flags;  // bit 0: post/void, bit 1: post
   int64_t* slot2;       // [2B] account slot of each side, -1 if not applied
   int64_t* p_slot;
   int64_t* ins_slot;
   uint32_t* new_rows;  // [2B, 32] folded account rows
-  uint32_t* ins_rows;  // [B, 32] rows to store
+  uint32_t* ins_rows;  // [B, 32] rows to store (fast_pv; fast stores the batch row)
   ClaimScratch claim_sc;
 };
 
 static XferFast carve(char* scratch, int B, size_t* size) {
   XferFast a{};
   Carver c{scratch, 0};
-  a.hdr = c.take<XferHdr>(1);
   a.ok = c.take<int32_t>(B);
   a.lane_flags = c.take<int32_t>(B);
   a.slot2 = c.take<int64_t>(2 * (size_t)B);
@@ -106,9 +144,27 @@ __device__ __forceinline__ void add_digits(uint32_t* acc, u128 amt, bool neg) {
   }
 }
 
-__global__ void xfer_validate(XferFast a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.B) return;
+// The fields of an account row the transfer ladder reads (id, user data,
+// code and timestamp stay zero): 5 of its 8 16-byte pieces.
+__device__ __forceinline__ Acct load_acct_ladder(const uint32_t* p) {
+  Row r = {};
+  const uint4* s = reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int k = 1; k < 8; k++) {
+    if (k == 5 || k == 6) continue;
+    uint4 v = s[k];
+    r.w[4 * k] = v.x;
+    r.w[4 * k + 1] = v.y;
+    r.w[4 * k + 2] = v.z;
+    r.w[4 * k + 3] = v.w;
+  }
+  return unpack_account(r);
+}
+
+// Phase (a) for lane i, with claim round 0; returns its fault bits, sets
+// *ok, and sets *want0 if the lane contends for a slot.
+__device__ __forceinline__ uint32_t validate_lane(const XferFast& a, int i, bool* ok_out,
+                                                  bool* want0) {
   Row row = load_row(a.batch + (size_t)i * ROW_WORDS);
   Xfer e = unpack_transfer(row);
   bool valid = i < a.n && (a.mask == nullptr || a.mask[i]);
@@ -120,9 +176,11 @@ __global__ void xfer_validate(XferFast a) {
   Found drf = table_lookup(a.acct_rows, a.a_log2, key_in(row, 4), WINDOW);
   Found crf = table_lookup(a.acct_rows, a.a_log2, key_in(row, 8), WINDOW);
   Found exf = table_lookup(a.xfer_rows, a.t_log2, key_in(row, 0), WINDOW);
-  Acct dr = unpack_account(load_row(a.acct_rows + (size_t)drf.slot * ROW_WORDS));
-  Acct cr = unpack_account(load_row(a.acct_rows + (size_t)crf.slot * ROW_WORDS));
-  Xfer ex = unpack_transfer(load_row(a.xfer_rows + (size_t)exf.slot * ROW_WORDS));
+  // a row the ladder reads only where its lookup found it
+  Acct dr = drf.found ? load_acct_ladder(a.acct_rows + (size_t)drf.slot * ROW_WORDS) : Acct{};
+  Acct cr = crf.found ? load_acct_ladder(a.acct_rows + (size_t)crf.slot * ROW_WORDS) : Acct{};
+  Xfer ex = exf.found ? unpack_transfer(load_row(a.xfer_rows + (size_t)exf.slot * ROW_WORDS))
+                      : Xfer{};
   u128 amt;
   uint32_t r = validate_simple_transfer(r0, ea, dr, cr, drf.found, crf.found, ex, exf.found, &amt);
   bool probe_bad = valid && !(drf.resolved && crf.resolved && exf.resolved);
@@ -152,16 +210,31 @@ __global__ void xfer_validate(XferFast a) {
   }
   if (!valid) r = 0u;
   bool ok = valid && r == 0u;
+  *ok_out = ok;
+  // claim round 0: the claim column is all free between calls (claim.cuh),
+  // so this round's pick is the first free slot of the id's window
+  ClaimScratch sc = a.claim_sc;
+  sc.won[i] = 0;
+  sc.want[i] = 0;
+  a.ins_slot[i] = (int64_t)1 << a.t_log2;
+  if (ok) {
+    Found fr = table_probe_free(a.xfer_rows, a.t_log2, key_in(row, 0), WINDOW);
+    if (fr.resolved) {
+      sc.cand[i] = fr.slot;
+      sc.want[i] = 1;
+      atomicMin(a.xfer_claim + fr.slot, (uint32_t)i);
+      *want0 = true;
+    }
+  }
   a.results[i] = (int32_t)r;
   a.ok[i] = ok;
   a.lane_flags[i] = (is_pv ? 1 : 0) | (is_post ? 2 : 0);
-  if (probe_bad) atomicOr(&a.hdr->bad, FAULT_PROBE);
+  uint32_t bad = probe_bad ? FAULT_PROBE : 0u;
   if (!ok) {
     a.slot2[i] = -1;
     a.slot2[a.B + i] = -1;
-    return;
+    return bad;
   }
-  atomicAdd(&a.hdr->ok_n, 1ull);
   a.slot2[i] = dr_eff;
   a.slot2[a.B + i] = cr_eff;
   a.p_slot[i] = p_slot;
@@ -183,98 +256,301 @@ __global__ void xfer_validate(XferFast a) {
     add_digits(acc_dr + off, amt, false);
     add_digits(acc_cr + 16 + off, amt, false);
   }
-  Row ins;
   if (a.pv_mode) {
-    ins = pack_transfer(build_stored_transfer(e, p, is_pv, amt, ts));
-  } else {
-    ins = row;
-    put64(ins, 30, ts);
+    store_row(a.ins_rows + (size_t)i * ROW_WORDS,
+              pack_transfer(build_stored_transfer(e, p, is_pv, amt, ts)));
   }
-  store_row(a.ins_rows + (size_t)i * ROW_WORDS, ins);
+  return bad;
 }
 
-// models/ledger.py _fold_digits / _fold_digits_signed for one row.
-__device__ __forceinline__ Row fold_digits(const Row& old, const Row& acc, bool is_signed,
-                                           bool* bad) {
-  Row out = old;
-  for (int f = 0; f < 4; f++) {
-    int w0 = 4 + 4 * f;
-    if (is_signed) {
-      long long carry = 0;
-      for (int k = 0; k < 4; k++) {
-        uint32_t w = old.w[w0 + k];
-        long long s_lo = (long long)(w & 0xFFFFu) + (long long)(int32_t)acc.w[8 * f + 2 * k] + carry;
-        carry = s_lo >> 16;
-        long long s_hi = (long long)(w >> 16) + (long long)(int32_t)acc.w[8 * f + 2 * k + 1] + carry;
-        carry = s_hi >> 16;
-        out.w[w0 + k] = (uint32_t)(s_lo & 0xFFFF) | ((uint32_t)(s_hi & 0xFFFF) << 16);
-      }
-      if (carry != 0) *bad = true;
-    } else {
-      uint32_t carry = 0;
-      for (int k = 0; k < 4; k++) {
-        uint32_t w = old.w[w0 + k];
-        uint32_t s_lo = (w & 0xFFFFu) + acc.w[8 * f + 2 * k] + carry;
-        carry = s_lo >> 16;
-        uint32_t s_hi = (w >> 16) + acc.w[8 * f + 2 * k + 1] + carry;
-        carry = s_hi >> 16;
-        out.w[w0 + k] = (s_lo & 0xFFFFu) | (s_hi << 16);
-      }
-      if (carry != 0) *bad = true;
+// models/ledger.py _fold_digits / _fold_digits_signed for one balance
+// field: its four words `w` plus the eight 32-bit digit sums d0 (words
+// 0-3 of the field's sums) and d1 (4-7); sets *bad on a carry out.
+__device__ __forceinline__ uint4 fold_field(uint4 w, uint4 d0, uint4 d1, bool is_signed,
+                                            bool* bad) {
+  const uint32_t in[4] = {w.x, w.y, w.z, w.w};
+  const uint32_t acc[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+  uint32_t out[4];
+  if (is_signed) {
+    long long carry = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      long long s_lo = (long long)(in[k] & 0xFFFFu) + (long long)(int32_t)acc[2 * k] + carry;
+      carry = s_lo >> 16;
+      long long s_hi = (long long)(in[k] >> 16) + (long long)(int32_t)acc[2 * k + 1] + carry;
+      carry = s_hi >> 16;
+      out[k] = (uint32_t)(s_lo & 0xFFFF) | ((uint32_t)(s_hi & 0xFFFF) << 16);
+    }
+    if (carry != 0) *bad = true;
+  } else {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int k = 0; k < 4; k++) {
+      uint32_t s_lo = (in[k] & 0xFFFFu) + acc[2 * k] + carry;
+      carry = s_lo >> 16;
+      uint32_t s_hi = (in[k] >> 16) + acc[2 * k + 1] + carry;
+      carry = s_hi >> 16;
+      out[k] = (s_lo & 0xFFFFu) | (s_hi << 16);
+    }
+    if (carry != 0) *bad = true;
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+__device__ __forceinline__ uint4 shfl4(unsigned mask, uint4 v, int src) {
+  return make_uint4(__shfl_sync(mask, v.x, src), __shfl_sync(mask, v.y, src),
+                    __shfl_sync(mask, v.z, src), __shfl_sync(mask, v.w, src));
+}
+
+__device__ __forceinline__ u128 u128_of(uint4 v) {
+  return mk128((uint64_t)v.x | ((uint64_t)v.y << 32), (uint64_t)v.z | ((uint64_t)v.w << 32));
+}
+
+// A row group: eight lanes of a warp move one 128-byte row, lane `sub`
+// holding its 16-byte piece `sub` (words 4 sub .. 4 sub + 3); `mask` is the
+// group's lanes and `lead` its first lane.
+struct RowGroup {
+  int sub, lead;
+  unsigned mask;
+};
+
+#define K3_IN_FLIGHT 8  // rows a group has in flight in phases (c) and (e)
+
+// Phase (c) for the rows l0, l0 + step, ... (K3_IN_FLIGHT of them, those
+// < 2B; row l is the account of event l % B's debit or credit side);
+// returns FAULT_OVERFLOW or 0 in the group's lanes. Balance field f (dp,
+// dpo, cp, cpo) is piece 1 + f; its digit sums are pieces 2f and 2f + 1 of
+// the `bal_acc` row.
+__device__ __forceinline__ uint32_t fold_rows(const XferFast& a, int l0, int step, RowGroup g) {
+  const int f = g.sub - 1;  // the field this lane folds, if 0 <= f < 4
+  const bool balance = f >= 0 && f < 4;
+  int64_t slot[K3_IN_FLIGHT];
+  uint4 w[K3_IN_FLIGHT], c[K3_IN_FLIGHT];
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    int l = l0 + u * step;
+    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
+  }
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    if (slot[u] < 0) continue;
+    w[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (balance) {
+      w[u] = reinterpret_cast<const uint4*>(a.acct_rows + (size_t)slot[u] * ROW_WORDS)[g.sub];
+    }
+    c[u] = __ldcg(reinterpret_cast<const uint4*>(a.bal_acc + (size_t)slot[u] * ROW_WORDS) + g.sub);
+  }
+  bool bad = false;
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    if (slot[u] < 0) continue;  // the same in the group's lanes
+    uint4 d0 = shfl4(g.mask, c[u], g.lead + ((2 * f) & 7));
+    uint4 d1 = shfl4(g.mask, c[u], g.lead + ((2 * f + 1) & 7));
+    uint4 v = w[u];
+    if (balance) v = fold_field(v, d0, d1, a.pv_mode != 0, &bad);
+    // codes 51/52 guard the combined pending+posted sums (:856-861): dp +
+    // dpo in the dp lane, cp + cpo in the cp lane
+    uint4 next = shfl4(g.mask, v, g.lead + ((g.sub + 1) & 7));
+    if ((g.sub == 1 || g.sub == 3) && sum_overflows(u128_of(v), u128_of(next))) bad = true;
+    if (balance) {  // only the balances change
+      reinterpret_cast<uint4*>(a.new_rows + (size_t)(l0 + u * step) * ROW_WORDS)[g.sub] = v;
     }
   }
-  return out;
+  return bad ? FAULT_OVERFLOW : 0u;
 }
 
-__global__ void xfer_fold(XferFast a) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= 2 * a.B) return;
-  int64_t slot = a.slot2[l];
-  if (slot < 0) return;
-  Row old = load_row(a.acct_rows + (size_t)slot * ROW_WORDS);
-  Row acc = load_row(a.bal_acc + (size_t)slot * ROW_WORDS);
-  bool bad = false;
-  Row nr = fold_digits(old, acc, a.pv_mode != 0, &bad);
-  // codes 51/52 guard the combined pending+posted sums (:856-861)
-  Acct na = unpack_account(nr);
-  if (sum_overflows(na.dp, na.dpo) || sum_overflows(na.cp, na.cpo)) bad = true;
-  if (bad) atomicOr(&a.hdr->bad, FAULT_OVERFLOW);
-  store_row(a.new_rows + (size_t)l * ROW_WORDS, nr);
-}
-
-__global__ void xfer_finalize(XferFast a) {
-  ull ok_n = a.hdr->ok_n;
-  uint32_t f = *a.fault | a.hdr->bad;
-  if (*a.used + ok_n > (1ull << a.t_log2) / 2) f |= FAULT_CAPACITY;
-  *a.fault = f;
-  a.hdr->proceed = f == 0u;
-  if (f == 0u) {
-    *a.count += ok_n;
-    *a.used += ok_n;
-  }
-}
-
-__global__ void xfer_apply(XferFast a) {
-  int l = blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= 2 * a.B) return;
-  int64_t slot = a.slot2[l];
-  if (slot < 0) return;
-  bool proceed = a.hdr->proceed != 0u;
-  if (proceed) {
-    store_row(a.acct_rows + (size_t)slot * ROW_WORDS,
-              load_row(a.new_rows + (size_t)l * ROW_WORDS));
-  }
-  uint4* acc = reinterpret_cast<uint4*>(a.bal_acc + (size_t)slot * ROW_WORDS);
+// Phase (e), accounts: the rows l0, l0 + step, ... of 2B (their balance
+// pieces 1-4: nothing else of an account row changes).
+__device__ __forceinline__ void apply_rows(const XferFast& a, int l0, int step, RowGroup g,
+                                           bool proceed) {
+  const bool balance = g.sub >= 1 && g.sub <= 4;
+  int64_t slot[K3_IN_FLIGHT];
+  uint4 v[K3_IN_FLIGHT];
 #pragma unroll
-  for (int k = 0; k < 8; k++) acc[k] = make_uint4(0u, 0u, 0u, 0u);
-  if (l >= a.B || !proceed) return;
-  int i = l;
-  int64_t ins = a.ins_slot[i];
-  store_row(a.xfer_rows + (size_t)ins * ROW_WORDS, load_row(a.ins_rows + (size_t)i * ROW_WORDS));
-  a.fulfill[ins] = 0u;
-  int lf = a.lane_flags[i];
-  if (lf & 1) a.fulfill[a.p_slot[i]] = (lf & 2) ? 1u : 2u;
-  atomicMax(a.commit_ts, event_ts(a.timestamp, a.n, i));
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    int l = l0 + u * step;
+    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
+    if (l < 2 * a.B && proceed && balance) {
+      v[u] = __ldcg(reinterpret_cast<const uint4*>(a.new_rows + (size_t)l * ROW_WORDS) + g.sub);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    if (slot[u] < 0) continue;
+    if (proceed && balance) {
+      reinterpret_cast<uint4*>(a.acct_rows + (size_t)slot[u] * ROW_WORDS)[g.sub] = v[u];
+    }
+    reinterpret_cast<uint4*>(a.bal_acc + (size_t)slot[u] * ROW_WORDS)[g.sub] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Phase (e), transfers: the stored rows of the events i0, i0 + step, ...
+// that applied.
+__device__ __forceinline__ void insert_rows(const XferFast& a, int i0, int step, RowGroup g) {
+  int64_t ok_slot[K3_IN_FLIGHT], ins[K3_IN_FLIGHT];
+  uint4 v[K3_IN_FLIGHT];
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    int i = i0 + u * step;
+    ok_slot[u] = i < a.B ? __ldcg(a.slot2 + i) : -1;  // < 0: did not apply
+    if (i >= a.B) continue;
+    ins[u] = __ldcg(a.ins_slot + i);
+    if (a.pv_mode) {
+      v[u] = __ldcg(reinterpret_cast<const uint4*>(a.ins_rows + (size_t)i * ROW_WORDS) + g.sub);
+    } else {  // the batch row with the event's timestamp
+      v[u] = reinterpret_cast<const uint4*>(a.batch + (size_t)i * ROW_WORDS)[g.sub];
+      if (g.sub == 7) {
+        ull ts = event_ts(a.timestamp, a.n, i);
+        v[u].z = (uint32_t)ts;
+        v[u].w = (uint32_t)(ts >> 32);
+      }
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+    if (ok_slot[u] < 0) continue;
+    int i = i0 + u * step;
+    reinterpret_cast<uint4*>(a.xfer_rows + (size_t)ins[u] * ROW_WORDS)[g.sub] = v[u];
+    if (g.sub == 0) {
+      a.fulfill[ins[u]] = 0u;
+      int lf = __ldcg(a.lane_flags + i);
+      if (lf & 1) a.fulfill[__ldcg(a.p_slot + i)] = (lf & 2) ? 1u : 2u;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(K3_THREADS, 1) xfer_commit(XferFast a) {
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ XferHdr hdr_own;
+  __shared__ WarpSums warp_sums[K3_THREADS / 32];
+  __shared__ uint32_t proceed_own;
+  uint32_t* want = cluster.map_shared_rank(hdr_own.want, 0);
+  const int t = (int)cluster.thread_rank();
+  const int stride = (int)cluster.num_threads();
+  const int lane = threadIdx.x & 31;
+  const bool warp_lead = lane == 0;
+  const RowGroup g{lane & 7, lane & ~7, 0xFFu << (lane & ~7)};
+  const int group = t >> 3, n_groups = stride >> 3;
+  if (threadIdx.x == 0) {
+    hdr_own.bad = 0u;
+    for (int r = 0; r < CLAIM_ROUNDS; r++) hdr_own.want[r] = 0u;
+  }
+  cluster.sync();
+
+  // (a) validate, and claim round 0
+  uint32_t bad = 0u;
+  unsigned ok_n = 0;
+  ull ts_max = 0ull;
+  bool wants = false;
+  for (int i = t; i < a.B; i += stride) {
+    bool ok;
+    bad |= validate_lane(a, i, &ok, &wants);
+    ok_n += ok;
+    if (ok) ts_max = max(ts_max, event_ts(a.timestamp, a.n, i));
+  }
+  bad = __reduce_or_sync(FULL_MASK, bad);
+  ok_n = __reduce_add_sync(FULL_MASK, ok_n);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    ts_max = max(ts_max, __shfl_xor_sync(FULL_MASK, ts_max, off));
+  }
+  if (warp_lead) warp_sums[threadIdx.x >> 5] = WarpSums{bad, ok_n, ts_max};
+  if (__any_sync(FULL_MASK, wants) && warp_lead) atomicOr(want, 1u);
+  cluster.sync();
+  if (threadIdx.x == 0) {  // the block's header, read by the gate
+    // `bad` by atomicOr: with no claim round to come, the other warps reach
+    // their FAULT_CLAIM atomicOr below with no barrier between
+    XferHdr h = hdr_own;
+    h.ok_n = 0ull;
+    h.ts_max = 0ull;
+    h.any_ok = 0u;
+    for (int w = 0; w < K3_THREADS / 32; w++) {
+      h.bad |= warp_sums[w].bad;
+      h.ok_n += warp_sums[w].ok_n;
+      if (warp_sums[w].ok_n) h.ts_max = max(h.ts_max, warp_sums[w].ts_max);
+      h.any_ok |= warp_sums[w].ok_n != 0u;
+    }
+    atomicOr(&hdr_own.bad, h.bad);
+    hdr_own.ok_n = h.ok_n;
+    hdr_own.ts_max = h.ts_max;
+    hdr_own.any_ok = h.any_ok;
+  }
+
+  // (b) claim rounds 1.. (a round after one no lane contended in would
+  // want nothing either); the flag is read once a warp
+  bool more = __shfl_sync(FULL_MASK, warp_lead ? want[0] : 0u, 0) != 0u;
+  for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
+    wants = false;
+    for (int i = t; i < a.B; i += stride) {
+      wants |= claim_select_lane(i, a.batch, ROW_WORDS, a.ok, a.xfer_rows, a.xfer_claim,
+                                 a.t_log2, a.ins_slot, a.claim_sc, round, nullptr);
+    }
+    if (__any_sync(FULL_MASK, wants) && warp_lead) atomicOr(want + round, 1u);
+    cluster.sync();
+    more = __shfl_sync(FULL_MASK, warp_lead ? want[round] : 0u, 0) != 0u;
+    if (!more) break;
+    for (int i = t; i < a.B; i += stride) claim_min_lane(i, a.xfer_claim, a.claim_sc);
+    cluster.sync();
+  }
+  // settle and release, then (c) fold: neither reads what the other writes
+  bad = 0u;
+  for (int i = t; i < a.B; i += stride) {
+    if (claim_finish_lane(i, a.ok, a.xfer_claim, a.ins_slot, a.claim_sc)) bad |= FAULT_CLAIM;
+  }
+  for (int l = group; l < 2 * a.B; l += K3_IN_FLIGHT * n_groups) {
+    bad |= fold_rows(a, l, n_groups, g);
+  }
+  bad = __reduce_or_sync(FULL_MASK, bad);
+  if (warp_lead && bad) atomicOr(&hdr_own.bad, bad);
+  cluster.sync();
+
+  // (d) the fault gate over the blocks' headers, one lane a block, decided
+  // by one thread
+  if (t < 32) {
+    const unsigned nb = cluster.num_blocks();
+    XferHdr h{};
+    if ((unsigned)t < nb) h = *cluster.map_shared_rank(&hdr_own, (unsigned)t);
+    uint32_t f = __reduce_or_sync(FULL_MASK, h.bad);
+    uint32_t any_ok = __reduce_or_sync(FULL_MASK, h.any_ok);
+    ull n_ok = h.ok_n, ts = h.any_ok ? h.ts_max : 0ull;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      n_ok += __shfl_xor_sync(FULL_MASK, n_ok, off);
+      ts = max(ts, __shfl_xor_sync(FULL_MASK, ts, off));
+    }
+    if (t == 0) {
+      f |= *a.fault;
+      if (*a.used + n_ok > (1ull << a.t_log2) / 2) f |= FAULT_CAPACITY;
+      *a.fault = f;
+      if (f == 0u) {
+        *a.count += n_ok;
+        *a.used += n_ok;
+        if (any_ok) *a.commit_ts = max(*a.commit_ts, ts);
+      }
+    }
+    f = __shfl_sync(FULL_MASK, f, 0);
+    if ((unsigned)t < nb) *cluster.map_shared_rank(&proceed_own, (unsigned)t) = f == 0u;
+  }
+  cluster.sync();
+
+  // (e) apply; no block reads another's shared memory from here on
+  const bool proceed = proceed_own != 0u;
+  for (int l = group; l < 2 * a.B; l += K3_IN_FLIGHT * n_groups) {
+    apply_rows(a, l, n_groups, g, proceed);
+  }
+  if (proceed) {
+    for (int i = group; i < a.B; i += K3_IN_FLIGHT * n_groups) insert_rows(a, i, n_groups, g);
+  }
+}
+
+// The cluster is non-portable (16 blocks), which a kernel must allow once;
+// if that failed, the launch fails and says so.
+static void xfer_commit_allow_cluster() {
+  static bool done = cudaFuncSetAttribute(xfer_commit,
+                                          cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                          1) == cudaSuccess;
+  (void)done;
 }
 
 void xfer_fast_enqueue(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows, int t_log2,
@@ -302,13 +578,19 @@ void xfer_fast_enqueue(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows, int
   a.timestamp = timestamp;
   a.pv_mode = pv_mode;
   a.results = results;
-  cudaMemsetAsync(a.hdr, 0, sizeof(XferHdr), stream);
-  xfer_validate<<<grid_for(B), LANES_PER_BLOCK, 0, stream>>>(a);
-  claim_slots(batch, ROW_WORDS, a.ok, B, xfer_rows, xfer_claim, t_log2, a.ins_slot, a.claim_sc,
-              &a.hdr->bad, stream);
-  xfer_fold<<<grid_for(2LL * B), LANES_PER_BLOCK, 0, stream>>>(a);
-  xfer_finalize<<<1, 1, 0, stream>>>(a);
-  xfer_apply<<<grid_for(2LL * B), LANES_PER_BLOCK, 0, stream>>>(a);
+  xfer_commit_allow_cluster();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K3_CLUSTER, 1, 1);
+  cfg.blockDim = dim3(K3_THREADS, 1, 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K3_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, xfer_commit, a);
 }
 
 extern "C" int tb_commit_transfers_fast(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,

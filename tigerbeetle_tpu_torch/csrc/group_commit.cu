@@ -8,17 +8,16 @@
 // slot's rows in, its probe sectors, its distinct account rows read and
 // written, its stored rows and codes out).
 //
-// Design: one ctypes call per group. The host loop below enqueues K3's
-// launch sequence (commit_transfers.cu, xfer_fast_enqueue) once per slot on
-// one stream, so slot i sees the state slot i - 1 left; a fault in one
-// slot makes every later slot a no-op through K3's own sticky gate. Then
-// one `group_summary` launch counts the non-zero codes over lanes < n_i of
-// each slot and writes the fault word after the last slot into the
+// Design: one ctypes call per group. The host loop below enqueues K3
+// (commit_transfers.cu, xfer_fast_enqueue: one cluster launch) once per
+// slot on one stream, so slot i sees the state slot i - 1 left; a fault in
+// one slot makes every later slot a no-op through K3's own sticky gate.
+// Then one `group_summary` launch counts the non-zero codes over lanes <
+// n_i of each slot and writes the fault word after the last slot into the
 // summary and into the last word of the flat results. The slots share one
 // scratch buffer: they run in stream order. A padding slot (n = 0) commits
-// nothing and leaves every state word as it was, as in the JAX scan. A
-// one-launch design (a CUDA graph, or a persistent kernel over the slots)
-// is left for later: this costs K3's 14 launches per slot plus one.
+// nothing and leaves every state word as it was, as in the JAX scan. This
+// costs one launch per slot plus one: 17 for a group of 16.
 #include <cuda_runtime.h>
 
 #include "commit_transfers.cuh"

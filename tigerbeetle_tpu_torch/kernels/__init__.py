@@ -33,8 +33,9 @@ tigerbeetle_tpu/parallel/mesh.py `ShardedLedgerKernels`):
     mesh_commit_transfers_fast    _commit_transfers_fast
     mesh_commit_transfers_serial  _commit_transfers_serial
 
-`chase` is no kernel of the ledger: a pointer chase that measures the
-card's dependent-load latency for the serial kernels' bounds.
+`chase` and `chase_shared` are no kernels of the ledger: pointer chases
+that measure the card's dependent-load latency, from device memory and from
+shared memory, for the serial kernels' bounds.
 """
 
 from __future__ import annotations
@@ -100,6 +101,7 @@ _SIGNATURES = {
                                       _I, _U64, _P, _P, _P],
     "tb_mesh_commit_transfers_serial": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _U64, _P, _P, _P],
+    "tb_chase_shared": [_P, _I, ctypes.c_uint32, _I, _P, _P],
 }
 _SCRATCH = (
     "tb_commit_accounts_fast_scratch",
@@ -593,7 +595,8 @@ def mesh_commit_transfers_fast(state, rows_b, n: int, timestamp: int, a_log2: in
 def mesh_commit_transfers_serial(state, rows_b, n: int, timestamp: int, a_log2: int,
                                  t_log2: int):
     """K11 serial transfer commit of `rows_b` into the sharded `state` in
-    place, event by event; returns int32 codes."""
+    place, event by event (one block: a walker warp and the prefetch warps
+    of its lookahead ring); returns int32 codes."""
     B = _check_batch(rows_b, n)
     S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
     if _mesh_table(state["xfer_rows"], "xfer_rows", t_log2) != S \
@@ -609,14 +612,34 @@ def mesh_commit_transfers_serial(state, rows_b, n: int, timestamp: int, a_log2: 
     return results
 
 
+def _chase_launch(name: str, *args) -> None:
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} ({lib.tb_error_string(err).decode()})")
+
+
 def chase(nxt, start: int, steps: int):
     """Follow `nxt` (int32 indices) from `start` for `steps` dependent loads
     in one thread; returns the last index as a 1-element tensor. Not counted
     in LAUNCHES: it measures the card, it is not a kernel of the ledger."""
     _need(nxt, torch.int32, 1, "next")
     out = torch.empty(1, dtype=torch.int32, device=nxt.device)
-    lib = library()
-    err = lib.tb_chase(_ptr(nxt), start, steps, _ptr(out), _stream())
-    if err != 0:
-        raise RuntimeError(f"tb_chase: CUDA error {err} ({lib.tb_error_string(err).decode()})")
+    _chase_launch("tb_chase", _ptr(nxt), start, steps, _ptr(out), _stream())
+    return out
+
+
+CHASE_SHARED_WORDS = 8192  # csrc/chase.cu CHASE_SHARED_WORDS
+
+
+def chase_shared(nxt, start: int, steps: int):
+    """The same chase through shared memory: `nxt` (at most
+    CHASE_SHARED_WORDS words) is copied into one block's shared memory
+    first. Not counted in LAUNCHES."""
+    _need(nxt, torch.int32, 1, "next")
+    if not 1 <= nxt.shape[0] <= CHASE_SHARED_WORDS:
+        raise ValueError(f"next: {nxt.shape[0]} words, at most {CHASE_SHARED_WORDS}")
+    out = torch.empty(1, dtype=torch.int32, device=nxt.device)
+    _chase_launch("tb_chase_shared", _ptr(nxt), nxt.shape[0], start, steps, _ptr(out),
+                  _stream())
     return out
