@@ -17,8 +17,10 @@ Phases (each failure exits non-zero):
    a padding slot, an install with no free slot, tombstones and a nonzero
    dump row under the fingerprint; the one-launch K3 also on its capacity
    guard, a sticky fault, windows with no free slot, claim contention, one
-   lane, 8192 lanes holding 8190 events and a wave mask); the reply-code
-   fold (K7) on padding
+   lane, 8192 lanes holding 8190 events and a wave mask; the serial K4 also
+   on every hazard request of tigerbeetle_tpu_torch/testing/hazards.py on
+   one table, missing pendings read from a tombstone and from a full window
+   included); the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot;
 3. the main path at deployment size: StateMachine over
@@ -43,7 +45,8 @@ Phases (each failure exits non-zero):
    idle share; one K3 kernel and no memset a request) and a cProfile of the
    host's share;
 6. each kernel timed on the main path's state at its main-path shape,
-   beside its plain version and its bound;
+   beside its plain version and its bound (the serial K4 also on a request
+   of 8190 events: linked chains, then posts and voids);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -86,9 +89,11 @@ Phases (each failure exits non-zero):
 10. the sharded ledger on one card (K11): each sharded kernel against its
    plain version on the card at 2^12 / 2^14 slots per shard and 8 shards,
    on every failure path and fault gate (an exhausted shard, claim
-   contention on one slot, overflow, both capacity gates, a sticky fault,
-   a linked chain across four shards broken mid-chain, post and void across
-   shards), and the serial transfer kernel on the hazard requests of
+   contention on one slot, a request in which no lane wants a slot, no free
+   slot on any shard, overflow, both capacity gates and one shard exactly at
+   and one past its load limit, a sticky fault, a linked chain across four
+   shards broken mid-chain, post and void across shards), and the serial
+   transfer kernel on the hazard requests of
    tigerbeetle_tpu_torch/testing/hazards.py; then StateMachine over
    ShardedLedger(8, ConfigProcess()) (2^20 account and 2^24 transfer slots
    per shard, about 19 GiB) with phase 3's requests (10,000 accounts, 64 x
@@ -96,7 +101,9 @@ Phases (each failure exits non-zero):
    posts and voids and the linked request on the serial tier): every reply
    and all 10,000 accounts equal NativeLedger(20, 24)'s, and every K11
    kernel ran; the rate of the 64 benchmark requests and the wall time of
-   the two-phase and linked ones; each kernel against its plain version on
+   the two-phase and linked ones; four fast requests on a fresh sharded
+   ledger in a process of their own, under the profiler, must each be one
+   fast-commit launch and no memset; each kernel against its plain version on
    two copies of that state at the path's shapes (the serial ones on 1810
    accounts and on 8190 transfers: linked chains, posts and voids), their
    times (the serial transfer kernel's bound one shared-memory round trip
@@ -421,6 +428,7 @@ def phase_kernels(torch, L, types, constants, dev):
           lambda s: K.commit_transfers_serial(s, rows, tsv, 256, a_log2, t_log2),
           lambda s: L.commit_transfers_serial_plain(s, rows, tsv, 256, a_log2, t_log2),
           start=full)
+    k4_hazards(torch, L, types, K, process, rng, dev)
     faulted = clone_state(base)
     faulted["fault"].fill_(1)
     arr = account_batch(types, rng, 256, 2_000_000, False)
@@ -429,6 +437,35 @@ def phase_kernels(torch, L, types, constants, dev):
           lambda s: K.commit_accounts_fast(s, rows, 256, ts + 40_000, a_log2),
           lambda s: L.commit_accounts_fast_plain(s, rows, 256, ts + 40_000, a_log2),
           start=faulted)
+
+
+def k4_hazards(torch, L, types, K, process, rng, dev):
+    """K4 (serial_walk.cuh's walk, single-table policy) against its plain
+    version on every hazard request of testing/hazards.py on one table, with
+    a residue's scattered timestamps, from a state holding their accounts
+    whose tombstone-key window is filled: a missing pending read from a
+    rollback's tombstone, or from a full window, must set FAULT_SERIAL."""
+    from tigerbeetle_tpu_torch.testing import hazards as H
+
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    led = L.DeviceLedger(process, device="cpu")
+    led.execute_dense(types.Operation.create_accounts, 10_000,
+                      types.accounts_to_np(H.hazard_accounts()))
+    led.check_fault()
+    H.fill_tomb_window(led.state["acct_rows"].numpy(), a_log2, rng)
+    start = {k: v.to(dev) for k, v in led.state.items()}
+    for case in H.CASES:
+        arr = types.transfers_to_np(H.hazard_request(case, rng, t_log2, 1))
+        n = len(arr)
+        rows = L.transfers_to_batch(arr, dev)["rows"]
+        tsv = torch.from_numpy((10**12 + np.cumsum(rng.integers(1, 9, n))).astype(np.int64)
+                               ).to(dev)
+        _, sp = hold(torch, f"K4 commit_transfers serial (hazard {case}, {n} events)", start,
+                     lambda s: K.commit_transfers_serial(s, rows, tsv, n, a_log2, t_log2),
+                     lambda s: L.commit_transfers_serial_plain(s, rows, tsv, n, a_log2, t_log2))
+        want = L.FAULT_SERIAL if case in ("missing_tomb", "missing_full") else 0
+        if int(sp["fault"]) != want:
+            fail(f"the hazard request {case} gave fault {int(sp['fault'])}, not {want}")
 
 
 def k3_gates(torch, L, types, K, check, base, rng, ts, a_log2, t_log2):
@@ -1299,11 +1336,18 @@ def probe_counts(torch, ht, key4, rows, cap_log2, window):
     return int((first + 1).sum())
 
 
-def timed(torch, fn, reps):
+def timed(torch, fn, reps, on_card=False):
+    """Median and quartiles of `reps` runs of `fn` in ms, by CUDA events.
+    With `on_card`, the card is kept busy (torch.cuda._sleep, about half a
+    millisecond) while the host enqueues the events and `fn`: the events
+    then bracket its launches on the card alone, not the wrapper's host work
+    before them."""
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if on_card:
+            torch.cuda._sleep(1 << 20)
         start.record()
         fn()
         end.record()
@@ -1354,11 +1398,16 @@ def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
     return n * (128 + 4 + 128) + tp * 32 + touched * 2 * 128 + (ap - touched) * 32
 
 
-def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
+def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     """Each kernel and its plain version at the main path's shapes on the
     main path's state; returns {key: (kernel ms, plain ms, bound ms, bound_by)}
     with medians and quartiles. A bound is bytes over the card's rate; for
-    the serial kernels it is at least one dependent load per event."""
+    the serial account kernel it is at least one dependent device-memory
+    load per event. K4 resolves its lookups ahead of its walk, so its bound
+    is the larger of its bytes and one dependent shared-memory round trip an
+    event (`smem_ns`): event i may read what event i - 1 wrote. K4 is also
+    timed, with no plain run, on an 8190-event serial request (the sharded
+    path's serial shape, over pendings K3 commits first)."""
     from tigerbeetle_tpu_torch import kernels as K
 
     rng = np.random.default_rng(SEED + 2)
@@ -1421,7 +1470,7 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
             t = linked_request(types, rng, ids, n)
         return L.transfers_to_batch(t, dev)["rows"]
 
-    batches = [xfer_rows(B) for _ in range(13)]
+    batches = [xfer_rows(B) for _ in range(23)]
     nbytes = transfer_bytes(torch, ht, st, batches[0], a_log2, t_log2, 32)
     it = iter(batches)
     kt = timed(torch, lambda: K.commit_transfers_fast(st, next(it), None, B, 10**13, a_log2,
@@ -1429,6 +1478,15 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
     pt = timed(torch, lambda: L.commit_transfers_fast_plain(st, next(it), B, 10**13, a_log2,
                                                             t_log2, False), 3)
     out["K3"] = (kt, pt, *bound(nbytes))
+    kc = timed(torch, lambda: K.commit_transfers_fast(st, next(it), None, B, 10**13, a_log2,
+                                                      t_log2, False), 10, on_card=True)
+    log(f"  K3 on the card alone: {kc[0]:.4f} ms [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] (through "
+        f"its wrapper {kt[0]:.4f} ms)")
+
+    def walk_bound(nbytes, n):
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_chain = n * smem_ns * 1e-6
+        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
 
     n = 600
     batches = [xfer_rows(n) for _ in range(12)]
@@ -1439,7 +1497,31 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns):
                10)
     pt = timed(torch, lambda: L.commit_transfers_serial_plain(st, next(it), tsv, n, a_log2,
                                                               t_log2), 2)
-    out["K4"] = (kt, pt, *bound(nbytes, n))  # no post/void: one dependent trip each
+    out["K4"] = (kt, pt, *walk_bound(nbytes, n))
+    log(f"  K4's old bound, a device-memory load an event (no post/void here): "
+        f"{n * latency_ns * 1e-6:.6f} ms; its bytes alone "
+        f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms; {n} shared-memory round trips "
+        f"{n * smem_ns * 1e-6:.6f} ms")
+    # K4 on the sharded path's serial request at its size, on this one table
+    reqs = []
+    for _ in range(10):
+        ids = np.arange(next_id[0], next_id[0] + B)
+        next_id[0] += B
+        dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+        pend = transfers(types, ids, dr, cr, rng.integers(1, 1000, B).astype(np.uint64), flags=2)
+        K.commit_transfers_fast(st, L.transfers_to_batch(pend, dev)["rows"], None, B, 10**13,
+                                a_log2, t_log2, False)
+        ids = np.arange(next_id[0], next_id[0] + B)
+        next_id[0] += B
+        reqs.append(L.transfers_to_batch(serial_request(types, rng, ids, pend)[0], dev)["rows"])
+    tsv = L.batch_timestamps(10**13, B, B, dev)
+    it = iter(reqs)
+    k4_long = timed(torch, lambda: K.commit_transfers_serial(st, next(it), tsv, B, a_log2,
+                                                             t_log2), 10)
+    log(f"  K4 on a serial request of {B} events on one table (200 linked chains, then "
+        f"{B - 600} posts and voids): {k4_long[0]:.4f} ms [p25 {k4_long[1]:.4f}, p75 "
+        f"{k4_long[2]:.4f}], bound {B * smem_ns * 1e-6:.6f} ms ({B} shared-memory round trips)")
+    del reqs
 
     # K5: a group of 16 fresh requests of 8190 each run; its bound is the
     # sum of K3's over the slots, each counted on the state before the group
@@ -2402,17 +2484,19 @@ def mesh_gates(torch, L, M, ht, types, constants, dev):
     errs = {}
 
     def check(name, run_kernel, run_plain, start=None):
-        hold(torch, name, base if start is None else start, run_kernel, run_plain)
         errs[name] = 0
+        return hold(torch, name, base if start is None else start, run_kernel, run_plain)
 
-    def xfer(name, arr, n, serial, start=None, t=None):
+    def xfer(name, arr, n, serial, start=None, t=None, want_fault=None):
         rows = M.batch_rows(arr)
         kern = K.mesh_commit_transfers_serial if serial else K.mesh_commit_transfers_fast
         plain = M.commit_transfers_serial_plain if serial else M.commit_transfers_fast_plain
         t = ts + 10_000 if t is None else t
         rows = torch.from_numpy(rows).to(dev)
-        check(name, lambda s: kern(s, rows, n, t, a_log2, t_log2),
-              lambda s: plain(s, rows, n, t, a_log2, t_log2), start)
+        _, sp = check(name, lambda s: kern(s, rows, n, t, a_log2, t_log2),
+                      lambda s: plain(s, rows, n, t, a_log2, t_log2), start)
+        if want_fault is not None and int(sp["fault"]) != want_fault:
+            fail(f"{name}: fault {int(sp['fault'])}, not {want_fault}")
 
     def acct(name, arr, n, serial, start=None):
         rows = torch.from_numpy(M.batch_rows(arr)).to(dev)
@@ -2440,6 +2524,31 @@ def mesh_gates(torch, L, M, ht, types, constants, dev):
     arr = transfers(types, group, [1, 3, 5, 7], [2, 4, 6, 8], [1, 2, 3, 4])
     xfer(f"K11 mesh_commit_transfers fast (claim contention: 4 lanes, one slot of shard "
          f"{int(owners_of(M, group[:1])[0])})", arr, 4, False)
+    # no lane wants a slot: every event fails its ladder (a missing debit
+    # account), so claim round 0 wants nothing and the rounds end there
+    arr = fast_transfer_batch(types, rng, B, False)
+    arr["debit_account_id_lo"] += 5_000_000
+    xfer("K11 mesh_commit_transfers fast (no lane wants a slot: every event fails)", arr, B,
+         False, want_fault=0)
+    # no free slot in any window of any shard: the ok lanes want none either,
+    # and report FAULT_CLAIM beside FAULT_PROBE
+    full = base
+    for shard in range(MESH_SHARDS):
+        full = mesh_exhausted(torch, full, rng, shard, tombs=0)
+    xfer("K11 mesh_commit_transfers fast (no free slot on any shard)",
+         fast_transfer_batch(types, rng, B, False), B, False, full, want_fault=3)
+    # one shard exactly at its load limit, the others below: the gate passes;
+    # one slot fewer left on that shard trips it
+    dr, cr = random_pairs(rng, B, 1999)
+    ids = np.arange(60_000_001, 60_000_001 + B)
+    arr = transfers(types, ids, dr, cr, rng.integers(1, 1000, B).astype(np.uint64))
+    ins = np.bincount(owners_of(M, ids), minlength=MESH_SHARDS)
+    for over in (0, 1):
+        full = clone_state(base)
+        full["xfer_used_slots"][2] = (1 << t_log2) // 2 - int(ins[2]) + over
+        xfer(f"K11 mesh_commit_transfers fast (shard 2 {'one past' if over else 'exactly at'} "
+             "its load limit, the others below)", arr, B, False, full,
+             want_fault=L.FAULT_CAPACITY if over else 0)
 
     # the fault gates
     arr = transfers(types, [800_001, 800_002], [1, 1], [2, 2], [0, 0], flags=[2, 0])
@@ -2587,6 +2696,7 @@ def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns
                                    zip(reqs, req_seconds) if k in ("pending", "resolve", "linked"))
         + " (resolve and linked on the serial tier)")
 
+    mesh_fast_trace(card)
     shape_errs, serial_plain_ms = mesh_main_shapes(torch, L, M, types, ledger, dev)
     errs.update(shape_errs)
     log(f"  peak memory with the ledger and two copies: {torch.cuda.max_memory_allocated()} "
@@ -2596,6 +2706,84 @@ def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns
     torch.cuda.empty_cache()
     mesh_round_trip(torch, M, types, constants, dev)
     return launches, errs, times
+
+
+def mesh_fast_trace(card):
+    """Fast-tier requests of the sharded path under torch.profiler, in a
+    process of its own (late in this one, a profiler session recorded no
+    kernel at all; the cause is not found): each request must make one
+    K11tf wrapper call and one kernel launch on the card, with no memset.
+    Logs the kernel's time on the card from the trace."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.mesh_fast_trace_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced sharded requests failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"  {got['requests']} sharded fast requests of 8190 (a fresh ShardedLedger(8, "
+        f"ConfigProcess()), phase 3's accounts) under the profiler: wrapper calls "
+        f"{got['calls']}, kernels on the card {got['kernels']}, memsets {got['memsets']}; "
+        f"K11tf on the card {', '.join(f'{us:.1f}' for us in got['kernel_us'])} us [{card}]")
+    if got["calls"] != {"mesh_commit_transfers_fast": got["requests"]} or got["memsets"] \
+            or got["kernels"] != {"mesh_xfer_commit(MeshXferFast)": got["requests"]}:
+        fail("a sharded fast request must be one K11tf launch and no memset")
+
+
+def mesh_fast_trace_child(n_requests=4):
+    """mesh_fast_trace's process: prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+
+    Op = types.Operation
+    sm = SM.StateMachine(M.ShardedLedger(MESH_SHARDS, constants.ConfigProcess(), device="cuda"))
+
+    def commit(op, body, ts=None):
+        sm.prepare(op, body)
+        if sm.commit(op, sm.prepare_timestamp + 10**12 if ts is None else ts, body) != b"":
+            fail("a sharded request failed")
+
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    for chunk in (acc[:8190], acc[8190:]):
+        commit(Op.create_accounts, chunk.tobytes())
+    bodies = benchmark_bodies(types, np.random.default_rng(SEED + 15), 2 + n_requests,
+                              5_000_000_000)
+    for body in bodies[:2]:  # warm
+        commit(Op.create_transfers, body)
+    tss = []
+    for body in bodies[2:]:
+        sm.prepare(Op.create_transfers, body)
+        tss.append(sm.prepare_timestamp + 10**12)
+    torch.cuda.synchronize()
+    before = dict(K.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for body, ts in zip(bodies[2:], tss):
+            if sm.commit(Op.create_transfers, ts, body) != b"":
+                fail("a traced sharded request failed")
+        torch.cuda.synchronize()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "mesh_fast.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    kernels, kernel_us = {}, []
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+            kernel_us.append(float(e["dur"]))
+    print(json.dumps({
+        "requests": n_requests,
+        "calls": {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]},
+        "kernels": kernels, "kernel_us": kernel_us,
+        "memsets": sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset"),
+    }))
 
 
 def serial_request(types, rng, ids, pend):
@@ -2768,7 +2956,7 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
         return (n * (128 + 4 + 128) + tp * SECTOR + touched * 2 * 128 + (ap - touched) * SECTOR
                 + n_pv * (128 + 4) + (pp - n_pv) * SECTOR), n_pv
 
-    arrs = [fresh_transfers() for _ in range(13)]
+    arrs = [fresh_transfers() for _ in range(23)]
     nbytes, _ = xfer_bytes(arrs[0], arrs[0], 32)
     it = iter([pad(a) for a in arrs])
     kt = timed(torch, lambda: K.mesh_commit_transfers_fast(st, next(it), B, 10**13, a_log2,
@@ -2776,6 +2964,10 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
     pt = timed(torch, lambda: M.commit_transfers_fast_plain(st, next(it), B, 10**13, a_log2,
                                                             t_log2), 3)
     out["K11tf"] = (kt, pt, *bound(nbytes))
+    kc = timed(torch, lambda: K.mesh_commit_transfers_fast(st, next(it), B, 10**13, a_log2,
+                                                           t_log2), 10, on_card=True)
+    log(f"  K11tf on the card alone: {kc[0]:.4f} ms [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] "
+        f"(through its wrapper {kt[0]:.4f} ms)")
 
     # K11ts on serial_request, each over pendings the fast kernel commits
     # first (untimed)
@@ -2987,7 +3179,7 @@ def main() -> int:
     phase_trace(torch, SM, types, sm, dev)
 
     log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
-    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns)
+    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, smem_ns)
 
     log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)

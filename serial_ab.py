@@ -1,4 +1,4 @@
-"""A/B of the sharded ledger's serial-tier requests across checkouts.
+"""A/B of the serial-tier requests across checkouts.
 
 Drives the StateMachine path of chip_smoke.py's phase 10 -- StateMachine
 over ShardedLedger(8, ConfigProcess()) on cuda, its 10,000 accounts -- then
@@ -6,11 +6,14 @@ rounds of four create_transfers requests of 8190 events, as phase 10's
 main path sends them: benchmark transfers and pendings (both on the fast
 tier, K11tf), posts and voids of all of those pendings, and a linked
 request (chains of three over its first 600 events, every tenth broken);
-the last two commit on the serial tier (K11ts). Each
-checkout runs in a process of its own, the two taking turns (parent,
-change, change, parent, ...), and each request's wall time through
-StateMachine.commit, reply included, is kept; the first round of a process
-is not.
+the last two commit on the serial tier (K11ts). Each round also sends
+StateMachine over DeviceLedger(ConfigProcess()) (phase 3's ledger, the
+same accounts) a benchmark request (K3, `device_transfers`) and a linked
+request, whose planner runs it as waves of K3 and a 600-event residue
+through K4 (`device_linked`). Each checkout runs in a
+process of its own, the two taking turns (parent, change, change, parent,
+...), and each request's wall time through StateMachine.commit, reply
+included, is kept; the first round of a process is not.
 
     python3 serial_ab.py [--parent DIR] [--runs 4] [--rounds 4] [--out FILE]
 
@@ -31,7 +34,7 @@ from pathlib import Path
 import numpy as np
 
 HERE = Path(__file__).resolve().parent
-KINDS = ("transfers", "pending", "resolve", "linked")
+KINDS = ("transfers", "pending", "resolve", "linked", "device_transfers", "device_linked")
 
 
 def _smoke():
@@ -43,33 +46,35 @@ def _smoke():
 
 
 def child(root: str, rounds: int) -> dict:
-    """One process on the checkout at `root`: a fresh sharded ledger, the
-    accounts, one round untimed, then `rounds` timed ones."""
+    """One process on the checkout at `root`: a fresh sharded ledger and a
+    fresh device ledger, the accounts on each, one round untimed, then
+    `rounds` timed ones."""
     import torch
 
     sys.path.insert(0, root)
     from tigerbeetle_tpu_torch import constants, types
     from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.models import ledger as L
     from tigerbeetle_tpu_torch.parallel import mesh as M
 
     C = _smoke()
     Op = types.Operation
     B = 8190
     rng = np.random.default_rng(C.SEED + 1)
-    ledger = M.ShardedLedger(C.MESH_SHARDS, constants.ConfigProcess(), device="cuda")
-    sm = SM.StateMachine(ledger)
+    sm = SM.StateMachine(M.ShardedLedger(C.MESH_SHARDS, constants.ConfigProcess(), device="cuda"))
+    dsm = SM.StateMachine(L.DeviceLedger(constants.ConfigProcess(), device="cuda"))
 
-    def commit(body):
-        sm.prepare(Op.create_transfers, body)
+    def commit(body, machine=sm, op=Op.create_transfers):
+        machine.prepare(op, body)
         start = time.perf_counter()
-        reply = sm.commit(Op.create_transfers, sm.prepare_timestamp + 10**12, body)
+        reply = machine.commit(op, machine.prepare_timestamp + 10**12, body)
         return reply, time.perf_counter() - start
 
     acc = C.accounts(types, np.arange(1, C.N_ACCOUNTS + 1))
-    for chunk in (acc[:B], acc[B:]):
-        sm.prepare(Op.create_accounts, chunk.tobytes())
-        if sm.commit(Op.create_accounts, sm.prepare_timestamp + 10**12, chunk.tobytes()):
-            raise RuntimeError("an account request failed")
+    for machine in (sm, dsm):
+        for chunk in (acc[:B], acc[B:]):
+            if commit(chunk.tobytes(), machine, Op.create_accounts)[0]:
+                raise RuntimeError("an account request failed")
     torch.cuda.synchronize()
     ms = {k: [] for k in KINDS}
     for r in range(rounds + 1):
@@ -83,13 +88,18 @@ def child(root: str, rounds: int) -> dict:
         lk = C.linked_request(types, rng, np.arange(4_000_000_001 + r * B,
                                                     4_000_000_001 + (r + 1) * B), 600)
         bench = C.benchmark_bodies(types, rng, 1, 1_000_000_000 + (r + 1) * B)[0]
-        for kind, body in zip(KINDS, (bench, pend.tobytes(), res.tobytes(), lk.tobytes())):
-            reply, took = commit(body)
-            if bool(reply) != (kind == "linked"):  # only the broken chains fail
+        dbench = C.benchmark_bodies(types, rng, 1, 6_000_000_000 + (r + 1) * B)[0]
+        dlk = C.linked_request(types, rng, np.arange(5_000_000_001 + r * B,
+                                                     5_000_000_001 + (r + 1) * B), 600)
+        for kind, body in zip(KINDS, (bench, pend.tobytes(), res.tobytes(), lk.tobytes(),
+                                      dbench, dlk.tobytes())):
+            reply, took = commit(body, dsm if kind.startswith("device") else sm)
+            if bool(reply) != kind.endswith("linked"):  # only the broken chains fail
                 raise RuntimeError(f"round {r}: an unexpected {kind} reply")
             if r > 0:
                 ms[kind].append(took * 1e3)
-    ledger.check_fault()
+    for machine in (sm, dsm):
+        machine.backend.check_fault()
     return ms
 
 

@@ -14,12 +14,10 @@
 // bytes): every phase needs all of the one before, and blocks run in no
 // order, so each barrier was a kernel boundary.
 //
-// Design: one kernel over one cluster of K3_CLUSTER blocks of K3_THREADS
-// threads (512 threads, so that the validation ladder's ~120 registers
-// fit; 16 blocks, H100's largest, non-portable cluster: a cluster lives in
-// one GPC, and its SMs' L1-to-L2 transactions bound the phases that move
-// rows). Lane loops stride over the cluster, so any B works. A cluster
-// barrier (`cluster.sync()`) stands where a kernel boundary stood:
+// Design: one kernel over one cluster of CLUSTER_BLOCKS blocks of
+// CLUSTER_THREADS threads (cluster.cuh, whose row phases K11tf shares).
+// Lane loops stride over the cluster, so any B works. A cluster barrier
+// (`cluster.sync()`) stands where a kernel boundary stood:
 //   (0) each block zeroes its header in shared memory: fault bits, the
 //       ok count and the commit_ts candidate (each warp's share, folded by
 //       the block's first thread), and in block 0 the rounds' want flags,
@@ -54,15 +52,10 @@
 #include <cuda_runtime.h>
 
 #include "claim.cuh"
+#include "cluster.cuh"
 #include "commit_transfers.cuh"
-#include "hash.cuh"
-#include "validate.cuh"
 
 namespace cg = cooperative_groups;
-
-#define K3_CLUSTER 16
-#define K3_THREADS 512
-#define FULL_MASK 0xFFFFFFFFu
 
 // A block's header: its fault bits, ok count and the unsigned max of its
 // ok events' timestamps (block 0's `want` flags serve the whole cluster).
@@ -128,37 +121,6 @@ extern "C" size_t tb_commit_transfers_fast_scratch(int B) {
   size_t size;
   carve(nullptr, B, &size);
   return size;
-}
-
-__device__ __forceinline__ ull event_ts(ull timestamp, int n, int i) {
-  return timestamp - (ull)n + (ull)i + 1ull;
-}
-
-// Add the 8 little-endian 16-bit digits of `amt` (negated mod 2^32 when
-// `neg`) into 8 accumulator words.
-__device__ __forceinline__ void add_digits(uint32_t* acc, u128 amt, bool neg) {
-#pragma unroll
-  for (int d = 0; d < 8; d++) {
-    uint32_t digit = (uint32_t)(amt >> (16 * d)) & 0xFFFFu;
-    if (digit) atomicAdd(acc + d, neg ? 0u - digit : digit);
-  }
-}
-
-// The fields of an account row the transfer ladder reads (id, user data,
-// code and timestamp stay zero): 5 of its 8 16-byte pieces.
-__device__ __forceinline__ Acct load_acct_ladder(const uint32_t* p) {
-  Row r = {};
-  const uint4* s = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int k = 1; k < 8; k++) {
-    if (k == 5 || k == 6) continue;
-    uint4 v = s[k];
-    r.w[4 * k] = v.x;
-    r.w[4 * k + 1] = v.y;
-    r.w[4 * k + 2] = v.z;
-    r.w[4 * k + 3] = v.w;
-  }
-  return unpack_account(r);
 }
 
 // Phase (a) for lane i, with claim round 0; returns its fault bits, sets
@@ -263,135 +225,13 @@ __device__ __forceinline__ uint32_t validate_lane(const XferFast& a, int i, bool
   return bad;
 }
 
-// models/ledger.py _fold_digits / _fold_digits_signed for one balance
-// field: its four words `w` plus the eight 32-bit digit sums d0 (words
-// 0-3 of the field's sums) and d1 (4-7); sets *bad on a carry out.
-__device__ __forceinline__ uint4 fold_field(uint4 w, uint4 d0, uint4 d1, bool is_signed,
-                                            bool* bad) {
-  const uint32_t in[4] = {w.x, w.y, w.z, w.w};
-  const uint32_t acc[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-  uint32_t out[4];
-  if (is_signed) {
-    long long carry = 0;
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      long long s_lo = (long long)(in[k] & 0xFFFFu) + (long long)(int32_t)acc[2 * k] + carry;
-      carry = s_lo >> 16;
-      long long s_hi = (long long)(in[k] >> 16) + (long long)(int32_t)acc[2 * k + 1] + carry;
-      carry = s_hi >> 16;
-      out[k] = (uint32_t)(s_lo & 0xFFFF) | ((uint32_t)(s_hi & 0xFFFF) << 16);
-    }
-    if (carry != 0) *bad = true;
-  } else {
-    uint32_t carry = 0;
-#pragma unroll
-    for (int k = 0; k < 4; k++) {
-      uint32_t s_lo = (in[k] & 0xFFFFu) + acc[2 * k] + carry;
-      carry = s_lo >> 16;
-      uint32_t s_hi = (in[k] >> 16) + acc[2 * k + 1] + carry;
-      carry = s_hi >> 16;
-      out[k] = (s_lo & 0xFFFFu) | (s_hi << 16);
-    }
-    if (carry != 0) *bad = true;
-  }
-  return make_uint4(out[0], out[1], out[2], out[3]);
-}
-
-__device__ __forceinline__ uint4 shfl4(unsigned mask, uint4 v, int src) {
-  return make_uint4(__shfl_sync(mask, v.x, src), __shfl_sync(mask, v.y, src),
-                    __shfl_sync(mask, v.z, src), __shfl_sync(mask, v.w, src));
-}
-
-__device__ __forceinline__ u128 u128_of(uint4 v) {
-  return mk128((uint64_t)v.x | ((uint64_t)v.y << 32), (uint64_t)v.z | ((uint64_t)v.w << 32));
-}
-
-// A row group: eight lanes of a warp move one 128-byte row, lane `sub`
-// holding its 16-byte piece `sub` (words 4 sub .. 4 sub + 3); `mask` is the
-// group's lanes and `lead` its first lane.
-struct RowGroup {
-  int sub, lead;
-  unsigned mask;
-};
-
-#define K3_IN_FLIGHT 8  // rows a group has in flight in phases (c) and (e)
-
-// Phase (c) for the rows l0, l0 + step, ... (K3_IN_FLIGHT of them, those
-// < 2B; row l is the account of event l % B's debit or credit side);
-// returns FAULT_OVERFLOW or 0 in the group's lanes. Balance field f (dp,
-// dpo, cp, cpo) is piece 1 + f; its digit sums are pieces 2f and 2f + 1 of
-// the `bal_acc` row.
-__device__ __forceinline__ uint32_t fold_rows(const XferFast& a, int l0, int step, RowGroup g) {
-  const int f = g.sub - 1;  // the field this lane folds, if 0 <= f < 4
-  const bool balance = f >= 0 && f < 4;
-  int64_t slot[K3_IN_FLIGHT];
-  uint4 w[K3_IN_FLIGHT], c[K3_IN_FLIGHT];
-#pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
-    int l = l0 + u * step;
-    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
-  }
-#pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
-    if (slot[u] < 0) continue;
-    w[u] = make_uint4(0u, 0u, 0u, 0u);
-    if (balance) {
-      w[u] = reinterpret_cast<const uint4*>(a.acct_rows + (size_t)slot[u] * ROW_WORDS)[g.sub];
-    }
-    c[u] = __ldcg(reinterpret_cast<const uint4*>(a.bal_acc + (size_t)slot[u] * ROW_WORDS) + g.sub);
-  }
-  bool bad = false;
-#pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
-    if (slot[u] < 0) continue;  // the same in the group's lanes
-    uint4 d0 = shfl4(g.mask, c[u], g.lead + ((2 * f) & 7));
-    uint4 d1 = shfl4(g.mask, c[u], g.lead + ((2 * f + 1) & 7));
-    uint4 v = w[u];
-    if (balance) v = fold_field(v, d0, d1, a.pv_mode != 0, &bad);
-    // codes 51/52 guard the combined pending+posted sums (:856-861): dp +
-    // dpo in the dp lane, cp + cpo in the cp lane
-    uint4 next = shfl4(g.mask, v, g.lead + ((g.sub + 1) & 7));
-    if ((g.sub == 1 || g.sub == 3) && sum_overflows(u128_of(v), u128_of(next))) bad = true;
-    if (balance) {  // only the balances change
-      reinterpret_cast<uint4*>(a.new_rows + (size_t)(l0 + u * step) * ROW_WORDS)[g.sub] = v;
-    }
-  }
-  return bad ? FAULT_OVERFLOW : 0u;
-}
-
-// Phase (e), accounts: the rows l0, l0 + step, ... of 2B (their balance
-// pieces 1-4: nothing else of an account row changes).
-__device__ __forceinline__ void apply_rows(const XferFast& a, int l0, int step, RowGroup g,
-                                           bool proceed) {
-  const bool balance = g.sub >= 1 && g.sub <= 4;
-  int64_t slot[K3_IN_FLIGHT];
-  uint4 v[K3_IN_FLIGHT];
-#pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
-    int l = l0 + u * step;
-    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
-    if (l < 2 * a.B && proceed && balance) {
-      v[u] = __ldcg(reinterpret_cast<const uint4*>(a.new_rows + (size_t)l * ROW_WORDS) + g.sub);
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
-    if (slot[u] < 0) continue;
-    if (proceed && balance) {
-      reinterpret_cast<uint4*>(a.acct_rows + (size_t)slot[u] * ROW_WORDS)[g.sub] = v[u];
-    }
-    reinterpret_cast<uint4*>(a.bal_acc + (size_t)slot[u] * ROW_WORDS)[g.sub] =
-        make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
 // Phase (e), transfers: the stored rows of the events i0, i0 + step, ...
 // that applied.
 __device__ __forceinline__ void insert_rows(const XferFast& a, int i0, int step, RowGroup g) {
-  int64_t ok_slot[K3_IN_FLIGHT], ins[K3_IN_FLIGHT];
-  uint4 v[K3_IN_FLIGHT];
+  int64_t ok_slot[CLUSTER_IN_FLIGHT], ins[CLUSTER_IN_FLIGHT];
+  uint4 v[CLUSTER_IN_FLIGHT];
 #pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+  for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     int i = i0 + u * step;
     ok_slot[u] = i < a.B ? __ldcg(a.slot2 + i) : -1;  // < 0: did not apply
     if (i >= a.B) continue;
@@ -408,7 +248,7 @@ __device__ __forceinline__ void insert_rows(const XferFast& a, int i0, int step,
     }
   }
 #pragma unroll
-  for (int u = 0; u < K3_IN_FLIGHT; u++) {
+  for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     if (ok_slot[u] < 0) continue;
     int i = i0 + u * step;
     reinterpret_cast<uint4*>(a.xfer_rows + (size_t)ins[u] * ROW_WORDS)[g.sub] = v[u];
@@ -420,17 +260,17 @@ __device__ __forceinline__ void insert_rows(const XferFast& a, int i0, int step,
   }
 }
 
-__global__ void __launch_bounds__(K3_THREADS, 1) xfer_commit(XferFast a) {
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) xfer_commit(XferFast a) {
   cg::cluster_group cluster = cg::this_cluster();
   __shared__ XferHdr hdr_own;
-  __shared__ WarpSums warp_sums[K3_THREADS / 32];
+  __shared__ WarpSums warp_sums[CLUSTER_THREADS / 32];
   __shared__ uint32_t proceed_own;
   uint32_t* want = cluster.map_shared_rank(hdr_own.want, 0);
   const int t = (int)cluster.thread_rank();
   const int stride = (int)cluster.num_threads();
   const int lane = threadIdx.x & 31;
   const bool warp_lead = lane == 0;
-  const RowGroup g{lane & 7, lane & ~7, 0xFFu << (lane & ~7)};
+  const RowGroup g = row_group(lane);
   const int group = t >> 3, n_groups = stride >> 3;
   if (threadIdx.x == 0) {
     hdr_own.bad = 0u;
@@ -465,7 +305,7 @@ __global__ void __launch_bounds__(K3_THREADS, 1) xfer_commit(XferFast a) {
     h.ok_n = 0ull;
     h.ts_max = 0ull;
     h.any_ok = 0u;
-    for (int w = 0; w < K3_THREADS / 32; w++) {
+    for (int w = 0; w < CLUSTER_THREADS / 32; w++) {
       h.bad |= warp_sums[w].bad;
       h.ok_n += warp_sums[w].ok_n;
       if (warp_sums[w].ok_n) h.ts_max = max(h.ts_max, warp_sums[w].ts_max);
@@ -498,8 +338,8 @@ __global__ void __launch_bounds__(K3_THREADS, 1) xfer_commit(XferFast a) {
   for (int i = t; i < a.B; i += stride) {
     if (claim_finish_lane(i, a.ok, a.xfer_claim, a.ins_slot, a.claim_sc)) bad |= FAULT_CLAIM;
   }
-  for (int l = group; l < 2 * a.B; l += K3_IN_FLIGHT * n_groups) {
-    bad |= fold_rows(a, l, n_groups, g);
+  for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
+    bad |= fold_rows(a, l, n_groups, g, a.pv_mode != 0);
   }
   bad = __reduce_or_sync(FULL_MASK, bad);
   if (warp_lead && bad) atomicOr(&hdr_own.bad, bad);
@@ -536,11 +376,11 @@ __global__ void __launch_bounds__(K3_THREADS, 1) xfer_commit(XferFast a) {
 
   // (e) apply; no block reads another's shared memory from here on
   const bool proceed = proceed_own != 0u;
-  for (int l = group; l < 2 * a.B; l += K3_IN_FLIGHT * n_groups) {
+  for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
     apply_rows(a, l, n_groups, g, proceed);
   }
   if (proceed) {
-    for (int i = group; i < a.B; i += K3_IN_FLIGHT * n_groups) insert_rows(a, i, n_groups, g);
+    for (int i = group; i < a.B; i += CLUSTER_IN_FLIGHT * n_groups) insert_rows(a, i, n_groups, g);
   }
 }
 
@@ -579,18 +419,7 @@ void xfer_fast_enqueue(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows, int
   a.pv_mode = pv_mode;
   a.results = results;
   xfer_commit_allow_cluster();
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(K3_CLUSTER, 1, 1);
-  cfg.blockDim = dim3(K3_THREADS, 1, 1);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = K3_CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaLaunchKernelEx(&cfg, xfer_commit, a);
+  launch_cluster(xfer_commit, a, stream);
 }
 
 extern "C" int tb_commit_transfers_fast(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,

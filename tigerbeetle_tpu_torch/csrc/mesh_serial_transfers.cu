@@ -31,6 +31,7 @@
 #include "serial_walk.cuh"
 
 struct OwnerShards {
+  static constexpr bool zero_missing = true;  // the psum of owner-masked rows
   int n_shards;
   ull timestamp;
   __device__ int owner(const Key4& k) const { return owner_of(k, n_shards); }
@@ -38,6 +39,7 @@ struct OwnerShards {
     return (int64_t)shard_base(shard, log2);
   }
   __device__ ull ts(int i, int n) const { return timestamp - (ull)n + (ull)i + 1ull; }
+  __device__ ull commit(ull, ull ts) const { return ts; }
 };
 
 extern "C" size_t tb_mesh_commit_transfers_serial_scratch(int B) {

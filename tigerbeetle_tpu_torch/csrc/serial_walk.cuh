@@ -2,11 +2,13 @@
 // warp commits the events in order from a shared-memory ring whose entries
 // prefetch warps resolved ahead of it, with warp-wide probes.
 //
-// The walk is the serial tier's (K11ts, mesh_serial_transfers.cu; the JAX
-// `lax.scan` of parallel/mesh.py `_commit_transfers_serial`): every event
-// validates against the tables as the events before it left them, with an
-// undo log for linked-chain rollback. One thread doing it walks a chain of
-// about twelve dependent device-memory trips an event. Here:
+// The walk is the serial tier's, on one table (K4, serial_transfers.cu; the
+// JAX `lax.scan` of models/ledger.py `_serial_transfers_core`) and on the
+// sharded ledger (K11ts, mesh_serial_transfers.cu; parallel/mesh.py
+// `_commit_transfers_serial`): every event validates against the tables as
+// the events before it left them, with an undo log for linked-chain
+// rollback. One thread doing it walks a chain of about twelve dependent
+// device-memory trips an event. Here:
 //
 // 1. One trip per window. A warp loads a lookup's 64 probe positions at
 //    once (positions j and j + 32 in lane j) and decides with ballots what
@@ -54,10 +56,26 @@
 // The walk is a template over the lookup policy P, which gives the owner
 // shard of a key and the first row of a shard's table (the sharded ledger:
 // the key's owner of n_shards; a single table: shard 0 at row 0), the
-// shard count for the entry gate and the per-shard insert counts, and each
-// event's timestamp:
+// shard count for the entry gate and the per-shard insert counts, each
+// event's timestamp (read once, by the event's prefetch), what commit_ts
+// becomes when an event applies, and what a lookup that finds nothing
+// gives:
 //   int n_shards; int owner(Key4); int64_t base(int shard, int log2);
-//   ull ts(int i, int n).
+//   ull ts(int i, int n); ull commit(ull commit_ts, ull ts);
+//   static constexpr bool zero_missing.
+// With zero_missing (the sharded JAX scan: a psum of owner-masked rows) a
+// missing row and its fulfill word read as zero, so a missing pending's
+// accounts are probed with key 0. Without it (the single-table JAX scan)
+// they are the row and the word at the slot the lookup returned: the first
+// free slot (a tombstone may hold a dead transfer's bytes) or the last probe
+// (another key's row), whose debit and credit keys are then probed. Such an
+// image comes from a transfer slot at or before the lookup's `stop` (the
+// first free position is never after the first empty one), so an insert
+// there or a rollback already makes the walker resolve the entry again; an
+// account slot is watched, found or not, and its newest image forwarded.
+// Codes never read a missing row (the ladders test `found` first), but the
+// probes of its keys decide FAULT_SERIAL, and the walk's stores go to the
+// slots the plain version's do.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -109,6 +127,7 @@ struct __align__(16) WalkEntry {
   // row, and the debit and credit rows after it
   uint32_t out[OUT_N][ROW_WORDS];
   u128 amt, p_amt;
+  ull ts;                            // the event's timestamp
   WalkLook lk[LK_N];
   int64_t fr_slot;                   // the insert target on the id's owner
   int32_t fr_stop, fr_resolved;
@@ -274,23 +293,25 @@ __device__ void walk_fill(WalkEntry* E, const P& pol, const WalkTables& tb,
   WalkWin wp = win_load(tb.xfer, tb.t_log2, pol.base(pol.owner(kp), tb.t_log2), kp, lane);
   WalkLook ldr = win_resolve(wdr, kdr), lcr = win_resolve(wcr, kcr);
   WalkLook lid = win_resolve(wid, kid, E), lp = win_resolve(wp, kp);
-  uint32_t vdr = ldr.found ? tb.acct[(size_t)ldr.slot * ROW_WORDS + lane] : 0u;
-  uint32_t vcr = lcr.found ? tb.acct[(size_t)lcr.slot * ROW_WORDS + lane] : 0u;
-  uint32_t vex = lid.found ? tb.xfer[(size_t)lid.slot * ROW_WORDS + lane] : 0u;
-  uint32_t vp = lp.found ? tb.xfer[(size_t)lp.slot * ROW_WORDS + lane] : 0u;
-  uint32_t pful = lp.found ? tb.fulfill[lp.slot] : 0u;
+  const bool keep = !P::zero_missing;  // a missing lookup's image: its slot's row
+  uint32_t vdr = ldr.found || keep ? tb.acct[(size_t)ldr.slot * ROW_WORDS + lane] : 0u;
+  uint32_t vcr = lcr.found || keep ? tb.acct[(size_t)lcr.slot * ROW_WORDS + lane] : 0u;
+  uint32_t vex = lid.found || keep ? tb.xfer[(size_t)lid.slot * ROW_WORDS + lane] : 0u;
+  uint32_t vp = lp.found || keep ? tb.xfer[(size_t)lp.slot * ROW_WORDS + lane] : 0u;
+  uint32_t pful = lp.found || keep ? tb.fulfill[lp.slot] : 0u;
   E->img[LK_DR][lane] = vdr;
   E->img[LK_CR][lane] = vcr;
   E->img[LK_ID][lane] = vex;
   E->img[LK_P][lane] = vp;
   __syncwarp();
-  // the pending's accounts: key 0 from the zero row when it is missing
+  // the pending's accounts, keyed by its image: with zero_missing, key 0
+  // when it is missing
   Key4 kpdr = key_words(E->img[LK_P] + 4), kpcr = key_words(E->img[LK_P] + 8);
   WalkWin wpdr = win_load(tb.acct, tb.a_log2, pol.base(pol.owner(kpdr), tb.a_log2), kpdr, lane);
   WalkWin wpcr = win_load(tb.acct, tb.a_log2, pol.base(pol.owner(kpcr), tb.a_log2), kpcr, lane);
   WalkLook lpdr = win_resolve(wpdr, kpdr), lpcr = win_resolve(wpcr, kpcr);
-  E->img[LK_PDR][lane] = lpdr.found ? tb.acct[(size_t)lpdr.slot * ROW_WORDS + lane] : 0u;
-  E->img[LK_PCR][lane] = lpcr.found ? tb.acct[(size_t)lpcr.slot * ROW_WORDS + lane] : 0u;
+  E->img[LK_PDR][lane] = lpdr.found || keep ? tb.acct[(size_t)lpdr.slot * ROW_WORDS + lane] : 0u;
+  E->img[LK_PCR][lane] = lpcr.found || keep ? tb.acct[(size_t)lpcr.slot * ROW_WORDS + lane] : 0u;
   if (lane == 0) {
     E->lk[LK_DR] = ldr;
     E->lk[LK_CR] = lcr;
@@ -308,11 +329,11 @@ __device__ void walk_fill(WalkEntry* E, const P& pol, const WalkTables& tb,
 // the rows event i writes if it applies (the same steps as the one-thread
 // walk of the JAX scan, with no chain rung: the walker puts that first).
 template <class P>
-__device__ void walk_speculate(WalkEntry* E, const P& pol, int i, int n) {
+__device__ void walk_speculate(WalkEntry* E, const P& pol) {
   const WalkLook* lk = E->lk;
   Row row = load_row(E->row);
   Xfer e = unpack_transfer(row);
-  ull ts = pol.ts(i, n);
+  const ull ts = E->ts;
   Xfer ea = e;
   ea.ts = ts;
   uint32_t r = transfer_common(e, 0u);
@@ -334,8 +355,9 @@ __device__ void walk_speculate(WalkEntry* E, const P& pol, int i, int n) {
   const int refs[4] = {LK_DR, LK_CR, LK_PDR, LK_PCR};
   bool resolved = true;
   for (int k = 0; k < LK_N; k++) resolved = resolved && lk[k].resolved;
-  for (int k = 0; k < 4; k++) pl.watch[k] = lk[refs[k]].found ? lk[refs[k]].slot : -1;
-  pl.p_slot = lk[LK_P].found ? lk[LK_P].slot : -1;
+  const bool keep = !P::zero_missing;
+  for (int k = 0; k < 4; k++) pl.watch[k] = lk[refs[k]].found || keep ? lk[refs[k]].slot : -1;
+  pl.p_slot = lk[LK_P].found || keep ? lk[LK_P].slot : -1;
   pl.t_slot = E->fr_slot;
   pl.r_body = r;
   pl.kind = is_pv ? (is_post ? 3 : 4) : (is_pending ? 2 : 1);
@@ -381,8 +403,9 @@ __device__ void walk_prefetch(WalkShared& sh, const P& pol, const WalkTables& tb
     __syncwarp();
     seq = __shfl_sync(WALK_FULL, seq, 0);
     WalkEntry* E = &sh.ring[slot];
+    if (lane == 0) E->ts = pol.ts(j, n);
     walk_fill(E, pol, tb, batch + (size_t)j * ROW_WORDS, seq, lane);
-    if (lane == 0) walk_speculate(E, pol, j, n);
+    if (lane == 0) walk_speculate(E, pol);
     __syncwarp();
     if (lane == 0) st_release(&sh.ready[slot], j);
   }
@@ -451,7 +474,7 @@ __device__ void walk_event(WalkShared& sh, const WalkEntry* E, const P& pol,
       walk_record(sh, head, REC_ACCT, sides[side], 0u, lane);
     }
     if (lane == 0) {
-      sh.cts = pol.ts(i, n);
+      sh.cts = pol.commit(sh.cts, E->ts);
       u.kind[i] = pl.kind;
       u.dr_slot[i] = sides[0];
       u.cr_slot[i] = sides[1];
@@ -568,7 +591,7 @@ __device__ void walk_commit(WalkShared& sh, const P& pol, const WalkTables& tb,
     }
     __syncwarp();
     if (changed) {
-      if (lane == 0) walk_speculate(E, pol, i, n);
+      if (lane == 0) walk_speculate(E, pol);
       __syncwarp();
     }
     walk_event(sh, E, pol, tb, i, n, results, u, chain, head, lane);

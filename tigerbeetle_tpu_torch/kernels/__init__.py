@@ -278,7 +278,8 @@ def commit_transfers_fast(state, rows_b, mask, n: int, timestamp: int,
 
 def commit_transfers_serial(state, rows_b, ts_vec, n: int, a_log2: int, t_log2: int):
     """K4: commit `rows_b` event by event with explicit timestamps `ts_vec`
-    (u64 as int64) into `state` in place; returns int32 codes."""
+    (u64 as int64) into `state` in place (one block: a walker warp and the
+    prefetch warps of its lookahead ring); returns int32 codes."""
     B = _check_batch(rows_b, n)
     _check_rows(state["acct_rows"], "acct_rows", a_log2)
     _check_rows(state["xfer_rows"], "xfer_rows", t_log2)
@@ -574,7 +575,7 @@ def mesh_commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: i
 def mesh_commit_transfers_fast(state, rows_b, n: int, timestamp: int, a_log2: int,
                                t_log2: int):
     """K11 fast transfer commit of `rows_b` into the sharded `state` in
-    place; returns int32 codes."""
+    place (one launch of one thread-block cluster); returns int32 codes."""
     B = _check_batch(rows_b, n)
     S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
     if _mesh_table(state["xfer_rows"], "xfer_rows", t_log2) != S \

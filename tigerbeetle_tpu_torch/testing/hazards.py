@@ -21,12 +21,26 @@ one of those, among plain transfers that keep the lookahead busy:
   under balancing credits;
 - `shared_window`: transfer ids crafted with the port's `hash_key4` to
   share a first probe position on one owner shard, inserted one after
-  another, and a pending in that window posted after another insert there.
+  another, and a pending in that window posted after another insert there;
+- `missing_tomb`: a post and a void of a missing pending whose lookup ends
+  on a tombstone that a rollback left just before them in the request (an
+  id of the broken chain shares the pending's first probe position);
+- `missing_full`: a post and a void of a missing pending whose 64-slot
+  window has no empty slot left: 64 inserts fill it first, so the lookup
+  does not resolve and its last probe is another transfer's row.
+
+The last two aim at what a lookup that finds nothing gives. The single-table
+scan reads the row at the slot it returned (a tombstone, another key's row)
+and probes the pending's accounts with that row's keys; the sharded scan
+reads zeros. With `fill_tomb_window` applied to the single table's accounts,
+the tombstone's keys do not resolve there, so `missing_tomb` sets
+FAULT_SERIAL on the single table and not on the sharded ledger;
+`missing_full` sets it on both (the pending's own probe).
 
 `hazard_accounts()` are the accounts every request assumes (ledger 1).
 The requests are made in plain Python and numpy from the caller's generator;
 the tests hold the plain versions against the JAX package on them, and
-`chip_smoke.py` holds the kernel against its plain version on them.
+`chip_smoke.py` holds the kernels against their plain versions on them.
 """
 
 from __future__ import annotations
@@ -38,7 +52,7 @@ from tigerbeetle_tpu_torch.ops import hashtable as ht
 from tigerbeetle_tpu_torch.types import Account, AccountFlags, Transfer, TransferFlags
 
 CASES = ("chain_break_reuse", "duplicate_id", "pending_post", "post_and_void",
-         "hot_account", "shared_window")
+         "hot_account", "shared_window", "missing_tomb", "missing_full")
 N_ACCOUNTS = 32
 HOT_DR = 1  # debits_must_not_exceed_credits
 HOT_CR = 2  # credits_must_not_exceed_debits
@@ -103,10 +117,7 @@ def shared_window_ids(t_log2: int, n_shards: int, k: int, start: int) -> list[in
 
     span = 1 << 18
     ids = np.arange(start, start + span, dtype=np.uint64)
-    key4 = np.zeros((span, 4), dtype=np.uint32)
-    key4[:, 0] = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    key4[:, 1] = (ids >> np.uint64(32)).astype(np.uint32)
-    base = ht.hash_key4(torch.from_numpy(key4.view(np.int32)), t_log2).numpy()
+    base = ht.hash_key4(_key4(ids), t_log2).numpy()
     owner = (owner_of_ids_np(ids, np.zeros(span, dtype=np.uint64), n_shards)
              if n_shards > 1 else np.zeros(span, dtype=np.int64))
     group = owner * (1 << t_log2) + base
@@ -118,10 +129,53 @@ def shared_window_ids(t_log2: int, n_shards: int, k: int, start: int) -> list[in
     return [int(ids[i]) for i in hits]
 
 
+def _key4(ids) -> torch.Tensor:
+    ids = np.asarray(ids, dtype=np.uint64)
+    key4 = np.zeros((len(ids), 4), dtype=np.uint32)
+    key4[:, 0] = (ids & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    key4[:, 1] = (ids >> np.uint64(32)).astype(np.uint32)
+    return torch.from_numpy(key4.view(np.int32))
+
+
+def window_fill_ids(t_log2: int, n_shards: int, key_id: int, start: int) -> list[int]:
+    """For each of the 64 probe positions of transfer id `key_id` on its
+    owner shard, in probe order, the first id from `start` up on that shard
+    whose first probe is that position: inserted in this order into a table
+    where those positions are free, each lands on its own."""
+    from tigerbeetle_tpu_torch.parallel.mesh import owner_of_ids_np
+
+    def owner(ids):
+        ids = np.asarray(ids, dtype=np.uint64)
+        return (owner_of_ids_np(ids, np.zeros(len(ids), dtype=np.uint64), n_shards)
+                if n_shards > 1 else np.zeros(len(ids), dtype=np.int64))
+
+    pos = ht.probe_positions(_key4([key_id]), t_log2, ht.WINDOW_SCALAR)[0].numpy()
+    span = 1 << 22
+    ids = np.arange(start, start + span, dtype=np.uint64)
+    base = ht.hash_key4(_key4(ids), t_log2).numpy()
+    mine = owner(ids) == owner([key_id])[0]
+    first = {}
+    for i in np.nonzero(mine & np.isin(base, pos))[0]:
+        first.setdefault(int(base[i]), int(ids[i]))
+    if len(first) < len(pos):
+        raise ValueError(f"ids from {start} miss {len(pos) - len(first)} of {key_id}'s window")
+    return [first[int(p)] for p in pos]
+
+
+def fill_tomb_window(acct_rows: np.ndarray, a_log2: int, rng) -> None:
+    """In place: the empty rows of a single account table (int32 [2^a_log2
+    + 1, 32]) at the 64 probe positions of the all-ones (tombstone) key get
+    random words, so a probe of that key does not resolve."""
+    tomb = torch.full((1, 4), -1, dtype=torch.int32)
+    pos = ht.probe_positions(tomb, a_log2, ht.WINDOW_SCALAR)[0].numpy()
+    empty = pos[(acct_rows[pos, :4] == 0).all(1)]
+    acct_rows[empty] = rng.integers(1, 1 << 31, (len(empty), 32)).astype(np.int32)
+
+
 def hazard_request(case: str, rng, t_log2: int, n_shards: int,
                    first_id: int = 1_000_000) -> list[Transfer]:
     """The request of `case` (one of CASES): 29-45 transfers over
-    hazard_accounts(), ids from `first_id` up."""
+    hazard_accounts() (`missing_full`: 76), ids from `first_id` up."""
     q = _Request(rng, first_id)
     if case == "chain_break_reuse":
         q.plain(4)
@@ -201,6 +255,25 @@ def hazard_request(case: str, rng, t_log2: int, n_shards: int,
         q.add(id=e, pending_id=c, amount=30, ledger=0, code=0, flags=_POST)
         q.plain(id_=b)  # exists
         q.plain(20)
+    elif case == "missing_tomb":
+        x, p = shared_window_ids(t_log2, n_shards, 2, first_id + 20_000)
+        q.plain(3)
+        q.plain(id_=x, flags=_LINKED)  # lands on p's first probe position
+        q.plain(flags=_LINKED)
+        q.plain(amount=0)  # the chain breaks: x's slot becomes a tombstone
+        q.resolve(p, post=True)  # pending_transfer_not_found, its lookup on the tombstone
+        q.plain(2)
+        q.resolve(p, post=False)
+        q.plain(25)
+    elif case == "missing_full":
+        p = q.fresh()
+        q.plain(3)
+        for f in window_fill_ids(t_log2, n_shards, p, first_id + 30_000):
+            q.plain(id_=f)
+        q.resolve(p, post=True)  # its window is full: the lookup does not resolve
+        q.plain(2)
+        q.resolve(p, post=False)
+        q.plain(5)
     else:
         raise ValueError(f"unknown hazard case {case!r}")
     return q.events
