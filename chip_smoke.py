@@ -8,7 +8,9 @@ Phases (each failure exits non-zero):
    machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
    the native engine from `native/ledger.cc`; the card's dependent-load
    latency from device memory and from shared memory (pointer chases), the
-   units of the serial kernels' bounds;
+   units of the serial kernels' bounds, and the rate at which it reads
+   chosen 32-byte sectors of 2^24 rows of 128 bytes (the sector probe), the
+   unit of the scans' (K8, K10);
 2. every kernel against its plain PyTorch version on the card, at a reduced
    table geometry (2^14 account / 2^16 transfer slots): result codes and
    every state tensor must be bit-identical, on batches that exercise every
@@ -20,7 +22,11 @@ Phases (each failure exits non-zero):
    lane, 8192 lanes holding 8190 events and a wave mask; the serial K4 also
    on every hazard request of tigerbeetle_tpu_torch/testing/hazards.py on
    one table, missing pendings read from a tombstone and from a full window
-   included); the reply-code fold (K7) on padding
+   included); the one-launch install (K9) of a whole table on the restores
+   of tigerbeetle_tpu_torch/testing/install_cases.py (rows sharing a probe
+   window, some losing all four claim rounds; a partial last chunk; a chunk
+   whose free slots the one before filled; tombstones reused) in chunks of
+   64 and of 8192; the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot;
 3. the main path at deployment size: StateMachine over
@@ -33,20 +39,22 @@ Phases (each failure exits non-zero):
    requests give, the reply bytes of the two-phase and linked requests
    equal the port's own plain versions on the CPU; the state fingerprint
    equals its plain version and fp_rows_np over the host rows; a second
-   ledger rebuilt by install_snapshot_rows from the live rows fingerprints
-   and looks up the same, also after one more group on both; every kernel
-   ran;
+   ledger rebuilt by install_snapshot_rows from the live rows (one K9 call a
+   table; the upload, install and host rebuild legs are printed)
+   fingerprints and looks up the same, also after one more group on both;
+   every kernel ran;
 4. every kernel against its plain version on copies of the main path's
    state, on batches of the shapes the main path gives it (codes and every
    state leaf equal); the kernel table's max_abs_err comes from here;
    the fold (K7) on the results of a real group (16 x 8192) and of a real
-   request (8190);
+   request (8190); K9 also on three chunks of 8192 in one call;
 5. a torch.profiler trace of more main-path requests (the card's busy and
    idle share; one K3 kernel and no memset a request) and a cProfile of the
    host's share;
 6. each kernel timed on the main path's state at its main-path shape,
    beside its plain version and its bound (the serial K4 also on a request
-   of 8190 events: linked chains, then posts and voids);
+   of 8190 events: linked chains, then posts and voids; K9 on one chunk and
+   on phase 3's restore, 133 chunks of 8192 in one call);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -69,7 +77,13 @@ Phases (each failure exits non-zero):
    raise QUERY_LIMIT; out-of-range values and unindexed fields must raise;
    the filter scan (K8) against its plain version on six fields of both
    tables (half-word, one, two and four words) at 2^20 / 2^24 slots, and
-   timed there;
+   timed there; K8 also on the tables of
+   tigerbeetle_tpu_torch/testing/scan_cases.py at 2^24 slots (matches at
+   tile edges, in the last slot before the dump row, only in the last tile,
+   exactly QUERY_LIMIT and one more, dead rows and the dump row carrying
+   the value, none); in a process of its own under torch.profiler, each K8
+   call must be one kernel and a table's K9 install one, with no memset,
+   and both are timed through their wrappers and on the card alone;
 9. the bounded-memory ledger: StateMachine over DeviceLedger(2^20 account /
    2^20 transfer slots, forest=Forest(Grid(MemoryStorage), memtable_max=
    8192)) on cuda with the threaded IO worker: 10,000 accounts and 128
@@ -976,6 +990,8 @@ def phase_snapshot(torch, L, SM, types, constants, dev, sm):
     ledger rebuilt by install_snapshot_rows (K9) from the first one's live
     rows must fingerprint and look up the same; one more group committed on
     both must leave them equal."""
+    from tigerbeetle_tpu_torch import kernels as K
+
     Op = types.Operation
     ledger = sm.backend
     fp = ledger.fingerprint()
@@ -995,14 +1011,21 @@ def phase_snapshot(torch, L, SM, types, constants, dev, sm):
     accounts = np.frombuffer(acct.tobytes(), dtype=types.ACCOUNT_DTYPE)
     transfers_np = np.frombuffer(xfer.tobytes(), dtype=types.TRANSFER_DTYPE)
     torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    legs = {}
     t0 = time.perf_counter()
-    second.install_snapshot_rows(accounts, transfers_np, ful, ledger.commit_timestamp)
+    second.install_snapshot_rows(accounts, transfers_np, ful, ledger.commit_timestamp, legs=legs)
     torch.cuda.synchronize()
     install_s = time.perf_counter() - t0
+    n_install = K.LAUNCHES["install_rows"] - launches["install_rows"]
     second.check_fault()
     fp2 = second.fingerprint()
     log(f"  install_snapshot_rows: {len(accounts)} accounts and {len(transfers_np)} transfers "
-        f"({int((ful != 0).sum())} posted or voided) in {install_s:.4f} s")
+        f"({int((ful != 0).sum())} posted or voided) in {install_s:.4f} s: upload "
+        f"{legs['upload']:.4f} s, install {legs['install']:.4f} s ({n_install} K9 calls), "
+        f"host rebuild {legs['rebuild']:.4f} s")
+    if n_install != 2:
+        fail(f"the restore made {n_install} K9 calls, one a table expected")
     if fp2 != fp:
         fail(f"the installed ledger's fingerprint {fp2} differs from the source's {fp}")
     ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
@@ -1208,6 +1231,16 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     check("K9 install_rows (8192 rows)",
           lambda s: K.install_rows(s, "xfer", i_rows, i_ful, 8192, t_log2),
           lambda s: L.install_rows_plain(s, "xfer", i_rows, i_ful, 8192, t_log2))
+    dr, cr = random_pairs(rng, 3 * 8192 - 77, N_ACCOUNTS)
+    arr = transfers(types, np.arange(7_700_000_001, 7_700_000_001 + len(dr)), dr, cr,
+                    rng.integers(1, 1_000_000, len(dr)).astype(np.uint64))
+    arr["timestamp"] = ts + 8192 + np.arange(1, len(dr) + 1, dtype=np.uint64)
+    c_rows = L.transfers_to_batch(arr, dev)["rows"]
+    c_ful = torch.from_numpy(rng.integers(0, 3, len(dr)).astype(np.int32)).to(dev)
+    check(f"K9 install_rows chunked ({len(dr)} rows in chunks of {INSTALL_CHUNK})",
+          lambda s: K.install_rows_chunked(s, "xfer", c_rows, c_ful, t_log2, INSTALL_CHUNK),
+          lambda s: L.install_rows_chunked_plain(s, "xfer", c_rows, c_ful, t_log2,
+                                                 INSTALL_CHUNK))
     if int(sk["fault"]) != 0:
         fail(f"the main-shape checks faulted: {int(sk['fault'])}")
     del sk, sp
@@ -1558,7 +1591,8 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     log(f"  K6 reads {slots} key sectors and {fp[2] + fp[3]} live rows; the whole tables "
         f"({slots * 128} bytes) would take {slots * 128 / H100_BYTES_PER_S * 1e3:.6f} ms")
 
-    # K9: consecutive 8192-row chunks into a fresh table, as a restore runs
+    # K9: consecutive 8192-row chunks into a fresh table (one chunk a call),
+    # then the restore's shape, RESTORE_CHUNKS chunks in one call
     fresh = L.init_state(ledger.process, dev)
     chunks = []
     for _ in range(13):
@@ -1574,10 +1608,45 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     it = iter(chunks)
     kt = timed(torch, lambda: K.install_rows(fresh, "xfer", *next(it), 8192, t_log2), 10)
     pt = timed(torch, lambda: L.install_rows_plain(fresh, "xfer", *next(it), 8192, t_log2), 3)
-    out["K9"] = (kt, pt, *bound(nbytes))
+    b = bound(nbytes)
+    log(f"  K9 one chunk of 8192: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
+        f"plain {pt[0]:.4f} ms, bound {b[0]:.6f} ms ({b[1]})")
     if int(fresh["fault"]):
         fail(f"the timed installs faulted: {int(fresh['fault'])}")
-    del fresh, chunks
+    del chunks
+    n_rows = RESTORE_CHUNKS * INSTALL_CHUNK - 100
+    ids = np.arange(next_id[0], next_id[0] + n_rows)
+    next_id[0] += n_rows
+    dr, cr = random_pairs(rng, n_rows, N_ACCOUNTS)
+    t = transfers(types, ids, dr, cr, rng.integers(1, 1000, n_rows).astype(np.uint64))
+    r_rows = L.transfers_to_batch(t, dev)["rows"]
+    r_ful = torch.from_numpy(rng.integers(0, 3, n_rows).astype(np.int32)).to(dev)
+    del t
+
+    def timed_restore(fn, reps, on_card=False):
+        ts = []
+        for _ in range(reps):
+            for k in ("xfer_rows", "fulfill", "xfer_count", "xfer_used_slots", "fault"):
+                fresh[k].zero_()
+            ts.append(timed(torch, lambda: fn(fresh, "xfer", r_rows, r_ful, t_log2,
+                                              INSTALL_CHUNK), 1, on_card)[0])
+        return tuple(float(x) for x in np.percentile(ts, [50, 25, 75]))
+
+    timed_restore(K.install_rows_chunked, 1)  # warm
+    kt = timed_restore(K.install_rows_chunked, 10)
+    kc = timed_restore(K.install_rows_chunked, 10, on_card=True)
+    if int(fresh["fault"]) or int(fresh["xfer_count"]) != n_rows:
+        fail(f"the timed restores faulted ({int(fresh['fault'])}) or placed "
+             f"{int(fresh['xfer_count'])} of {n_rows} rows")
+    pt = timed_restore(L.install_rows_chunked_plain, 2)
+    # each row read and written with its fulfill word, and at least one
+    # probe sector and claim word a row
+    out["K9"] = (kt, pt, *bound(n_rows * (2 * (128 + 4) + SECTOR + 4)))
+    log(f"  K9 a table of {n_rows} rows in {RESTORE_CHUNKS} chunks of {INSTALL_CHUNK} (phase 3's "
+        f"restore): kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}] through its "
+        f"wrapper, {kc[0]:.4f} ms on the card alone, plain {pt[0]:.4f} ms, bound "
+        f"{out['K9'][2]:.6f} ms; {kt[0] / RESTORE_CHUNKS:.4f} ms a chunk")
+    del fresh, r_rows, r_ful
     torch.cuda.empty_cache()
 
     # K7: the follower's fused fold over a group of 16 requests of 8190
@@ -1896,12 +1965,13 @@ def same_rows(a, b) -> bool:
     return [dataclasses.asdict(x) for x in a] == [dataclasses.asdict(x) for x in b]
 
 
-def phase_queries(torch, L, types, ledger, bodies, dev, card):
+def phase_queries(torch, L, types, ledger, bodies, dev, card, sector_ms):
     """query_transfers / query_accounts on the main path's ledger (2^20 /
     2^24 slots) against the script's own record of what it sent; the
     QUERY_LIMIT and argument errors; K8 bit-identical to its plain version
-    on four field shapes of both tables. Returns (launches, {check:
-    max_abs_err}, the K8 timing row)."""
+    on four field shapes of both tables; K8's times beside its bound and
+    the sector probe's floor (`sector_ms`, phase 1). Returns (launches,
+    {check: max_abs_err}, the K8 timing row)."""
     from tigerbeetle_tpu_torch import kernels as K
 
     rng = np.random.default_rng(SEED + 9)
@@ -1981,18 +2051,317 @@ def phase_queries(torch, L, types, ledger, bodies, dev, card):
     rows = st["xfer_rows"]
     slots = rows.shape[0] - 1
     out = {}
-    for field, sectors in (("debit_account_id", 1), ("code", 2)):
+    for field, sectors, mask in (("debit_account_id", 1, 1), ("code", 2, 5)):
         spec = L.TRANSFER_QUERY_WORDS[field]
         vw = [chosen[0] if field == "debit_account_id" else 1, 0, 0, 0]
         kt = timed(torch, lambda: K.filter_scan(rows, t_log2, spec, vw), 20)
+        kc = timed(torch, lambda: K.filter_scan(rows, t_log2, spec, vw), 20, on_card=True)
         pt = timed(torch, lambda: L.filter_scan_plain(rows, spec, vw), 3)
         nbytes = slots * sectors * SECTOR + L.QUERY_LIMIT * 128 + 4
         out[field] = (kt, pt, nbytes / H100_BYTES_PER_S * 1e3, "bytes")
         log(f"  K8 ({field}, 2^{t_log2} slots): kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, "
-            f"p75 {kt[2]:.4f}], plain {pt[0]:.4f} ms, bound {out[field][2]:.6f} ms "
-            f"({nbytes} bytes) [{card}]")
+            f"p75 {kt[2]:.4f}] through its wrapper, {kc[0]:.4f} ms on the card alone, plain "
+            f"{pt[0]:.4f} ms, bound {out[field][2]:.6f} ms ({nbytes} bytes); the sector probe "
+            f"reads the same sectors of 2^24 rows in {sector_ms[mask]:.4f} ms [{card}]")
     torch.cuda.empty_cache()
     return launches, errs, out["debit_account_id"]
+
+
+# ----------------------------------------------------------------------
+# K8 and K9 at their edges (testing/scan_cases.py, testing/install_cases.py),
+# their device launches from a trace and their times, in a process of its
+# own (also run by scan_install_split.py on another checkout)
+# ----------------------------------------------------------------------
+
+RESTORE_CHUNKS = 133  # phase 3's restore: about 1.09 M transfer rows in chunks of 8192
+INSTALL_CHUNK = 8192
+
+
+def sector_rates(torch, K, dev, card) -> dict:
+    """The card's rate for chosen 32-byte sectors of 2^24 rows of 128 bytes
+    (csrc/chase.cu's sector probe, 16 bytes loaded a sector): {mask: ms},
+    medians of 10 CUDA-event-timed calls."""
+    rows = torch.empty((1 << 24, 32), dtype=torch.int32, device=dev).random_()
+    out = {}
+    for mask in K.SECTOR_MASKS:
+        K.sector_probe(rows, mask)
+        t = timed(torch, lambda: K.sector_probe(rows, mask), 10)
+        out[mask] = t[0]
+        sectors = bin(mask).count("1")
+        log(f"  sector probe, sectors {[s for s in range(4) if mask >> s & 1]} of each of 2^24 "
+            f"rows of 128 bytes: {t[0]:.4f} ms [p25 {t[1]:.4f}, p75 {t[2]:.4f}], "
+            f"{sectors * 32 * (1 << 24) / t[0] / 1e6:.0f} GB/s of those sectors [{card}]")
+    log(f"  against one sector a row: two in one 64-byte half x{out[3] / out[1]:.2f}, one in "
+        f"each half x{out[5] / out[1]:.2f}, the whole row x{out[15] / out[1]:.2f} [{card}]")
+    del rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def k8_cases(torch, L, K, dev, errs, log2=24):
+    """K8 against its plain version on the tables of testing/scan_cases.py
+    at 2^log2 slots, one case a field shape in turn."""
+    from tigerbeetle_tpu_torch.testing import scan_cases as SC
+
+    for i, case in enumerate(SC.CASES):
+        table, field = SC.FIELDS[i % len(SC.FIELDS)]
+        spec = (L.ACCOUNT_QUERY_WORDS if table == "acct" else L.TRANSFER_QUERY_WORDS)[field]
+        rng = np.random.default_rng(SEED + 40 + i)
+        width = 16 if spec[2] else 32 * spec[1]
+        value = int(rng.integers(1, 1 << min(width, 62))) | (1 << (width - 1))
+        vw = [(value >> (32 * k)) & 0xFFFFFFFF for k in range(4)]
+        rows_np = SC.scan_case(case, log2, spec, vw, rng)
+        want = SC.expected_total(rows_np, spec, vw)
+        rows = torch.from_numpy(rows_np.view(np.int32)).to(dev)
+        del rows_np
+        k_rows, k_total = K.filter_scan(rows, log2, spec, vw)
+        torch.cuda.synchronize()
+        p_rows, p_total = L.filter_scan_plain(rows, spec, vw)
+        err = max(max_abs_diff(k_rows, p_rows), max_abs_diff(k_total, p_total))
+        name = (f"K8 filter_scan (case {case}, {table}.{field}, 2^{log2} slots; "
+                f"{int(p_total)} matches)")
+        errs[name] = err
+        log(f"  {name}: max_abs_err={err}")
+        if err or int(p_total) != want:
+            fail(f"{name} differs from its plain version or from the case's {want} matches")
+        del rows, k_rows, p_rows
+    torch.cuda.empty_cache()
+
+
+def k9_cases(torch, L, K, constants, dev):
+    """K9's one-launch table install against its plain version (chunk by
+    chunk) on the restores of testing/install_cases.py: chunks of 64 on the
+    test geometry's tables, chunks of 8192 on 2^17 transfer slots."""
+    from tigerbeetle_tpu_torch.testing import install_cases as IC
+
+    for chunk, table, log2 in ((64, "xfer", 12), (64, "acct", 10), (INSTALL_CHUNK, "xfer", 17)):
+        process = constants.ConfigProcess(account_slots_log2=log2 if table == "acct" else 10,
+                                          transfer_slots_log2=log2 if table == "xfer" else 12)
+        for i, case in enumerate(IC.CASES):
+            c = IC.install_case(case, log2, chunk, table, np.random.default_rng(SEED + 50 + i))
+            start = L.init_state(process, dev)
+            start[f"{table}_rows"].copy_(torch.from_numpy(c["base"].view(np.int32)))
+            rows = torch.from_numpy(c["rows"].view(np.int32)).to(dev)
+            ful = None if c["ful"] is None else torch.from_numpy(c["ful"].view(np.int32)).to(dev)
+            name = (f"K9 install_rows chunked (case {case}, {len(c['rows'])} {table} rows in "
+                    f"chunks of {chunk}, 2^{log2} slots)")
+            _, sp = hold(torch, name, start,
+                         lambda s: K.install_rows_chunked(s, table, rows, ful, log2, chunk),
+                         lambda s: L.install_rows_chunked_plain(s, table, rows, ful, log2, chunk))
+            if (int(sp["fault"]) == L.FAULT_INSTALL) != c["fault"]:
+                fail(f"{name}: fault word {int(sp['fault'])}, the case expects a fault: "
+                     f"{c['fault']}")
+
+
+def _trace_ranges(path) -> tuple:
+    """({annotation: {kernel or memset name: count}}, {annotation: {name:
+    summed device us}}) of a chrome trace: each device event under the user
+    annotation around the host call that launched it (matched by
+    correlation id)."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    launch_ts = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime":
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launch_ts[corr] = e["ts"]
+    counts = {name: {} for _a, _b, name in ranges}
+    us = {name: {} for _a, _b, name in ranges}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memset"):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        for a, b, name in ranges:
+            if ts is not None and a <= ts <= b:
+                key = ("memset: " if e["cat"] == "gpu_memset" else "") + e["name"]
+                counts[name][key] = counts[name].get(key, 0) + 1
+                us[name][key] = us[name].get(key, 0.0) + float(e["dur"])
+    return counts, us
+
+
+def k8_k9_child(reps=20):
+    """In a process of its own: K8 on a 2^24 transfer table with about phase
+    3's 1.2 M live rows (debit_account_id of one account, about 120
+    matches; code 1, all of them) and K9 restoring RESTORE_CHUNKS chunks of
+    8192 transfer rows into a fresh 2^24 table, through whatever wrappers
+    the checkout on sys.path has (one call a table where it has
+    `install_rows_chunked`, else one call a chunk, as its restore does):
+    CUDA-event times through the wrapper and on the card alone, the
+    wrappers' host time, and the device launches of each call under
+    torch.profiler. Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models import ledger as L
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    log2 = 24
+    n = 1 << log2
+
+    def words(*shape):
+        return torch.randint(0, 1 << 32, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    rows = torch.zeros((n + 1, 32), dtype=torch.int32, device=dev)
+    u = torch.rand(n, generator=g, device=dev)
+    live = (u < 0.072).nonzero().squeeze(1)
+    m = live.numel()
+    body = words(m, 32)
+    body[:, 3] &= 0x7FFFFFFF
+    body[:, 4] = torch.randint(1, N_ACCOUNTS + 1, (m,), generator=g, device=dev,
+                               dtype=torch.int32)
+    body[:, 8] = torch.randint(1, N_ACCOUNTS + 1, (m,), generator=g, device=dev,
+                               dtype=torch.int32)
+    body[:, 5:8] = 0
+    body[:, 9:12] = 0
+    body[:, 28] = 2
+    body[:, 29] = 1
+    rows[live] = body
+    rows[((u >= 0.072) & (u < 0.082)).nonzero().squeeze(1), :4] = -1  # tombstones
+    del body, u
+    queries = {"debit": ((4, 4, False), [17, 0, 0, 0]), "code": ((29, 1, True), [1, 0, 0, 0])}
+
+    n_rows = RESTORE_CHUNKS * INSTALL_CHUNK - 100
+    img = words(n_rows, 32)
+    img[:, 3] &= 0x7FFFFFFF
+    ful = torch.randint(0, 3, (n_rows,), generator=g, device=dev, dtype=torch.int32)
+    st = L.init_state(constants.ConfigProcess(account_slots_log2=10, transfer_slots_log2=log2),
+                      dev)
+    chunked = getattr(K, "install_rows_chunked", None)
+
+    def reset():
+        for k in ("xfer_rows", "fulfill", "xfer_count", "xfer_used_slots", "fault"):
+            st[k].zero_()
+
+    def restore():
+        if chunked is not None:
+            chunked(st, "xfer", img, ful, log2, INSTALL_CHUNK)
+            return
+        for i in range(0, n_rows, INSTALL_CHUNK):
+            part = img[i:i + INSTALL_CHUNK]
+            K.install_rows(st, "xfer", part, ful[i:i + INSTALL_CHUNK], part.shape[0], log2)
+
+    chunk_at = [0]
+
+    def one_chunk():  # consecutive chunks into the table, as a restore runs
+        i = chunk_at[0] % RESTORE_CHUNKS * INSTALL_CHUNK
+        chunk_at[0] += 1
+        part = img[i:i + INSTALL_CHUNK]
+        K.install_rows(st, "xfer", part, ful[i:i + INSTALL_CHUNK], part.shape[0], log2)
+
+    def host_ms(fn, k, before=None):
+        """Median host time of fn's call (enqueue only: the card is kept
+        busy meanwhile), after `before` each time."""
+        ts = []
+        for _ in range(k):
+            if before is not None:
+                before()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1 << 26)
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return float(np.median(ts))
+
+    def restore_ms(on_card):
+        ts = []
+        for _ in range(5):
+            reset()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if on_card:
+                torch.cuda._sleep(1 << 26)
+            start.record()
+            restore()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        if int(st["fault"]) or int(st["xfer_count"]) != n_rows:
+            fail(f"the restore faulted ({int(st['fault'])}) or placed {int(st['xfer_count'])} "
+                 f"of {n_rows} rows")
+        return float(np.median(ts))
+
+    # warm, then the trace (early in this process)
+    for spec, vw in queries.values():
+        K.filter_scan(rows, log2, spec, vw)
+    reset()
+    restore()
+    reset()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, (spec, vw) in queries.items():
+            for k in range(3):
+                with record_function(f"k8_{name}_{k}"):
+                    K.filter_scan(rows, log2, spec, vw)
+        with record_function("k9_restore"):
+            restore()
+        torch.cuda.synchronize()
+    calls = {k: v for k, v in K.LAUNCHES.items() if v}
+    out_dir = os.path.join(os.getcwd(), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "k8_k9.json")
+    prof.export_chrome_trace(path)
+    trace, split_us = _trace_ranges(path)
+    out = {"calls": calls, "chunked": chunked is not None, "restore_rows": n_rows,
+           "trace": trace, "split_us": split_us}
+    for name, (spec, vw) in queries.items():
+        fn = lambda: K.filter_scan(rows, log2, spec, vw)  # noqa: E731
+        out[f"k8_{name}_ms"] = timed(torch, fn, reps)[0]
+        out[f"k8_{name}_card_ms"] = timed(torch, fn, reps, on_card=True)[0]
+        out[f"k8_{name}_host_ms"] = host_ms(fn, reps)
+        out[f"k8_{name}_total"] = int(fn()[1])
+    out["k9_restore_ms"] = restore_ms(False)
+    out["k9_restore_card_ms"] = restore_ms(True)
+    reset()
+    out["k9_restore_host_ms"] = host_ms(restore, 5, before=reset)
+    reset()
+    out["k9_chunk_ms"] = timed(torch, one_chunk, reps)[0]
+    reset()
+    out["k9_chunk_card_ms"] = timed(torch, one_chunk, reps, on_card=True)[0]
+    reset()
+    out["k9_chunk_host_ms"] = host_ms(one_chunk, reps)
+    out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+
+
+def k8_k9_trace(card) -> dict:
+    """k8_k9_child in a process of its own (late in this one a profiler
+    session recorded no kernels): each K8 call must be one kernel on the
+    card and each table install one, with no memset. Returns its JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.k8_k9_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced K8 and K9 calls failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, kernels in sorted(got["trace"].items()):
+        log(f"  trace {name}: {kernels}; device us {got['split_us'][name]}")
+    for name in ("debit", "code"):
+        log(f"  K8 ({name}, 2^24 slots, {got[f'k8_{name}_total']} matches): "
+            f"{got[f'k8_{name}_ms']:.4f} ms through its wrapper, {got[f'k8_{name}_card_ms']:.4f} "
+            f"on the card alone, the wrapper's host time {got[f'k8_{name}_host_ms']:.4f} [{card}]")
+    log(f"  K9 restore of {got['restore_rows']} rows ({RESTORE_CHUNKS} chunks of "
+        f"{INSTALL_CHUNK}) into a fresh 2^24 table: {got['k9_restore_ms']:.4f} ms through the "
+        f"wrapper, {got['k9_restore_card_ms']:.4f} on the card alone, host "
+        f"{got['k9_restore_host_ms']:.4f}; one chunk {got['k9_chunk_ms']:.4f} / "
+        f"{got['k9_chunk_card_ms']:.4f} / host {got['k9_chunk_host_ms']:.4f} [{card}]")
+    for name, kernels in got["trace"].items():
+        n_k = sum(v for k, v in kernels.items() if not k.startswith("memset"))
+        if any(k.startswith("memset") for k in kernels) or n_k != 1:
+            fail(f"{name}: {kernels}; one kernel and no memset expected")
+    return got
 
 
 # ----------------------------------------------------------------------
@@ -3147,10 +3516,12 @@ def main() -> int:
     smem_ns = shared_latency_ns(torch, K, dev)
     log(f"  dependent-load latency: {hbm_ns:.1f} ns over 1 GiB, {l2_ns:.1f} ns over 8 MiB, "
         f"{smem_ns:.2f} ns in shared memory [{card}]")
+    sector_ms = sector_rates(torch, K, dev, card)
 
     log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
     phase_seam_kernels(torch, L, types, constants, dev)
+    k9_cases(torch, L, K, constants, dev)
     phase_fold_kernels(torch, L, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
@@ -3169,7 +3540,9 @@ def main() -> int:
         "phases 5 and 6 commit transfers that the query record does not hold)")
     bodies = [b for _k, op, b in reqs if op == types.Operation.create_transfers]
     query_launches, query_errs, k8_row = phase_queries(
-        torch, L, types, ledger, bodies + snapshot_bodies, dev, card)
+        torch, L, types, ledger, bodies + snapshot_bodies, dev, card, sector_ms)
+    k8_cases(torch, L, K, dev, query_errs)
+    k8_k9_trace(card)
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")

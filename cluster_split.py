@@ -1,8 +1,9 @@
 """Phase split of the one-cluster fast transfer commits on one card.
 
 K3 (`csrc/commit_transfers.cu`) and K11tf (`csrc/mesh_commit_transfers.cu`)
-each run validate, the claim rounds, the fold, the gate and the apply in
-one launch, with a cluster barrier between phases. This script compiles a
+each run validate, the claim rounds (with their settle and release), the
+fold, the gate and the apply in one launch, with a cluster barrier between
+phases. This script compiles a
 copy of each source in which block 0's first thread stamps `%globaltimer`
 and `clock64()` after each barrier (plus a closing barrier), into
 `build/cluster_split/` of this checkout, and times each phase on 20
@@ -52,7 +53,7 @@ extern "C" int tb_split_read(unsigned long long* clk, unsigned long long* gt) {
 MARKS = (
     ("  cluster.sync();\n\n  // (a) validate", "  cluster.sync();\n  if (t == 0) split_stamp(0);\n\n  // (a) validate"),
     ("atomicOr(want, 1u);\n  cluster.sync();", "atomicOr(want, 1u);\n  cluster.sync();\n  if (t == 0) split_stamp(1);"),
-    ("  // settle and release", "  if (t == 0) split_stamp(2);\n  // settle and release"),
+    ("  // (c) fold", "  if (t == 0) split_stamp(2);\n  // (c) fold"),
     ("if (warp_lead && bad) atomicOr(&hdr_own.bad, bad);\n  cluster.sync();",
      "if (warp_lead && bad) atomicOr(&hdr_own.bad, bad);\n  cluster.sync();\n  if (t == 0) split_stamp(3);"),
     ("  cluster.sync();\n\n  // (e) apply", "  cluster.sync();\n  if (t == 0) split_stamp(4);\n\n  // (e) apply"),

@@ -21,7 +21,13 @@
 // before it returns), so that select is the first free slot of the window.
 // Either way a lane index is always handled by the same thread in every
 // step, so the per-lane scratch needs no barrier; the claim column, which
-// other lanes' atomics change, is read past L1.
+// other lanes' atomics change, is read past L1. K9 (install.cu) runs the
+// rounds chunk after chunk in one cluster launch (cluster.cuh
+// `cluster_claims`): there the table's key words, which an earlier chunk
+// wrote, are read past L1 too (kPastL1).
+//
+// `active` is an int32 array (lane i is active where it is nonzero) or a
+// callable `bool(int i)`.
 #pragma once
 #include <cuda_runtime.h>
 
@@ -47,14 +53,25 @@ __device__ __forceinline__ void claim_settle(int i, const ClaimScratch& sc, int6
   sc.want[i] = 0;
 }
 
+__device__ __forceinline__ bool lane_active(const int32_t* active, int i) {
+  return active[i] != 0;
+}
+__device__ __forceinline__ bool lane_active(int32_t* active, int i) { return active[i] != 0; }
+template <class F>
+__device__ __forceinline__ bool lane_active(const F& active, int i) {
+  return active(i);
+}
+
 // Step one of `round` for lane i; true if the lane now contends for a slot.
 // With `shard`, lane i claims in table shard[i] of (1 << cap_log2) + 1 rows.
+template <bool kPastL1 = false, class Active>
 __device__ __forceinline__ bool claim_select_lane(int i, const uint32_t* __restrict__ keys,
-                                                  int key_stride, const int32_t* active,
+                                                  int key_stride, const Active& active,
                                                   const uint32_t* __restrict__ rows,
                                                   const uint32_t* claim, int cap_log2,
-                                                  int64_t* slot, const ClaimScratch& sc,
-                                                  int round, const int32_t* shard) {
+                                                  int64_t* slot,
+                                                  const ClaimScratch& sc, int round,
+                                                  const int32_t* shard) {
   if (round == 0) {
     sc.won[i] = 0;
     sc.want[i] = 0;
@@ -62,12 +79,12 @@ __device__ __forceinline__ bool claim_select_lane(int i, const uint32_t* __restr
   } else {
     claim_settle(i, sc, slot, claim);
   }
-  if (!active[i] || sc.won[i]) return false;
+  if (!lane_active(active, i) || sc.won[i]) return false;
   Probe pr = probe_of(key_at(keys + (size_t)i * key_stride), cap_log2);
   size_t base = shard == nullptr ? 0 : (size_t)shard[i] * (((size_t)1 << cap_log2) + 1);
   for (int j = 0; j < WINDOW; j++) {
     size_t p = base + pr.at(j);
-    Key4 k = key_at(rows + p * ROW_WORDS);
+    Key4 k = kPastL1 ? key_at_cg(rows + p * ROW_WORDS) : key_at(rows + p * ROW_WORDS);
     if ((key_empty(k) || key_tomb(k)) && __ldcg(claim + p) == CLAIM_FREE) {
       sc.cand[i] = (int64_t)p;
       sc.want[i] = 1;
@@ -86,10 +103,11 @@ __device__ __forceinline__ void claim_min_lane(int i, uint32_t* claim, const Cla
 // active lane with no slot (FAULT_CLAIM). A lane that lost may read its
 // candidate after the winner released it: it then sees CLAIM_FREE, which is
 // no lane index, and stays lost.
-__device__ __forceinline__ bool claim_finish_lane(int i, const int32_t* active, uint32_t* claim,
+template <class Active>
+__device__ __forceinline__ bool claim_finish_lane(int i, const Active& active, uint32_t* claim,
                                                   int64_t* slot, const ClaimScratch& sc) {
   claim_settle(i, sc, slot, claim);
-  bool lost = active[i] && !sc.won[i];
+  bool lost = lane_active(active, i) && !sc.won[i];
   if (sc.won[i]) claim[slot[i]] = CLAIM_FREE;
   return lost;
 }

@@ -10,6 +10,9 @@
 // 128-byte account rows with eight lanes a row, CLUSTER_IN_FLIGHT rows in
 // flight: the carry fold (c) and the apply (e).
 //
+// The claim rounds (claim.cuh) over one cluster are here too, for K3,
+// K11tf and K9 (install.cu, which runs them chunk after chunk).
+//
 // fold_rows and apply_rows take the kernel's argument struct `A`, which
 // holds acct_rows, bal_acc, new_rows ([2B, 32] folded rows), slot2 ([2B]
 // the account row of each (event, side), -1 where the event did not apply)
@@ -19,6 +22,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "claim.cuh"
 #include "hash.cuh"
 #include "validate.cuh"
 
@@ -186,6 +190,75 @@ __device__ __forceinline__ void apply_rows(const A& a, int l0, int step, RowGrou
     reinterpret_cast<uint4*>(a.bal_acc + (size_t)slot[u] * ROW_WORDS)[g.sub] =
         make_uint4(0u, 0u, 0u, 0u);
   }
+}
+
+// One round's select over the cluster's lanes, the round's flag and the
+// cluster barrier after them; true if some lane of the cluster contends.
+template <bool kPastL1, class Active>
+__device__ __forceinline__ bool cluster_select(cooperative_groups::cluster_group& cluster,
+                                               uint32_t* want, uint32_t epoch, int round,
+                                               const uint32_t* keys, int key_stride,
+                                               const Active& active, int B,
+                                               const uint32_t* rows, const uint32_t* claim,
+                                               int cap_log2, int64_t* slot,
+                                               const ClaimScratch& sc, const int32_t* shard) {
+  const int lane = threadIdx.x & 31;
+  bool wants = false;
+  for (int i = (int)cluster.thread_rank(); i < B; i += (int)cluster.num_threads()) {
+    wants |= claim_select_lane<kPastL1>(i, keys, key_stride, active, rows, claim, cap_log2, slot,
+                                        sc, round, shard);
+  }
+  if (__any_sync(FULL_MASK, wants) && lane == 0) atomicMax(want + round, epoch);
+  cluster.sync();
+  return __shfl_sync(FULL_MASK, lane == 0 ? want[round] : 0u, 0) == epoch;
+}
+
+// The claim rounds of claim.cuh for lanes i < B, strided over the cluster,
+// with a cluster barrier for each barrier of the rule. `want` is
+// CLAIM_ROUNDS words of one block's shared memory (reached through
+// distributed shared memory, zeroed at the launch's start): round r's word
+// is raised to `epoch` where some lane contends in it. A round after one
+// in which no lane contended would want nothing either (the column and the
+// tables are as it found them), so that ends them. `epoch` tells a pass of
+// the rounds from the launch's earlier ones (1 for a one-pass kernel; K9
+// passes chunk + 1), so no word needs clearing between passes.
+// With `select0` the rounds start at round 0; else the caller ran round 0
+// (select and atomicMin: K3 and K11tf do in validation, where the column
+// is all free), raised want[0] and passed the cluster barrier after it.
+// Then every lane settles and releases; returns FAULT_CLAIM if one of this
+// thread's active lanes won no slot.
+template <bool kPastL1, class Active>
+__device__ __forceinline__ uint32_t cluster_claims(cooperative_groups::cluster_group& cluster,
+                                                   uint32_t* want, uint32_t epoch, bool select0,
+                                                   const uint32_t* keys, int key_stride,
+                                                   const Active& active, int B,
+                                                   const uint32_t* rows, uint32_t* claim,
+                                                   int cap_log2, int64_t* slot,
+                                                   const ClaimScratch& sc, const int32_t* shard) {
+  const int t = (int)cluster.thread_rank(), stride = (int)cluster.num_threads();
+  bool more;
+  if (select0) {
+    more = cluster_select<kPastL1>(cluster, want, epoch, 0, keys, key_stride, active, B, rows,
+                                   claim, cap_log2, slot, sc, shard);
+    if (more) {
+      for (int i = t; i < B; i += stride) claim_min_lane(i, claim, sc);
+      cluster.sync();
+    }
+  } else {  // the flag is read once a warp
+    more = __shfl_sync(FULL_MASK, (threadIdx.x & 31) == 0 ? want[0] : 0u, 0) == epoch;
+  }
+  for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
+    more = cluster_select<kPastL1>(cluster, want, epoch, round, keys, key_stride, active, B, rows,
+                                   claim, cap_log2, slot, sc, shard);
+    if (!more) break;
+    for (int i = t; i < B; i += stride) claim_min_lane(i, claim, sc);
+    cluster.sync();
+  }
+  uint32_t bad = 0u;
+  for (int i = t; i < B; i += stride) {
+    if (claim_finish_lane(i, active, claim, slot, sc)) bad = FAULT_CLAIM;
+  }
+  return bad;
 }
 
 // A launch of `kernel(a)` on one cluster of CLUSTER_BLOCKS blocks. The

@@ -35,7 +35,8 @@
 //       atomicMin follows at once;
 //   (b) claim rounds 1-3, select | barrier | atomicMin | barrier; a round
 //       after one that no lane contended in would want nothing either (the
-//       column and the tables are as it found them), so that ends them;
+//       column and the tables are as it found them), so that ends them
+//       (cluster.cuh `cluster_claims`, which K11tf and K9 share);
 //   (c) after the last round's settle and release, one row per (event,
 //       side): the carry fold of the slot's digit sums into the pre-batch
 //       account row's balances, and the overflow backstop;
@@ -317,27 +318,11 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) xfer_commit(XferFast a) {
     hdr_own.any_ok = h.any_ok;
   }
 
-  // (b) claim rounds 1.. (a round after one no lane contended in would
-  // want nothing either); the flag is read once a warp
-  bool more = __shfl_sync(FULL_MASK, warp_lead ? want[0] : 0u, 0) != 0u;
-  for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
-    wants = false;
-    for (int i = t; i < a.B; i += stride) {
-      wants |= claim_select_lane(i, a.batch, ROW_WORDS, a.ok, a.xfer_rows, a.xfer_claim,
-                                 a.t_log2, a.ins_slot, a.claim_sc, round, nullptr);
-    }
-    if (__any_sync(FULL_MASK, wants) && warp_lead) atomicOr(want + round, 1u);
-    cluster.sync();
-    more = __shfl_sync(FULL_MASK, warp_lead ? want[round] : 0u, 0) != 0u;
-    if (!more) break;
-    for (int i = t; i < a.B; i += stride) claim_min_lane(i, a.xfer_claim, a.claim_sc);
-    cluster.sync();
-  }
-  // settle and release, then (c) fold: neither reads what the other writes
-  bad = 0u;
-  for (int i = t; i < a.B; i += stride) {
-    if (claim_finish_lane(i, a.ok, a.xfer_claim, a.ins_slot, a.claim_sc)) bad |= FAULT_CLAIM;
-  }
+  // (b) claim rounds 1.., settle and release (cluster.cuh)
+  bad = cluster_claims<false>(cluster, want, 1u, false, a.batch, ROW_WORDS, a.ok, a.B,
+                              a.xfer_rows, a.xfer_claim, a.t_log2, a.ins_slot, a.claim_sc,
+                              nullptr);
+  // (c) fold: it reads nothing that the settle and release write
   for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
     bad |= fold_rows(a, l, n_groups, g, a.pv_mode != 0);
   }

@@ -1,10 +1,11 @@
-// Stable compaction of slot indices into up to two lists, shared by K8
-// (filter_scan.cu) and K10's split (spill_split.cu).
+// Stable compaction of slot indices into up to two lists, for K10's split
+// (spill_split.cu); K8 (filter_scan.cu) compacts in one pass with decoupled
+// look-back instead (lookback.cuh).
 //
-// The JAX programs compact with a cumsum rank (filter_scan) or
-// `jnp.nonzero(size=, fill_value=)` (_split_idx): the matching slot indices
-// in ascending slot order, padded. Blocks run in no order on the card, so
-// the order comes from three launches:
+// The JAX program compacts with `jnp.nonzero(size=, fill_value=)`
+// (_split_idx): the matching slot indices in ascending slot order, padded.
+// Blocks run in no order on the card, so the order comes from three
+// launches:
 //
 // 1. compact_count: each block takes a tile of CT_TILE consecutive slots,
 //    evaluates the caller's predicate once per slot (a bit per list), keeps

@@ -26,6 +26,12 @@ __device__ __forceinline__ Key4 key_at(const uint32_t* row_words) {
   return Key4{{v.x, v.y, v.z, v.w}};
 }
 
+// The same past L1 (a table that another block of the launch writes).
+__device__ __forceinline__ Key4 key_at_cg(const uint32_t* row_words) {
+  uint4 v = __ldcg(reinterpret_cast<const uint4*>(row_words));
+  return Key4{{v.x, v.y, v.z, v.w}};
+}
+
 __device__ __forceinline__ Key4 key_in(const Row& r, int w) {
   return Key4{{r.w[w], r.w[w + 1], r.w[w + 2], r.w[w + 3]}};
 }

@@ -273,27 +273,12 @@ __global__ void __launch_bounds__(CLUSTER_THREADS, 1) mesh_xfer_commit(MeshXferF
     hdr_own.any_ok = any_ok;
   }
 
-  // (b) claim rounds 1.. on each lane's owner shard; the flag is read once
-  // a warp
-  bool more = __shfl_sync(FULL_MASK, warp_lead ? want[0] : 0u, 0) != 0u;
-  for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
-    wants = false;
-    for (int i = t; i < a.B; i += stride) {
-      wants |= claim_select_lane(i, a.batch, ROW_WORDS, a.ok, a.xfer_rows, a.xfer_claim,
-                                 a.t_log2, a.ins_slot, a.claim_sc, round, a.shard);
-    }
-    if (__any_sync(FULL_MASK, wants) && warp_lead) atomicOr(want + round, 1u);
-    cluster.sync();
-    more = __shfl_sync(FULL_MASK, warp_lead ? want[round] : 0u, 0) != 0u;
-    if (!more) break;
-    for (int i = t; i < a.B; i += stride) claim_min_lane(i, a.xfer_claim, a.claim_sc);
-    cluster.sync();
-  }
-  // settle and release, then (c) fold: neither reads what the other writes
-  bad = 0u;
-  for (int i = t; i < a.B; i += stride) {
-    if (claim_finish_lane(i, a.ok, a.xfer_claim, a.ins_slot, a.claim_sc)) bad |= FAULT_CLAIM;
-  }
+  // (b) claim rounds 1.. on each lane's owner shard, settle and release
+  // (cluster.cuh)
+  bad = cluster_claims<false>(cluster, want, 1u, false, a.batch, ROW_WORDS, a.ok, a.B,
+                              a.xfer_rows, a.xfer_claim, a.t_log2, a.ins_slot, a.claim_sc,
+                              a.shard);
+  // (c) fold: it reads nothing that the settle and release write
   for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
     bad |= fold_rows(a, l, n_groups, g, false);
   }

@@ -16,7 +16,8 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     commit_transfers_serial K4  LedgerKernels._serial_transfers_core
     group_commit            K5  DeviceLedger._group_stepper
     fingerprint             K6  state_fingerprint
-    install_rows            K9  DeviceLedger._install_fn
+    install_rows            K9  DeviceLedger._install_fn (one chunk, or
+                                a table chunk by chunk: install_rows_chunked)
     fold                    K7  fold_reply_codes and the fused folds of
                                 models/dual_ledger.py
     filter_scan             K8  LedgerKernels.filter_scan
@@ -35,7 +36,9 @@ tigerbeetle_tpu/parallel/mesh.py `ShardedLedgerKernels`):
 
 `chase` and `chase_shared` are no kernels of the ledger: pointer chases
 that measure the card's dependent-load latency, from device memory and from
-shared memory, for the serial kernels' bounds.
+shared memory, for the serial kernels' bounds; nor is `sector_probe`, which
+measures the rate at which the card reads chosen sectors of 128-byte rows,
+for the scans' bounds.
 """
 
 from __future__ import annotations
@@ -85,9 +88,9 @@ _SIGNATURES = {
     "tb_group_commit": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                         _P, _P, _P, _P],
     "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P],
-    "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _P, _P],
     "tb_fold": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
-    "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _P],
+    "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _U32, _P],
     "tb_spill_head": [_P, _I, _P, _P, _P],
     "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
     "tb_spill_gather": [_P, _P, _P, _I, _P, _P, _P],
@@ -102,6 +105,7 @@ _SIGNATURES = {
     "tb_mesh_commit_transfers_serial": [_P, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
                                         _U64, _P, _P, _P],
     "tb_chase_shared": [_P, _I, ctypes.c_uint32, _I, _P, _P],
+    "tb_sector_probe": [_P, _I64, _U32, _P, _P],
 }
 _SCRATCH = (
     "tb_commit_accounts_fast_scratch",
@@ -109,7 +113,7 @@ _SCRATCH = (
     "tb_commit_transfers_fast_scratch",
     "tb_commit_transfers_serial_scratch",
     "tb_install_rows_scratch",
-    "tb_filter_scan_scratch",
+    "tb_filter_scan_state_bytes",
     "tb_spill_split_scratch",
     "tb_spill_reload_scratch",
     "tb_mesh_commit_accounts_fast_scratch",
@@ -342,31 +346,47 @@ def fingerprint(acct_rows, xfer_rows, commit_ts):
     return out
 
 
-def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
-    """K9: install the row images `rows_b` [B, 32] (lanes < n) into the
-    `table` ("acct" or "xfer") of `state` in place, with their fulfill words
-    `ful_b` [B] for transfers (None for accounts)."""
+def _install(state, table: str, rows_b, ful_b, chunk: int, n: int, cap_log2: int) -> None:
     if table not in ("acct", "xfer") or (ful_b is None) != (table == "acct"):
         raise ValueError(f"install: table {table!r} with fulfill {ful_b is not None}")
-    B = _check_batch(rows_b, n)
-    if B == 0:
-        raise ValueError("install: empty chunk")
+    if not 1 <= chunk < 1 << 31:
+        raise ValueError(f"install: chunk {chunk}")
     rows = state[f"{table}_rows"]
     _check_rows(rows, f"{table}_rows", cap_log2)
     _need(state[f"{table}_claim"], torch.int32, 1, f"{table}_claim")
     fulfill = None
     if ful_b is not None:
-        _need(ful_b, torch.int32, 1, "fulfill chunk")
+        _need(ful_b, torch.int32, 1, "fulfill rows")
         _need(state["fulfill"], torch.int32, 1, "fulfill")
-        if ful_b.shape[0] != B:
-            raise ValueError(f"install: {ful_b.shape[0]} fulfill words for {B} rows")
+        if ful_b.shape[0] != rows_b.shape[0]:
+            raise ValueError(f"install: {ful_b.shape[0]} fulfill words for {rows_b.shape[0]} rows")
         fulfill = state["fulfill"]
-    scratch = _scratch("tb_install_rows_scratch", B, rows_b.device)
+    scratch = _scratch("tb_install_rows_scratch", chunk, rows_b.device)
     _launch("tb_install_rows", "install_rows",
             _ptr(rows), _ptr(state[f"{table}_claim"]), cap_log2,
             None if fulfill is None else _ptr(fulfill),
             *_scalars(state, f"{table}_count", f"{table}_used_slots", "fault"),
-            _ptr(rows_b), None if ful_b is None else _ptr(ful_b), B, n, _ptr(scratch), _stream())
+            _ptr(rows_b), None if ful_b is None else _ptr(ful_b), chunk, n, _ptr(scratch),
+            _stream())
+
+
+def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
+    """K9, one chunk: install the row images `rows_b` [B, 32] (lanes < n)
+    into the `table` ("acct" or "xfer") of `state` in place, with their
+    fulfill words `ful_b` [B] for transfers (None for accounts)."""
+    B = _check_batch(rows_b, n)
+    if B == 0:
+        raise ValueError("install: empty chunk")
+    _install(state, table, rows_b, ful_b, B, n, cap_log2)
+
+
+def install_rows_chunked(state, table: str, rows, ful, cap_log2: int, chunk: int):
+    """K9, a whole table in one launch: the row images `rows` [n, 32] (and
+    fulfill words `ful` [n] for transfers, None for accounts) installed in
+    chunks of `chunk` rows in order, each chunk as `install_rows` installs
+    it."""
+    n = _check_batch(rows, 0)  # its row count
+    _install(state, table, rows, ful, chunk, n, cap_log2)
 
 
 FOLD_K_MAX = 16  # csrc/fold.cu FOLD_K_MAX
@@ -419,22 +439,56 @@ QUERY_LIMIT = 8192  # csrc/filter_scan.cu QUERY_LIMIT
 SPILL_CHUNK = 8192  # csrc/spill_split.cu SPILL_CHUNK
 
 
+FILTER_TILE = 2048  # csrc/filter_scan.cu FS_TILE: slots a tile of the scan
+_EPOCH_MAX = (1 << 30) - 1  # csrc/lookback.cuh LB_EPOCH_MASK
+_scan_tls = threading.local()
+
+
+class _ScanState:
+    """K8's state buffer for one device and stream: the tile counters and
+    status words, zeroed once and kept; each call takes the next epoch, so
+    no call clears it. A thread's launches on one stream run in order, so no
+    two scans share it in flight."""
+
+    def __init__(self, nbytes: int, device):
+        self.buf = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        self.epoch = 0
+
+    def next_epoch(self) -> int:
+        if self.epoch == _EPOCH_MAX:  # every status word back to no epoch
+            self.buf.zero_()
+            self.epoch = 0
+        self.epoch += 1
+        return self.epoch
+
+
+def _scan_state(cap_log2: int, device) -> _ScanState:
+    states = _scan_tls.__dict__.setdefault("states", {})
+    key = (device, _stream())
+    nbytes = library().tb_filter_scan_state_bytes(cap_log2)
+    st = states.get(key)
+    if st is None or st.buf.shape[0] < nbytes:
+        st = states[key] = _ScanState(nbytes, device)
+    return st
+
+
 def filter_scan(rows, cap_log2: int, spec, value_words):
     """K8: the live rows of `rows` whose field `spec` = (word0, nwords,
     halfword) equals `value_words` (four u32 ints, low first). Returns
     (int32 [QUERY_LIMIT, 32]: the first matches in slot order, then the dump
-    row; int32 0-d: the total match count)."""
+    row; int32 0-d: the total match count). One launch."""
     _check_rows(rows, "rows", cap_log2)
     word0, nwords, halfword = spec
     vw = [int(v) & 0xFFFFFFFF for v in value_words]
-    if len(vw) != 4 or nwords not in (1, 2, 4) or not 0 <= word0 <= 32 - nwords:
+    if len(vw) != 4 or nwords not in (1, 2, 4) or not 0 <= word0 <= 32 - nwords \
+            or word0 % nwords or (halfword and nwords != 1):
         raise ValueError(f"filter_scan: field {spec}, value words {vw}")
     dev = rows.device
     out = torch.empty((QUERY_LIMIT, 32), dtype=torch.int32, device=dev)
     total = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = _scratch("tb_filter_scan_scratch", cap_log2, dev)
+    st = _scan_state(cap_log2, dev)
     _launch("tb_filter_scan", "filter_scan", _ptr(rows), cap_log2, word0, nwords, int(halfword),
-            *vw, _ptr(out), _ptr(total), _ptr(scratch), _stream())
+            *vw, _ptr(out), _ptr(total), _ptr(st.buf), st.next_epoch(), _stream())
     return out, total
 
 
@@ -631,6 +685,7 @@ def chase(nxt, start: int, steps: int):
 
 
 CHASE_SHARED_WORDS = 8192  # csrc/chase.cu CHASE_SHARED_WORDS
+SECTOR_MASKS = (1, 3, 5, 15)  # csrc/chase.cu tb_sector_probe
 
 
 def chase_shared(nxt, start: int, steps: int):
@@ -644,3 +699,14 @@ def chase_shared(nxt, start: int, steps: int):
     _chase_launch("tb_chase_shared", _ptr(nxt), nxt.shape[0], start, steps, _ptr(out),
                   _stream())
     return out
+
+
+def sector_probe(rows, mask: int) -> None:
+    """Read the 32-byte sectors `mask` (bits 0-3: 1, 3, 5 or 15) of every
+    128-byte row of `rows` (int32 [n, 32]), 16 bytes a sector; returns
+    nothing worth reading (time it). Not counted in LAUNCHES."""
+    _need(rows, torch.int32, 2, "rows")
+    if rows.shape[1] != 32 or mask not in SECTOR_MASKS:
+        raise ValueError(f"sector_probe: rows {tuple(rows.shape)}, mask {mask}")
+    out = torch.empty(1, dtype=torch.int32, device=rows.device)
+    _chase_launch("tb_sector_probe", _ptr(rows), rows.shape[0], mask, _ptr(out), _stream())

@@ -1143,11 +1143,22 @@ def install_rows_plain(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
     state["fault"] |= (active & ~resolved).any().to(I32) * FAULT_INSTALL
 
 
-def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
-    """K9 wrapper: the plain version for CPU tensors, the CUDA kernel else."""
-    if _check_device(rows_b):
-        return _k.install_rows(state, table, rows_b, ful_b, n, cap_log2)
-    return install_rows_plain(state, table, rows_b, ful_b, n, cap_log2)
+def install_rows_chunked_plain(state, table: str, rows, ful, cap_log2: int, chunk: int):
+    """Plain version of K9 over a whole table: `install_rows_plain` on the
+    chunks of `chunk` rows of `rows` [n, 32] (and `ful` [n], None for
+    accounts), in order, as install_snapshot_rows drives `_install_fn`."""
+    for i in range(0, rows.shape[0], chunk):
+        part = rows[i:i + chunk]
+        install_rows_plain(state, table, part, None if ful is None else ful[i:i + chunk],
+                           part.shape[0], cap_log2)
+
+
+def install_rows_chunked(state, table: str, rows, ful, cap_log2: int, chunk: int):
+    """K9 wrapper over a whole table: the plain version for CPU tensors, one
+    CUDA launch else."""
+    if _check_device(rows):
+        return _k.install_rows_chunked(state, table, rows, ful, cap_log2, chunk)
+    return install_rows_chunked_plain(state, table, rows, ful, cap_log2, chunk)
 
 
 # ----------------------------------------------------------------------
@@ -2121,7 +2132,7 @@ class DeviceLedger(HostLedgerBase):
     # snapshot row install (the restore path of a checkpoint or state sync)
     # ------------------------------------------------------------------
 
-    INSTALL_CHUNK = 8192  # rows per install launch: part of the slot layout
+    INSTALL_CHUNK = 8192  # rows per install chunk: part of the slot layout
 
     def reset_state(self) -> None:
         """Drop every table back to fresh, the install's precondition: an
@@ -2133,32 +2144,38 @@ class DeviceLedger(HostLedgerBase):
         self.hazards = HazardTracker()
 
     def install_snapshot_rows(self, accounts: np.ndarray, transfers: np.ndarray,
-                              fulfill: np.ndarray, commit_timestamp: int) -> None:
+                              fulfill: np.ndarray, commit_timestamp: int,
+                              legs: dict | None = None) -> None:
         """Rebuild the tables from 128-byte wire row images (ACCOUNT_DTYPE /
         TRANSFER_DTYPE arrays; `fulfill` is the transfers' posted/voided
-        column, 0 = unresolved) on a fresh state. The rows upload once and
-        install in INSTALL_CHUNK chunks, accounts first (K9); a row that
-        finds no slot sets FAULT_INSTALL, seen by the next check_fault. Then
-        the commit clock, the host occupancy and the hazard tracker's limit
-        accounts, pending registry and amount bound are rebuilt."""
+        column, 0 = unresolved) on a fresh state. Each table's rows upload
+        once and install in INSTALL_CHUNK chunks in one call, accounts first
+        (K9); a row that finds no slot sets FAULT_INSTALL, seen by the next
+        check_fault. Then the commit clock, the host occupancy and the hazard
+        tracker's limit accounts, pending registry and amount bound are
+        rebuilt. With a `legs` dict, the device is waited for after the
+        uploads and after the installs, and the seconds of each leg go into
+        it ("upload", "install", "rebuild")."""
         if len(fulfill) != len(transfers):
             raise ValueError(f"{len(fulfill)} fulfill words for {len(transfers)} transfers")
         dev = self.device
-        ch = self.INSTALL_CHUNK
+        sync = torch.cuda.synchronize if legs is not None and dev.type == "cuda" else None
+        t0 = perf_counter_ns()
         ful_all = torch.from_numpy(
             np.ascontiguousarray(fulfill, dtype=np.uint32).view(np.int32)
         ).to(dev)
-        for table, arr, ful, log2 in (
-            ("acct", accounts, None, self.kernels.a_log2),
-            ("xfer", transfers, ful_all, self.kernels.t_log2),
-        ):
-            if not len(arr):
-                continue
-            rows = torch.tensor(_to_rows_np(arr), device=dev)  # one upload
-            for i in range(0, len(arr), ch):
-                part = rows[i:i + ch]
-                install_rows(self.state, table, part, None if ful is None else ful[i:i + ch],
-                             len(part), log2)
+        work = [(table, torch.tensor(_to_rows_np(arr), device=dev), ful, log2)  # one upload
+                for table, arr, ful, log2 in (("acct", accounts, None, self.kernels.a_log2),
+                                              ("xfer", transfers, ful_all, self.kernels.t_log2))
+                if len(arr)]
+        if sync is not None:
+            sync()
+        t1 = perf_counter_ns()
+        for table, rows, ful, log2 in work:
+            install_rows_chunked(self.state, table, rows, ful, log2, self.INSTALL_CHUNK)
+        if sync is not None:
+            sync()
+        t2 = perf_counter_ns()
         self.state["commit_ts"].fill_(u128.to_i64(commit_timestamp))
         self._acct_used += len(accounts)
         self._xfer_used += len(transfers)
@@ -2184,6 +2201,9 @@ class DeviceLedger(HostLedgerBase):
                     + ((int(np.sum(hi & np.uint64(0xFFFFFFFF), dtype=np.uint64))
                         + (int(np.sum(hi >> np.uint64(32), dtype=np.uint64)) << 32)) << 64)
                 )
+        if legs is not None:
+            legs.update(upload=(t1 - t0) / 1e9, install=(t2 - t1) / 1e9,
+                        rebuild=(perf_counter_ns() - t2) / 1e9)
 
     # ------------------------------------------------------------------
     # results
