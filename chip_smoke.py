@@ -6,7 +6,10 @@
 Phases (each failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit, the host's
    machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
-   the native engine from `native/ledger.cc`; the card's dependent-load
+   the native engine from `native/ledger.cc`; in the group commit's (K5)
+   SASS, every cluster barrier's wait must be followed by an L1
+   invalidation before any load (its later slots read through L1 what
+   earlier ones wrote); the card's dependent-load
    latency from device memory and from shared memory (pointer chases), the
    units of the serial kernels' bounds, and the rate at which it reads
    chosen 32-byte sectors of 2^24 rows of 128 bytes (the sector probe), the
@@ -26,7 +29,13 @@ Phases (each failure exits non-zero):
    of tigerbeetle_tpu_torch/testing/install_cases.py (rows sharing a probe
    window, some losing all four claim rounds; a partial last chunk; a chunk
    whose free slots the one before filled; tombstones reused) in chunks of
-   64 and of 8192; the reply-code fold (K7) on padding
+   64 and of 8192; the one-launch group commit (K5) on the cases of
+   tigerbeetle_tpu_torch/testing/group_cases.py (a reused id, a balance
+   limit the slot before crossed, a probe window the slot before filled,
+   padding slots, a slot in which every lane fails, the capacity gate
+   tripped by slot 2, a fault word set before the group) at 4 and 16
+   slots of 64 and of 8192 lanes, each giving the codes and fault word it
+   is built for; the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot;
 3. the main path at deployment size: StateMachine over
@@ -53,8 +62,9 @@ Phases (each failure exits non-zero):
    host's share;
 6. each kernel timed on the main path's state at its main-path shape,
    beside its plain version and its bound (the serial K4 also on a request
-   of 8190 events: linked chains, then posts and voids; K9 on one chunk and
-   on phase 3's restore, 133 chunks of 8192 in one call);
+   of 8190 events: linked chains, then posts and voids; K5 also on the
+   card alone; K9 on one chunk and on phase 3's restore, 133 chunks of 8192
+   in one call);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -83,7 +93,9 @@ Phases (each failure exits non-zero):
    exactly QUERY_LIMIT and one more, dead rows and the dump row carrying
    the value, none); in a process of its own under torch.profiler, each K8
    call must be one kernel and a table's K9 install one, with no memset,
-   and both are timed through their wrappers and on the card alone;
+   and both are timed through their wrappers and on the card alone; in
+   another process (`chip_smoke.k5_child`), each K5 group of 16 x 8190
+   must be one kernel and no memset, timed likewise;
 9. the bounded-memory ledger: StateMachine over DeviceLedger(2^20 account /
    2^20 transfer slots, forest=Forest(Grid(MemoryStorage), memtable_max=
    8192)) on cuda with the threaded IO worker: 10,000 accounts and 128
@@ -93,13 +105,17 @@ Phases (each failure exits non-zero):
    every account, a lookup of 8190 ids (half spilled) and the debit-account
    queries of 16 accounts equal the native engine NativeLedger(20, 24) on
    the same requests; it prints the rate, the request latency and each
-   cycle's legs; then the spill kernels (K10) against their plain versions
-   on a copy of the table before the first cycle (head, split, a cold
-   gather and the whole rebuild, which must equal the ledger's own) and at
-   2^24 on a copy of phase 3's state (split at 3/4 of live, gather, a
-   reload of 8192 rows), the reload's all-or-nothing gate on copies
-   (capacity at 2^24, an earlier fault, probe windows with no empty slot at
-   2^16), and their times;
+   cycle's legs; the gather (K10g) must have launched once for each side
+   of each cycle; then the spill kernels (K10) against their plain
+   versions on a copy of the table before the first cycle (head, split,
+   the gather of the whole cold side and of the whole hot side, padded to
+   whole chunks, and the whole rebuild, which must equal the ledger's own)
+   and at 2^24 on a copy of phase 3's state (split at 3/4 of live, the
+   gather of 8192 cold rows and of both whole sides, a reload of 8192
+   rows), the reload's all-or-nothing gate on copies (capacity at 2^24, an
+   earlier fault, probe windows with no empty slot at 2^16), and their
+   times (the gather at both sides of the cycle and at 8192 rows, beside
+   torch.index_select);
 10. the sharded ledger on one card (K11): each sharded kernel against its
    plain version on the card at 2^12 / 2^14 slots per shard and 8 shards,
    on every failure path and fault gate (an exhausted shard, claim
@@ -648,6 +664,46 @@ def phase_seam_kernels(torch, L, types, constants, dev):
         if (host[0][0], host[1][0], host[0][1], host[1][1]) != tuple(fp[:4]):
             fail(f"K6 ({name}) differs from fp_rows_np over the host rows")
         log(f"    live accounts {fp[2]}, transfers {fp[3]}; equal to fp_rows_np on the host")
+
+
+def k5_cases(torch, L, constants, dev):
+    """K5's one launch against its plain version on every case of
+    tigerbeetle_tpu_torch/testing/group_cases.py (a reused id, a balance
+    limit crossed by the slot before, a probe window the slot before
+    filled, padding slots, a slot in which every lane fails, the capacity
+    gate tripped by slot 2, a fault word set before the group), at k = 4
+    and 16 slots of 64 lanes and of 8192 (where the case's lanes sit in one
+    block of the cluster and other blocks apply their rows), at 2^14 /
+    2^16 slots; each case must give the codes and fault word it is built
+    for."""
+    import zlib
+
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.testing import group_cases as G
+
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    for n_pad in (64, 8192):
+        for k in (4, 16):
+            for case in G.CASES:
+                rng = np.random.default_rng(SEED + zlib.crc32(f"{case}.{k}.{n_pad}".encode()))
+                c = G.group_case(case, k, n_pad, t_log2, rng)
+                start = G.base_state(c, process, dev)
+                rows = torch.from_numpy(c["rows"]).to(dev)
+                (flat, summary), _ = hold(
+                    torch, f"K5 group_commit ({case}, {k} x {n_pad})", start,
+                    lambda s: K.group_commit(s, rows, c["ns"], c["tss"], a_log2, t_log2),
+                    lambda s: L.commit_transfers_group_plain(s, rows, c["ns"], c["tss"], a_log2,
+                                                             t_log2))
+                codes = flat[:-1].view(k, n_pad).cpu().numpy()
+                for slot, lane, code in c["expect"]:
+                    got = int(codes[slot, lane])
+                    if (got == 0) if code is None else got != code:
+                        fail(f"K5 ({case}, {k} x {n_pad}): slot {slot} lane {lane} gave code "
+                             f"{got}, the case is built for {code}")
+                if int(flat[-1]) != c["fault_after"] or int(summary[-1]) != c["fault_after"]:
+                    fail(f"K5 ({case}, {k} x {n_pad}): fault word {int(flat[-1])}, the case is "
+                         f"built for {c['fault_after']}")
 
 
 def fold_compare(torch, L, K, name, flat, n_pad, ns, active, idxs, rng) -> int:
@@ -1568,15 +1624,19 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
                                      rng.integers(1, 1000, B).astype(np.uint64)))
         return group_rows(torch, L, batches, GROUP_K, dev)
 
-    groups = [fresh_group() for _ in range(8)]
+    groups = [fresh_group() for _ in range(14)]
     nbytes = sum(transfer_bytes(torch, ht, st, groups[0][0][i, :B], a_log2, t_log2, 32)
                  for i in range(GROUP_K))
     tss = [10**13] * GROUP_K
     it = iter(groups)
     kt = timed(torch, lambda: K.group_commit(st, *next(it), tss, a_log2, t_log2), 6)
+    card_t = timed(torch, lambda: K.group_commit(st, *next(it), tss, a_log2, t_log2), 6,
+                   on_card=True)
     pt = timed(torch, lambda: L.commit_transfers_group_plain(st, *next(it), tss, a_log2,
                                                              t_log2), 2)
     out["K5"] = (kt, pt, *bound(nbytes))
+    log(f"  K5 on the card alone: {card_t[0]:.4f} ms [p25 {card_t[1]:.4f}, p75 {card_t[2]:.4f}] "
+        f"(through its wrapper {kt[0]:.4f}); one device launch a group (the trace of phase 8)")
     del groups
 
     # K6: every row's key sector decides liveness; a live row's other 96
@@ -2077,6 +2137,39 @@ RESTORE_CHUNKS = 133  # phase 3's restore: about 1.09 M transfer rows in chunks 
 INSTALL_CHUNK = 8192
 
 
+def barriers_invalidate_l1(lib, kernel="group_commit_kernel") -> int:
+    """K5's later slots read through L1 what earlier slots wrote from other
+    SMs; that holds because every cluster barrier's wait is followed by an
+    L1 invalidation before the next global load. Check it in the SASS of
+    `kernel` in the built library (cuobjdump); returns the barriers seen."""
+    from tigerbeetle_tpu_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    body, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside:
+            body.append(line)
+    if not body:
+        fail(f"no {kernel} in the SASS of {lib}")
+    waits, pending = 0, False
+    for line in body:
+        if "UCGABAR_WAIT" in line:
+            waits += 1
+            pending = True
+        elif pending and "CCTL.IVALL" in line:
+            pending = False
+        elif pending and any(op in line for op in (" LDG", " LD.")):
+            fail(f"{kernel}: a load follows a cluster barrier's wait before an L1 "
+                 f"invalidation: {line.strip()}")
+    if waits == 0:
+        fail(f"{kernel}: no cluster barrier found in its SASS")
+    return waits
+
+
 def sector_rates(torch, K, dev, card) -> dict:
     """The card's rate for chosen 32-byte sectors of 2^24 rows of 128 bytes
     (csrc/chase.cu's sector probe, 16 bytes loaded a sector): {mask: ms},
@@ -2364,6 +2457,294 @@ def k8_k9_trace(card) -> dict:
     return got
 
 
+def _trace_device(path) -> dict:
+    """{annotation: [(name, start us, duration us), ...]} of a chrome trace:
+    each device kernel, memset and memcpy under the user annotation around
+    the host call that launched it (matched by correlation id), in start
+    order."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    launch_ts = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "cuda_runtime":
+            corr = e.get("args", {}).get("correlation")
+            if corr is not None:
+                launch_ts[corr] = e["ts"]
+    out = {name: [] for _a, _b, name in ranges}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memset", "gpu_memcpy"):
+            continue
+        ts = launch_ts.get(e.get("args", {}).get("correlation"))
+        for a, b, name in ranges:
+            if ts is not None and a <= ts <= b:
+                kind = {"gpu_memset": "memset: ", "gpu_memcpy": "memcpy: "}.get(e["cat"], "")
+                out[name].append((kind + e["name"], float(e["ts"]), float(e["dur"])))
+    return {name: sorted(v, key=lambda x: x[1]) for name, v in out.items()}
+
+
+def _device_split(events) -> dict:
+    """Counts and summed device us by name, the span from the first start to
+    the last end, and the time in it that no event ran (gaps, us)."""
+    counts, us = {}, {}
+    for name, _t, dur in events:
+        counts[name] = counts.get(name, 0) + 1
+        us[name] = us.get(name, 0.0) + dur
+    span = max(t + d for _n, t, d in events) - events[0][1] if events else 0.0
+    busy, end = 0.0, None
+    for _n, t, d in events:  # union of the intervals
+        if end is None or t >= end:
+            busy += d
+            end = t + d
+        elif t + d > end:
+            busy += t + d - end
+            end = t + d
+    return {"counts": counts, "us": us, "span_us": span, "gap_us": span - busy}
+
+
+def k5_child(reps=8):
+    """In a process of its own: K5 on a DeviceLedger(ConfigProcess())'s state
+    with phase 3's 10,000 accounts, groups of 16 fresh requests of 8190
+    benchmark transfers, through the `group_commit` wrapper of the checkout
+    on sys.path: each group's device kernels under torch.profiler (by name,
+    with their device time, the span from the first kernel's start to the
+    last one's end and the gaps in it), CUDA-event times through the
+    wrapper and on the card alone, and the wrapper's host time. Prints one
+    JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models import ledger as L
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 30)
+    ledger = L.DeviceLedger(constants.ConfigProcess(), device=dev)
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    for i, chunk in enumerate((acc[:8190], acc[8190:])):
+        if any(ledger.execute_dense(types.Operation.create_accounts, 10**12 + i * 10**6, chunk)):
+            fail("an account request failed")
+    st = ledger.state
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    B = 8190
+    next_id = [10**10]
+    ts = [10**13]
+
+    def group():
+        """Fresh rows on the card, their counts and timestamps."""
+        batches = []
+        for _ in range(GROUP_K):
+            ids = np.arange(next_id[0], next_id[0] + B)
+            next_id[0] += B
+            dr, cr = random_pairs(rng, B, N_ACCOUNTS)
+            batches.append(transfers(types, ids, dr, cr, rng.integers(1, 1000, B)))
+        rows, ns = group_rows(torch, L, batches, GROUP_K, dev)
+        tss = [ts[0] + 10**5 * (i + 1) for i in range(GROUP_K)]
+        ts[0] += 10**7
+        return rows, ns, tss
+
+    def run(g):
+        return K.group_commit(st, g[0], g[1], g[2], a_log2, t_log2)
+
+    for _ in range(2):  # warm
+        run(group())
+    traced = [group() for _ in range(3)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, g in enumerate(traced):
+            with record_function(f"k5_group_{i}"):
+                flat, summary = run(g)
+        torch.cuda.synchronize()
+    calls = {k: v for k, v in K.LAUNCHES.items() if v}
+    if int(summary[-1]) or int(summary[:-1].sum()):
+        fail(f"a traced group failed: summary {summary.cpu().tolist()}")
+    del traced
+    out_dir = os.path.join(os.getcwd(), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "k5.json")
+    prof.export_chrome_trace(path)
+    split = {name: _device_split(ev) for name, ev in _trace_device(path).items()}
+    out = {"calls": calls, "split": split}
+
+    def timed_groups(on_card):
+        times = []
+        for _ in range(reps):
+            g = group()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if on_card:
+                torch.cuda._sleep(1 << 20)
+            start.record()
+            run(g)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    out["k5_ms"] = timed_groups(False)
+    out["k5_card_ms"] = timed_groups(True)
+    host = []
+    for _ in range(reps):
+        g = group()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 24)
+        t0 = time.perf_counter()
+        run(g)
+        host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    out["k5_host_ms"] = float(np.median(host))
+    if int(st["fault"]):
+        fail(f"the timed groups faulted: {int(st['fault'])}")
+    out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+
+
+def k5_trace(card) -> dict:
+    """k5_child in a process of its own (late in this one a profiler
+    session recorded no kernels): each group must be one kernel on the card
+    and no memset. Returns its JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.k5_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced K5 groups failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, sp in sorted(got["split"].items()):
+        log(f"  trace {name}: {sp['counts']}; device us {sp['us']}; span {sp['span_us']:.1f} us, "
+            f"gaps {sp['gap_us']:.1f} us")
+    log(f"  K5 (16 x 8190, phase 3's ledger): {got['k5_ms']:.4f} ms through its wrapper, "
+        f"{got['k5_card_ms']:.4f} on the card alone, the wrapper's host time "
+        f"{got['k5_host_ms']:.4f} [{card}]")
+    for name, sp in got["split"].items():
+        if any(not k.startswith("xfer") and not k.startswith("group") for k in sp["counts"]) \
+                or sum(sp["counts"].values()) != 1:
+            fail(f"{name}: {sp['counts']}; one group_commit kernel and no memset expected")
+    return got
+
+
+def cycle_child(cycles=3):
+    """In a process of its own: the spill cycle of phase 9's ledger at its
+    shape (2^20 transfer slots filled to the load limit with fresh rows, so
+    a cycle spills about 393 K rows and keeps about 131 K), through the
+    `SpillManager` of the checkout on sys.path, the IO deferred (no worker
+    thread). Each cycle's t_gather_d2h leg is split into the host time in
+    the gather calls, in the copies' enqueue and in the waits for the
+    copies' events; one more cycle under torch.profiler gives the device
+    time of the gather kernels and of the device-to-host copies. Prints one
+    JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.io.storage import MemoryStorage, ZoneLayout
+    from tigerbeetle_tpu_torch.lsm.grid import BLOCK_SIZE, Grid
+    from tigerbeetle_tpu_torch.lsm.groove import Forest
+    from tigerbeetle_tpu_torch.models import ledger as L
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 31)
+    process = constants.ConfigProcess(account_slots_log2=10, transfer_slots_log2=SPILL_LOG2)
+    layout = ZoneLayout(constants.TEST_CLUSTER, grid_size=(GRID_BLOCKS + 64) * BLOCK_SIZE)
+    forest = Forest(Grid(MemoryStorage(layout), offset=0, block_count=GRID_BLOCKS),
+                    memtable_max=8192)
+    ledger = L.DeviceLedger(process, device=dev, forest=forest, spill_io="deferred")
+    spill, st = ledger.spill, ledger.state
+    n_live = ledger._xfer_limit - 64
+    next_id = [1 << 40]
+
+    def fill():
+        """A fresh table of n_live rows with new ids and rising timestamps."""
+        for k in ("xfer_rows", "fulfill", "xfer_count", "xfer_used_slots"):
+            st[k].zero_()
+        img = torch.randint(0, 1 << 31, (n_live, 32), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+        def words(x):  # the low and high 32-bit words of int64 values, as int32 bits
+            lo = x & 0xFFFFFFFF
+            return (torch.where(lo >= 1 << 31, lo - (1 << 32), lo).to(torch.int32),
+                    (x >> 32).to(torch.int32))
+
+        ids = torch.arange(next_id[0], next_id[0] + n_live, device=dev, dtype=torch.int64)
+        next_id[0] += n_live
+        img[:, 0], img[:, 1] = words(ids)
+        img[:, 2:4] = 0
+        img[:, 30], img[:, 31] = words(ids + (1 << 41))  # rising timestamps
+        ful = torch.randint(0, 3, (n_live,), generator=g, device=dev, dtype=torch.int32)
+        K.install_rows_chunked(st, "xfer", img, ful, SPILL_LOG2, INSTALL_CHUNK)
+        if int(st["fault"]) or int(st["xfer_count"]) != n_live:
+            fail(f"the fill faulted ({int(st['fault'])}) or placed {int(st['xfer_count'])}")
+        ledger._xfer_used = n_live
+        torch.cuda.synchronize()
+
+    legs = {"gather_calls": 0.0, "copies": 0.0, "waits": 0.0, "n_gather": 0}
+    gather = spill.kernels.gather
+
+    def timed_gather(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return gather(*a, **kw)
+        finally:
+            legs["gather_calls"] += time.perf_counter() - t0
+            legs["n_gather"] += 1
+
+    copy = torch.Tensor.copy_
+    sync = torch.cuda.Event.synchronize
+
+    def timed_copy(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return copy(self, *a, **kw)
+        finally:
+            legs["copies"] += time.perf_counter() - t0
+
+    def timed_sync(self):
+        t0 = time.perf_counter()
+        try:
+            return sync(self)
+        finally:
+            legs["waits"] += time.perf_counter() - t0
+
+    spill.kernels.gather = timed_gather
+    torch.Tensor.copy_ = timed_copy
+    torch.cuda.Event.synchronize = timed_sync
+    runs = []
+    for c in range(cycles + 1):
+        fill()
+        before = dict(spill.stats)
+        for k in ("gather_calls", "copies", "waits", "n_gather"):
+            legs[k] = 0
+        K.reset_launches()
+        if c < cycles:
+            spill.cycle(8190)
+        else:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("cycle"):
+                    spill.cycle(8190)
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        run = {k: spill.stats[k] - before[k] for k in ("spilled", "t_scan", "t_gather_d2h",
+                                                       "t_stage", "t_rebuild")}
+        run.update({k: legs[k] for k in ("gather_calls", "copies", "waits", "n_gather")})
+        run["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
+        runs.append(run)
+    torch.Tensor.copy_ = copy
+    torch.cuda.Event.synchronize = sync
+    out_dir = os.path.join(os.getcwd(), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "cycle.json")
+    prof.export_chrome_trace(path)
+    split = _device_split(_trace_device(path)["cycle"])
+    print(json.dumps({"runs": runs, "traced": split, "n_live": n_live,
+                      "card": torch.cuda.get_device_name(0)}))
+
+
 # ----------------------------------------------------------------------
 # phase 9: the bounded-memory ledger (spill, reload, queries over the LSM)
 # ----------------------------------------------------------------------
@@ -2519,6 +2900,9 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     for k in ("spill_head", "spill_split", "spill_gather", "spill_reload"):
         if not launches[k]:
             fail(f"{k} was not launched on the spill path")
+    if launches["spill_gather"] != 2 * stats["cycles"]:  # one gather a side of each cycle
+        fail(f"spill_gather launched {launches['spill_gather']} times in {stats['cycles']} "
+             "cycles; one for each side of a cycle expected")
     bad = [i for i, r in enumerate(replies) if r != b""]
     if bad:
         fail(f"requests {bad[:8]} failed on the spilling ledger")
@@ -2585,6 +2969,9 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
         if err:
             fail(f"{name} differs from its plain version")
 
+    def bound(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
     # K10 at 2^20 on the table before the first cycle
     pre, post = captured["pre"], captured["post"]
     t_log2 = SPILL_LOG2
@@ -2596,9 +2983,28 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     cold, hot = K.spill_split(pre["xfer_rows"], t_log2, n_cold)
     held(f"K10 spill_split (2^{t_log2}, the first cycle: n_cold {n_cold} of {live})",
          (cold, hot), S.spill_split_plain(pre["xfer_rows"], n_cold))
-    held(f"K10 spill_gather (2^{t_log2}, the first cold chunk)",
-         K.spill_gather(pre["xfer_rows"], pre["fulfill"], cold[:S.CHUNK]),
-         S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"], cold[:S.CHUNK]))
+    n_hot = live - n_cold
+    hot_pad = -(-n_hot // S.CHUNK) * S.CHUNK
+    for side, idx in (("cold", cold[:n_cold]), ("hot", hot[:hot_pad])):
+        held(f"K10 spill_gather (2^{t_log2}, the first cycle's {side} side, {idx.shape[0]} rows)",
+             K.spill_gather(pre["xfer_rows"], pre["fulfill"], idx),
+             S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"], idx))
+    # the gather at the cycle's shapes: its cold side (the kernel table's
+    # row) and its hot side, each beside torch.index_select of the rows and
+    # of the fulfill words (the whole of `_gather`)
+    cycle_gather = {}
+    for side, idx in (("cold", cold[:n_cold]), ("hot", hot[:hot_pad])):
+        cycle_gather[side] = (
+            timed(torch, lambda: K.spill_gather(pre["xfer_rows"], pre["fulfill"], idx), 20),
+            timed(torch, lambda: S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"], idx), 5),
+            *bound(idx.shape[0] * (4 + 2 * (128 + 4))),
+            timed(torch, lambda: (torch.index_select(pre["xfer_rows"], 0, idx),
+                                  torch.index_select(pre["fulfill"], 0, idx)), 20))
+        kt, pt, b, _by, lib = cycle_gather[side]
+        log(f"  K10g at the cycle's {side} side (2^{t_log2}, {idx.shape[0]} rows, one launch): "
+            f"kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
+            f"bound {b:.6f} ms (bytes), torch.index_select of rows and fulfill {lib[0]:.4f} ms "
+            f"[{card}]")
     fresh_k, fresh_p = S.fresh_table(t_log2, dev), S.fresh_table(t_log2, dev)
     lane = torch.arange(S.CHUNK, device=dev)
     for start in range(0, live - n_cold, S.CHUNK):
@@ -2628,6 +3034,11 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     held(f"K10 spill_gather (2^{b_log2}, 8192 cold rows)",
          K.spill_gather(big["xfer_rows"], big["fulfill"], cold[:S.CHUNK]),
          S.spill_gather_plain(big["xfer_rows"], big["fulfill"], cold[:S.CHUNK]))
+    hot_pad = -(-(live - n_cold) // S.CHUNK) * S.CHUNK
+    for side, idx in (("cold", cold[:n_cold]), ("hot", hot[:hot_pad])):
+        held(f"K10 spill_gather (2^{b_log2}, a whole {side} side, {idx.shape[0]} rows)",
+             K.spill_gather(big["xfer_rows"], big["fulfill"], idx),
+             S.spill_gather_plain(big["xfer_rows"], big["fulfill"], idx))
 
     def new_chunk(i):
         """8192 stored rows: 4096 resident ones (skipped) and 4096 with new
@@ -2653,9 +3064,6 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     slots = 1 << b_log2
     out = {}
 
-    def bound(nbytes):
-        return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
-
     out["K10h"] = (timed(torch, lambda: K.spill_head(big["xfer_rows"], big["fault"], b_log2), 20),
                    timed(torch, lambda: S.spill_head_plain(big["xfer_rows"], big["fault"]), 3),
                    *bound(slots * SECTOR + 8), None)
@@ -2663,14 +3071,14 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     out["K10s"] = (timed(torch, lambda: K.spill_split(big["xfer_rows"], b_log2, n_cold), 10),
                    timed(torch, lambda: S.spill_split_plain(big["xfer_rows"], n_cold), 3),
                    *bound(slots * 2 * SECTOR + 2 * size * 4), None)
-    idx = cold[:S.CHUNK]
-    out["K10g"] = (timed(torch, lambda: K.spill_gather(big["xfer_rows"], big["fulfill"], idx), 20),
-                   timed(torch, lambda: S.spill_gather_plain(big["xfer_rows"], big["fulfill"], idx),
-                         5),
-                   *bound(S.CHUNK * (4 + 2 * (128 + 4))),
-                   # the whole of `_gather`: the rows and their fulfill words
-                   timed(torch, lambda: (torch.index_select(big["xfer_rows"], 0, idx),
-                                         torch.index_select(big["fulfill"], 0, idx)), 20))
+    out["K10g"] = cycle_gather["cold"]
+    idx = cold[:S.CHUNK]  # the old shape: one chunk a launch
+    kt = timed(torch, lambda: K.spill_gather(big["xfer_rows"], big["fulfill"], idx), 20)
+    lib = timed(torch, lambda: (torch.index_select(big["xfer_rows"], 0, idx),
+                                torch.index_select(big["fulfill"], 0, idx)), 20)
+    log(f"  K10g at 8192 rows (2^{b_log2}): kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 "
+        f"{kt[2]:.4f}], bound {bound(S.CHUNK * (4 + 2 * (128 + 4)))[0]:.6f} ms (bytes), "
+        f"torch.index_select of rows and fulfill {lib[0]:.4f} ms [{card}]")
     chunks = [new_chunk(i + 1) for i in range(16)]
     probes = probe_counts(torch, L.ht, chunks[0][0][:, :4].contiguous(), big["xfer_rows"],
                           b_log2, 32)
@@ -3500,6 +3908,8 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    log(f"  K5's SASS: each of its {barriers_invalidate_l1(lib)} cluster barrier waits is "
+        "followed by an L1 invalidation (CCTL.IVALL) before any load")
     from tigerbeetle_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -3521,6 +3931,7 @@ def main() -> int:
     log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
     phase_seam_kernels(torch, L, types, constants, dev)
+    k5_cases(torch, L, constants, dev)
     k9_cases(torch, L, K, constants, dev)
     phase_fold_kernels(torch, L, dev)
     phase_ledgers(torch, L, types, constants, dev)
@@ -3543,6 +3954,7 @@ def main() -> int:
         torch, L, types, ledger, bodies + snapshot_bodies, dev, card, sector_ms)
     k8_cases(torch, L, K, dev, query_errs)
     k8_k9_trace(card)
+    k5_trace(card)
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""K5 (the group commit) and K10's gather in the spill cycle, for two
+checkouts on one card, in alternating processes.
+
+Each round runs, for the `tigerbeetle_tpu_torch` package of one checkout,
+two processes of `chip_smoke.py` (of this checkout):
+
+- `k5_child`: groups of 16 requests of 8190 benchmark transfers on a
+  DeviceLedger(ConfigProcess())'s state with 10,000 accounts, through the
+  `group_commit` wrapper: each traced group's device kernels by name with
+  their device time, the span from the first kernel's start to the last
+  one's end and the gaps in it, the times through the wrapper and on the
+  card alone (CUDA events) and the wrapper's host time;
+- `cycle_child`: the spill cycle at phase 9's shape (2^20 transfer slots
+  filled to the load limit: about 393 K rows spilled, 131 K kept), each
+  cycle's t_gather_d2h leg split into the host time in the gather calls, in
+  the copies' enqueue and in the waits for their events, and one cycle's
+  device time by kernel and copy from a trace.
+
+The order is parent, this checkout, this checkout, parent, repeated
+`--rounds` times.
+
+    python3 group_gather_split.py --parent DIR [--rounds 1]
+
+DIR is a `git archive` of another commit in a git-ignored directory (such
+as `build/parent`). Needs one card and nvcc; each checkout builds its own
+kernels into its own `build/`. Prints the card, the lines of each process
+and, last, a JSON summary of the medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent
+CHILD = (
+    "import sys, importlib.util as u; sys.path.insert(0, {repo!r}); "
+    "s = u.spec_from_file_location('chip_smoke', {smoke!r}); m = u.module_from_spec(s); "
+    "s.loader.exec_module(m); m.{fn}()"
+)
+K5_KEYS = ("k5_ms", "k5_card_ms", "k5_host_ms")
+LEGS = ("t_gather_d2h", "gather_calls", "copies", "waits", "t_stage", "t_rebuild")
+
+
+def child(label: str, repo: Path, fn: str) -> dict:
+    code = CHILD.format(repo=str(repo), smoke=str(HERE / "chip_smoke.py"), fn=fn)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(repo), capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        raise SystemExit(f"{label}: {fn} failed")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def run(label: str, repo: Path) -> dict:
+    k5 = child(label, repo, "k5_child")
+    print(f"{label}: K5 " + ", ".join(f"{k} {k5[k]:.4f}" for k in K5_KEYS), flush=True)
+    for name, sp in sorted(k5["split"].items()):
+        print(f"{label}: {name} {sp['counts']} device us "
+              + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
+              + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
+    cyc = child(label, repo, "cycle_child")
+    for i, r in enumerate(cyc["runs"]):
+        print(f"{label}: cycle {i} spilled {r['spilled']}, gathers {r['n_gather']}; "
+              + ", ".join(f"{k} {r[k] * 1e3:.3f} ms" for k in LEGS), flush=True)
+    t = cyc["traced"]
+    print(f"{label}: traced cycle {t['counts']} device us "
+          + ", ".join(f"{k} {v:.1f}" for k, v in t["us"].items()), flush=True)
+    return {"k5": k5, "cycle": cyc}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--rounds", type=int, default=1)
+    args = ap.parse_args()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    runs = {"parent": [], "change": []}
+    for _ in range(args.rounds):
+        for label, repo in (("parent", args.parent.resolve()), ("change", HERE),
+                            ("change", HERE), ("parent", args.parent.resolve())):
+            runs[label].append(run(label, repo))
+    summary = {"card": card}
+    for label, got in runs.items():
+        untraced = [r for g in got for r in g["cycle"]["runs"][:-1]]
+        summary[label] = {
+            **{k: float(np.median([g["k5"][k] for g in got])) for k in K5_KEYS},
+            "k5_trace": got[0]["k5"]["split"],
+            "cycle_ms": {k: float(np.median([r[k] for r in untraced])) * 1e3 for k in LEGS},
+            "cycle_gathers": untraced[0]["n_gather"],
+            "cycle_trace": got[0]["cycle"]["traced"],
+        }
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,7 +24,8 @@
 // other lanes' atomics change, is read past L1. K9 (install.cu) runs the
 // rounds chunk after chunk in one cluster launch (cluster.cuh
 // `cluster_claims`): there the table's key words, which an earlier chunk
-// wrote, are read past L1 too (kPastL1).
+// wrote, are read past L1 too (kPastL1), as in K5's later slots
+// (group_commit.cu).
 //
 // `active` is an int32 array (lane i is active where it is nonzero) or a
 // callable `bool(int i)`.

@@ -93,7 +93,7 @@ _SIGNATURES = {
     "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _U32, _P],
     "tb_spill_head": [_P, _I, _P, _P, _P],
     "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
-    "tb_spill_gather": [_P, _P, _P, _I, _P, _P, _P],
+    "tb_spill_gather": [_P, _P, _P, _I64, _P, _P, _P],
     "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
     "tb_mesh_lookup": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
@@ -306,8 +306,8 @@ GROUP_K_MAX = 16  # csrc/group_commit.cu GROUP_K_MAX
 
 def group_commit(state, rows, ns, tss, a_log2: int, t_log2: int):
     """K5: commit k staged batches `rows` [k, n_pad, 32] (slot i: lanes
-    < ns[i], timestamp tss[i]) into `state` in place, in slot order, through
-    K3's fast tier. Returns (flat int32 [k * n_pad + 1]: the codes of each
+    < ns[i], timestamp tss[i]) into `state` in place, in slot order, with
+    K3's fast-tier phases, in one launch of one cluster. Returns (flat int32 [k * n_pad + 1]: the codes of each
     slot then the fault word, summary int32 [k + 1]: each slot's count of
     non-zero codes then the fault word)."""
     _need(rows, torch.int32, 3, "group rows")
@@ -520,20 +520,31 @@ def spill_split(rows, cap_log2: int, n_cold: int):
     return cold, hot
 
 
-def spill_gather(rows, fulfill, idx):
+def spill_gather(rows, fulfill, idx, out=None):
     """K10 gather: (rows [B, 32], fulfill [B]) at the slots `idx` (int32
-    [B], each at most the dump slot)."""
+    [B], each at most the dump slot), in one launch for any B. `out`, if
+    given, is a pair of tensors to write instead: [B, 32] and [B] int32
+    (views of a kept staging buffer)."""
     _need(rows, torch.int32, 2, "rows")
     _need(fulfill, torch.int32, 1, "fulfill")
     _need(idx, torch.int32, 1, "idx")
     if rows.shape[1] != 32 or fulfill.shape[0] != rows.shape[0]:
         raise ValueError(f"spill_gather: rows {tuple(rows.shape)}, fulfill {tuple(fulfill.shape)}")
     B = idx.shape[0]
-    out = torch.empty((B, 32), dtype=torch.int32, device=rows.device)
-    ful = torch.empty(B, dtype=torch.int32, device=rows.device)
+    if out is None:
+        out = (torch.empty((B, 32), dtype=torch.int32, device=rows.device),
+               torch.empty(B, dtype=torch.int32, device=rows.device))
+    out_rows, out_ful = out
+    if B == 0:
+        return out_rows, out_ful  # nothing to launch
+    _need(out_rows, torch.int32, 2, "out rows")
+    _need(out_ful, torch.int32, 1, "out fulfill")
+    if out_rows.shape != (B, 32) or out_ful.shape != (B,):
+        raise ValueError(f"spill_gather: out {tuple(out_rows.shape)}, {tuple(out_ful.shape)} "
+                         f"for {B} slots")
     _launch("tb_spill_gather", "spill_gather", _ptr(rows), _ptr(fulfill), _ptr(idx), B,
-            _ptr(out), _ptr(ful), _stream())
-    return out, ful
+            _ptr(out_rows), _ptr(out_ful), _stream())
+    return out_rows, out_ful
 
 
 def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):

@@ -37,7 +37,11 @@ all-or-nothing gate, scatter). Each has a plain PyTorch version here
 they launch the kernels of `csrc/spill_split.cu` and `csrc/spill_reload.cu`.
 The rebuild's slot placement depends on the chunking (CHUNK rows a reload,
 ascending slot order, the claim rule), and slot placement is state, so the
-chunking is the JAX package's.
+chunking is the JAX package's. The gather is not chunked: a cycle gathers
+each side in one call (the JAX cycle gathers CHUNK windows because XLA
+wants one compiled shape), the cold side into a kept device staging buffer
+whose chunks are copied to the host in the JAX package's order, the hot
+side padded to whole chunks, whose slices feed the reloads.
 
 Accounts do not spill: account rows are the working set of every batch
 (debit/credit balance updates), and the reference's workload is a bounded
@@ -74,7 +78,7 @@ I32 = torch.int32
 I64 = torch.int64
 ROW_WORDS = 32
 
-CHUNK = 8192  # rows a gather or reload moves (the JAX package's BATCH_PAD)
+CHUNK = 8192  # rows a reload moves and a host copy stages (the JAX package's BATCH_PAD)
 KEEP_FRAC = 0.25  # share of the live rows a cycle keeps in the table
 U64_MAX_I64 = -1  # 0xFFFF_FFFF_FFFF_FFFF as an int64 value
 
@@ -271,12 +275,18 @@ def spill_gather_plain(rows, fulfill, idx):
     return rows[idx], fulfill[idx]
 
 
-def spill_gather(rows, fulfill, idx):
+def spill_gather(rows, fulfill, idx, out=None):
     """K10 gather wrapper: the plain version for CPU tensors, the CUDA
-    kernel else."""
+    kernel else (one launch for the whole of `idx`). With `out`, a pair of
+    [B, 32] and [B] int32 tensors, the rows and words go there."""
     if _check_device(rows):
-        return _k.spill_gather(rows, fulfill, idx)
-    return spill_gather_plain(rows, fulfill, idx)
+        return _k.spill_gather(rows, fulfill, idx, out)
+    got = spill_gather_plain(rows, fulfill, idx)
+    if out is None:
+        return got
+    out[0].copy_(got[0])
+    out[1].copy_(got[1])
+    return out
 
 
 def spill_reload_plain(tbl, rows_b, ful_b, active, cap_log2: int):
@@ -333,8 +343,8 @@ class SpillKernels:
     def split_idx(self, rows, n_cold: int):
         return spill_split(rows, self.t_log2, n_cold)
 
-    def gather(self, rows, fulfill, idx):
-        return spill_gather(rows, fulfill, idx)
+    def gather(self, rows, fulfill, idx, out=None):
+        return spill_gather(rows, fulfill, idx, out)
 
     def reload(self, tbl, rows_b, ful_b, active):
         return spill_reload(tbl, rows_b, ful_b, active, self.t_log2)
@@ -436,6 +446,7 @@ class SpillManager:
         self._reload_slots: dict[int, dict] = {}
         # the cycle's pinned landing buffer for cold rows (grown, kept)
         self._gather_buf: dict | None = None
+        self._gather_dev: dict | None = None
 
     # ------------------------------------------------------------------
     # the IO executor seam
@@ -868,6 +879,21 @@ class SpillManager:
             buf = self._gather_buf = {"cap": cap, "rows": rows, "ful": ful}
         return buf
 
+    def _gather_staging(self, n: int) -> dict:
+        """The cycle's staging buffer on the ledger's device for `n` cold
+        rows, grown to a power of two and kept: the cold side's one gather
+        writes it, the chunks' copies to the host read it."""
+        buf = self._gather_dev
+        if buf is None or buf["cap"] < n:
+            cap = _next_pow2(n)
+            dev = self.ledger.device
+            buf = self._gather_dev = {
+                "cap": cap,
+                "rows": torch.empty((cap, ROW_WORDS), dtype=I32, device=dev),
+                "ful": torch.empty(cap, dtype=I32, device=dev),
+            }
+        return buf
+
     def _cycle(self, need: int) -> None:
         led = self.ledger
         st = led.state
@@ -893,22 +919,27 @@ class SpillManager:
         t0 = time.perf_counter()
 
         # 1. Cold rows -> host. The d2h gather is synchronous (the spilled
-        # set must be exact before the next admit()): every chunk's gather
-        # and copy into the pinned landing buffer is enqueued first, then
+        # set must be exact before the next admit()): one gather of the
+        # whole cold side into the device staging buffer, then every
+        # chunk's copy into the pinned landing buffer is enqueued, then
         # each chunk is staged as soon as its copy has landed. LSM insertion
         # is NOT synchronous: rows stage in _staged and the IO worker drains
         # them into the forest while commits continue (reference keeps all
         # storage IO off the replica's hot path, src/io/linux.zig:17-42).
         # The worker gets host copies; it never touches the card.
         host = self._gather_host(n_cold)
+        staging = self._gather_staging(n_cold)
+        rows_d, ful_d = self.kernels.gather(
+            st["xfer_rows"], st["fulfill"], cold_idx[:n_cold],
+            out=(staging["rows"][:n_cold], staging["ful"][:n_cold]),
+        )
         landed = []
         for start in range(0, n_cold, CHUNK):
             k = min(CHUNK, n_cold - start)
-            rows_d, ful_d = self.kernels.gather(
-                st["xfer_rows"], st["fulfill"], cold_idx[start : start + CHUNK]
-            )
-            host["rows"][start : start + k].copy_(rows_d[:k], non_blocking=on_card)
-            host["ful"][start : start + k].copy_(ful_d[:k], non_blocking=on_card)
+            host["rows"][start : start + k].copy_(rows_d[start : start + k],
+                                                  non_blocking=on_card)
+            host["ful"][start : start + k].copy_(ful_d[start : start + k],
+                                                 non_blocking=on_card)
             event = None
             if on_card:
                 event = torch.cuda.Event()
@@ -942,15 +973,19 @@ class SpillManager:
             t0 = time.perf_counter()
 
         # 2. Rebuild: a fresh table, the hot tail reinserted chunk by chunk
-        #    in slot order (device to device; hot rows never visit the host)
+        #    in slot order (device to device; hot rows never visit the host).
+        #    One gather of the hot side up to a whole number of chunks (the
+        #    split pads its indices with the dump slot), then each chunk's
+        #    reload on its slice: the lanes the JAX cycle's chunks hold.
         new = fresh_table(self.kernels.t_log2, dev)
         lane = torch.arange(CHUNK, device=dev)
+        n_pad = -(-n_hot // CHUNK) * CHUNK
+        if n_pad:
+            rows_h, ful_h = self.kernels.gather(st["xfer_rows"], st["fulfill"], hot_idx[:n_pad])
         for start in range(0, n_hot, CHUNK):
             k = min(CHUNK, n_hot - start)
-            rows_d, ful_d = self.kernels.gather(
-                st["xfer_rows"], st["fulfill"], hot_idx[start : start + CHUNK]
-            )
-            self.kernels.reload(new, rows_d, ful_d, lane < k)
+            self.kernels.reload(new, rows_h[start : start + CHUNK], ful_h[start : start + CHUNK],
+                                lane < k)
         new_fault = int(new["fault"])
         if new_fault:
             raise_on_fault(new_fault, "spill rebuild")
