@@ -7,9 +7,9 @@ Phases (each failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit, the host's
    machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
    the native engine from `native/ledger.cc`; in the group commit's (K5)
-   SASS, every cluster barrier's wait must be followed by an L1
-   invalidation before any load (its later slots read through L1 what
-   earlier ones wrote); the card's dependent-load
+   and the reload's (K10r) SASS, every cluster barrier's wait must be
+   followed by an L1 invalidation before any load (their later slots and
+   chunks read what earlier ones wrote); the card's dependent-load
    latency from device memory and from shared memory (pointer chases), the
    units of the serial kernels' bounds, and the rate at which it reads
    chosen 32-byte sectors of 2^24 rows of 128 bytes (the sector probe), the
@@ -109,13 +109,25 @@ Phases (each failure exits non-zero):
    of each cycle; then the spill kernels (K10) against their plain
    versions on a copy of the table before the first cycle (head, split,
    the gather of the whole cold side and of the whole hot side, padded to
-   whole chunks, and the whole rebuild, which must equal the ledger's own)
-   and at 2^24 on a copy of phase 3's state (split at 3/4 of live, the
-   gather of 8192 cold rows and of both whole sides, a reload of 8192
-   rows), the reload's all-or-nothing gate on copies (capacity at 2^24, an
-   earlier fault, probe windows with no empty slot at 2^16), and their
-   times (the gather at both sides of the cycle and at 8192 rows, beside
-   torch.index_select);
+   whole chunks, and the whole rebuild in one launch and in one launch a
+   chunk, which must equal the ledger's own), the reload (K10r) on the
+   cases of tigerbeetle_tpu_torch/testing/reload_cases.py (one, two and
+   many chunks, resident and repeated ids, a capacity fault in a middle
+   chunk before full windows, an earlier fault) at 2^14 in chunks of 256
+   and at 2^18 in chunks of 8192, the split (K10s) on the tables of
+   tigerbeetle_tpu_torch/testing/split_cases.py (duplicates, all-equal,
+   two far-apart clusters, u64 max among the live timestamps) at 2^20 and
+   2^24 at five ranks each, and at 2^24 on a copy of phase 3's state
+   (split at 3/4 of live, the gather of 8192 cold rows and of both whole
+   sides, a reload of 8192 rows), the reload's all-or-nothing gate on
+   copies through both entry points (capacity at 2^24, an earlier fault,
+   probe windows with no empty slot at 2^16), and their times (the gather
+   at both sides of the cycle and at 8192 rows, beside torch.index_select;
+   the rebuild in one launch; the split beside its floor at the card's
+   64-byte fetch); then, in a process of its own under torch.profiler
+   (`chip_smoke.cycle_child`), a spill cycle whose split must be at most
+   four kernels and whose rebuild one, and a one-chunk reload one, none
+   with a memset;
 10. the sharded ledger on one card (K11): each sharded kernel against its
    plain version on the card at 2^12 / 2^14 slots per shard and 8 shards,
    on every failure path and fault gate (an exhausted shard, claim
@@ -2139,9 +2151,10 @@ INSTALL_CHUNK = 8192
 
 def barriers_invalidate_l1(lib, kernel="group_commit_kernel") -> int:
     """K5's later slots read through L1 what earlier slots wrote from other
-    SMs; that holds because every cluster barrier's wait is followed by an
-    L1 invalidation before the next global load. Check it in the SASS of
-    `kernel` in the built library (cuobjdump); returns the barriers seen."""
+    SMs (and K10r's later chunks read what earlier ones wrote); that holds
+    because every cluster barrier's wait is followed by an L1 invalidation
+    before the next global load. Check it in the SASS of `kernel` in the
+    built library (cuobjdump); returns the barriers seen."""
     from tigerbeetle_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
@@ -2628,16 +2641,26 @@ def k5_trace(card) -> dict:
     return got
 
 
+# the K10 calls of a cycle whose host time cycle_child takes (t_scan: the
+# head and the split; t_gather_d2h: the gather of the cold side; t_rebuild:
+# the hot side's gather and the reloads), and its legs: each call's seconds
+# and count, and the cold side's copies to the host and the waits on them
+CYCLE_CALLS = ("cycle_head", "split_idx", "gather", "reload", "reload_chunks")
+CYCLE_LEGS = CYCLE_CALLS + tuple(f"n_{c}" for c in CYCLE_CALLS) + ("copies", "waits")
+
+
 def cycle_child(cycles=3):
     """In a process of its own: the spill cycle of phase 9's ledger at its
     shape (2^20 transfer slots filled to the load limit with fresh rows, so
     a cycle spills about 393 K rows and keeps about 131 K), through the
     `SpillManager` of the checkout on sys.path, the IO deferred (no worker
-    thread). Each cycle's t_gather_d2h leg is split into the host time in
-    the gather calls, in the copies' enqueue and in the waits for the
+    thread). Each cycle's legs are split into the host time in each K10
+    call (CYCLE_CALLS: t_scan's head and split, the gathers, t_rebuild's
+    reloads), in the cold side's copies' enqueue and in the waits for the
     copies' events; one more cycle under torch.profiler gives the device
-    time of the gather kernels and of the device-to-host copies. Prints one
-    JSON line."""
+    time by kernel and copy, for the whole cycle and for each K10 call, and
+    then one K10r call of 8192 rows into the rebuilt table (half of them
+    resident), as a batch's reload makes it. Prints one JSON line."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -2683,17 +2706,41 @@ def cycle_child(cycles=3):
         ledger._xfer_used = n_live
         torch.cuda.synchronize()
 
-    legs = {"gather_calls": 0.0, "copies": 0.0, "waits": 0.0, "n_gather": 0}
-    gather = spill.kernels.gather
+    def one_chunk():
+        """8192 stored rows for one reload into the rebuilt table: 4096 of its
+        own (resident, skipped) and 4096 with new ids."""
+        half = 4096
+        live = torch.nonzero((st["xfer_rows"][:-1, :4] != 0).any(1)).squeeze(1)[:half]
+        rows_b = torch.cat([st["xfer_rows"][live], st["xfer_rows"][live]])
+        ful_b = torch.cat([st["fulfill"][live], st["fulfill"][live]])
+        rows_b[half:, 0] = torch.arange(1, half + 1, device=dev, dtype=torch.int32)
+        rows_b[half:, 1:4] = 0x5A5A5A5A
+        return rows_b, ful_b, torch.ones(2 * half, dtype=torch.bool, device=dev)
 
-    def timed_gather(*a, **kw):
-        t0 = time.perf_counter()
-        try:
-            return gather(*a, **kw)
-        finally:
-            legs["gather_calls"] += time.perf_counter() - t0
-            legs["n_gather"] += 1
+    legs = dict.fromkeys(CYCLE_LEGS, 0.0)
+    tracing = [False]
 
+    def timed_call(name, fn):
+        """`fn` with its host time added to legs[name] and its calls counted;
+        under the profiler, in a range of its own."""
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                if tracing[0]:
+                    with record_function(f"k10_{name}"):
+                        return fn(*a, **kw)
+                return fn(*a, **kw)
+            finally:
+                legs[name] += time.perf_counter() - t0
+                legs[f"n_{name}"] += 1
+        return run
+
+    # the K10 entry points the cycle calls (`reload_chunks` where the
+    # package has it, the chunk loop's `reload` where it does not)
+    kernels = spill.kernels
+    for name in CYCLE_CALLS:
+        if hasattr(kernels, name):
+            setattr(kernels, name, timed_call(name, getattr(kernels, name)))
     copy = torch.Tensor.copy_
     sync = torch.cuda.Event.synchronize
 
@@ -2711,27 +2758,34 @@ def cycle_child(cycles=3):
         finally:
             legs["waits"] += time.perf_counter() - t0
 
-    spill.kernels.gather = timed_gather
     torch.Tensor.copy_ = timed_copy
     torch.cuda.Event.synchronize = timed_sync
     runs = []
     for c in range(cycles + 1):
         fill()
         before = dict(spill.stats)
-        for k in ("gather_calls", "copies", "waits", "n_gather"):
+        for k in legs:
             legs[k] = 0
         K.reset_launches()
         if c < cycles:
             spill.cycle(8190)
         else:
+            tracing[0] = True
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 with record_function("cycle"):
                     spill.cycle(8190)
                 torch.cuda.synchronize()
+                rows_b, ful_b, active = one_chunk()
+                with record_function("k10_reload_one"):  # K10r as a batch's reload calls it
+                    K.spill_reload(st, rows_b, ful_b, active, SPILL_LOG2)
+                torch.cuda.synchronize()
+            tracing[0] = False
+            if int(st["fault"]):
+                fail(f"the traced reload faulted: {int(st['fault'])}")
         torch.cuda.synchronize()
         run = {k: spill.stats[k] - before[k] for k in ("spilled", "t_scan", "t_gather_d2h",
                                                        "t_stage", "t_rebuild")}
-        run.update({k: legs[k] for k in ("gather_calls", "copies", "waits", "n_gather")})
+        run.update(legs)
         run["launches"] = {k: v for k, v in K.LAUNCHES.items() if v}
         runs.append(run)
     torch.Tensor.copy_ = copy
@@ -2740,9 +2794,45 @@ def cycle_child(cycles=3):
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "cycle.json")
     prof.export_chrome_trace(path)
-    split = _device_split(_trace_device(path)["cycle"])
-    print(json.dumps({"runs": runs, "traced": split, "n_live": n_live,
+    traced = _trace_device(path)
+    split = _device_split(traced["cycle"])
+    by_call = {name: _device_split(ev) for name, ev in traced.items() if name != "cycle"}
+    print(json.dumps({"runs": runs, "traced": split, "traced_calls": by_call, "n_live": n_live,
                       "card": torch.cuda.get_device_name(0)}))
+
+
+def cycle_trace(card) -> dict:
+    """cycle_child in a process of its own (late in this one a profiler
+    session recorded no kernels): in the traced cycle the split (K10s) must
+    be at most SPLIT_LAUNCHES kernels and the rebuild's reloads one kernel,
+    and the one-chunk reload one kernel, none with a memset. Logs each
+    cycle's legs and returns the JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.cycle_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced spill cycle failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for r in got["runs"]:
+        log(f"  cycle at 2^{SPILL_LOG2} ({r['spilled']} spilled): t_scan "
+            f"{r['t_scan'] * 1e3:.4f} ms (head {r['cycle_head'] * 1e3:.4f}, split {r['split_idx'] * 1e3:.4f} in its "
+            f"wrapper), t_rebuild {r['t_rebuild'] * 1e3:.4f} ms (gather "
+            f"{r['gather'] * 1e3:.4f} over both sides, reloads {r['n_reload_chunks']:.0f} + "
+            f"{r['n_reload']:.0f} calls {(r['reload_chunks'] + r['reload']) * 1e3:.4f}); "
+            f"launches {r['launches']} [{card}]")
+    calls = got["traced_calls"]
+    for name in ("k10_split_idx", "k10_reload_chunks", "k10_reload_one"):
+        sp = calls.get(name)
+        if sp is None:
+            fail(f"the traced cycle has no {name} call")
+        n_k = sum(v for k, v in sp["counts"].items() if not k.startswith("mem"))
+        log(f"  trace {name}: {n_k} kernels {sp['counts']}; device us {sp['us']}; span "
+            f"{sp['span_us']:.1f} us, gaps {sp['gap_us']:.1f} us")
+        most = SPLIT_LAUNCHES if name == "k10_split_idx" else 1
+        if any(k.startswith("mem") for k in sp["counts"]) or not 1 <= n_k <= most:
+            fail(f"{name}: {sp['counts']}; at most {most} kernels and no memset expected")
+    return got
 
 
 # ----------------------------------------------------------------------
@@ -2752,6 +2842,7 @@ def cycle_child(cycles=3):
 SPILL_LOG2 = 20  # the transfer table of phase 9 (cut from 2^24: see PERF.md section 4)
 SPILL_REQUESTS = 128
 SPILL_PENDING = 8  # requests 0-7 are pendings; the last 8 post and void them
+SPLIT_LAUNCHES = 4  # csrc/spill_split.cu: init, scan, select, partition
 GRID_BLOCKS = 16384  # 2 GiB of 128 KiB grid blocks
 
 
@@ -2781,7 +2872,8 @@ def spill_requests(types, rng):
     return reqs
 
 
-def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_process):
+def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_process,
+                sector_ms):
     """The bounded-memory path on cuda: StateMachine over DeviceLedger(2^20 /
     2^20 slots, forest=...) with the default threaded IO, against the
     native engine NativeLedger(20, 24) on the same requests; then K10
@@ -3005,20 +3097,38 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
             f"kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], plain {pt[0]:.4f} ms, "
             f"bound {b:.6f} ms (bytes), torch.index_select of rows and fulfill {lib[0]:.4f} ms "
             f"[{card}]")
+    # the rebuild: all its chunks in one launch, and one launch a chunk
+    # through the one-chunk entry, each against the plain chunk loop
+    rows_h, ful_h = S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"], hot[:hot_pad])
     fresh_k, fresh_p = S.fresh_table(t_log2, dev), S.fresh_table(t_log2, dev)
-    lane = torch.arange(S.CHUNK, device=dev)
-    for start in range(0, live - n_cold, S.CHUNK):
-        rows_b, ful_b = S.spill_gather_plain(pre["xfer_rows"], pre["fulfill"],
-                                             hot[start:start + S.CHUNK])
-        active = lane < min(S.CHUNK, live - n_cold - start)
-        K.spill_reload(fresh_k, rows_b, ful_b, active, t_log2)
-        S.spill_reload_plain(fresh_p, rows_b, ful_b, active, t_log2)
-    torch.cuda.synchronize()
-    held(f"K10 spill_reload (2^{t_log2}, the first cycle's rebuild, "
-         f"{(live - n_cold + S.CHUNK - 1) // S.CHUNK} chunks)", (), (), fresh_k, fresh_p)
+    pk = K.spill_reload_chunks(fresh_k, rows_h, ful_h, n_hot, t_log2)
+    pp = S.spill_reload_chunks_plain(fresh_p, rows_h, ful_h, n_hot, t_log2)
+    held(f"K10 spill_reload (2^{t_log2}, the first cycle's rebuild, {hot_pad // S.CHUNK} chunks "
+         "in one launch)", pk, pp, fresh_k, fresh_p)
     rebuilt = {k: post[k] for k in fresh_k}
-    held("  the rebuild equals the ledger's own", (), (), fresh_k, rebuilt)
-    del captured, pre, post, fresh_k, fresh_p
+    held("K10 spill_reload (the rebuild equals the ledger's own)", (), (), fresh_k, rebuilt)
+    fresh_c = S.fresh_table(t_log2, dev)
+    lane = torch.arange(S.CHUNK, device=dev)
+    for start in range(0, n_hot, S.CHUNK):
+        pk = K.spill_reload(fresh_c, rows_h[start:start + S.CHUNK], ful_h[start:start + S.CHUNK],
+                            lane < min(S.CHUNK, n_hot - start), t_log2)
+    held(f"K10 spill_reload (2^{t_log2}, the first cycle's rebuild, one launch a chunk)", pk, pp,
+         fresh_c, fresh_p)
+    # the rebuild's time: one launch into a fresh table (made beforehand)
+    tables = [S.fresh_table(t_log2, dev) for _ in range(10)]
+    it = iter(tables)
+    rebuild_t = timed(torch, lambda: K.spill_reload_chunks(next(it), rows_h, ful_h, n_hot, t_log2),
+                      10)
+    probes = probe_counts(torch, L.ht, rows_h[:n_hot, :4].contiguous(), post["xfer_rows"], t_log2,
+                          32)
+    rebuild_b = bound(n_hot * 2 * (128 + 4) + probes * 32)[0]
+    log(f"  K10r, the first cycle's rebuild (2^{t_log2}, {n_hot} rows, {hot_pad // S.CHUNK} chunks "
+        f"in one launch): {rebuild_t[0]:.4f} ms [p25 {rebuild_t[1]:.4f}, p75 {rebuild_t[2]:.4f}], "
+        f"bound {rebuild_b:.6f} ms (bytes) [{card}]")
+    del tables, fresh_c, rows_h, ful_h, captured, pre, post, fresh_k, fresh_p
+    torch.cuda.empty_cache()
+    k10r_cases(torch, S, K, dev, errs)
+    k10s_cases(torch, S, K, dev, errs)
 
     # K10 at 2^24 on a copy of the main path's state
     big = {k: main_state[k].clone() for k in ("xfer_rows", "fulfill", "xfer_claim",
@@ -3068,9 +3178,21 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
                    timed(torch, lambda: S.spill_head_plain(big["xfer_rows"], big["fault"]), 3),
                    *bound(slots * SECTOR + 8), None)
     size = slots + S.CHUNK
+    # the key sector of every slot, the timestamp sector of a live one, both
+    # lists written once
     out["K10s"] = (timed(torch, lambda: K.spill_split(big["xfer_rows"], b_log2, n_cold), 10),
                    timed(torch, lambda: S.spill_split_plain(big["xfer_rows"], n_cold), 3),
-                   *bound(slots * 2 * SECTOR + 2 * size * 4), None)
+                   *bound(slots * SECTOR + live * SECTOR + 2 * size * 4), None)
+    # at the card's 64-byte fetch (the sector probe, phase 1): the key half
+    # of every row, the timestamp half of a live one, the lists, and the
+    # live list (slot and timestamp) written once and read three times
+    per_row = sector_ms[1] / (1 << 24)
+    floor = (slots * per_row + live * (sector_ms[5] - sector_ms[1]) / (1 << 24)
+             + bound(2 * size * 4 + live * 12 * 4)[0])
+    log(f"  K10s's floor at the card's 64-byte fetch (2^{b_log2}, {live} live): {floor:.6f} ms "
+        f"(a key half a row {slots * per_row:.6f}, a timestamp half a live row "
+        f"{live * (sector_ms[5] - sector_ms[1]) / (1 << 24):.6f}, the lists and the live list "
+        f"{bound(2 * size * 4 + live * 12 * 4)[0]:.6f}) [{card}]")
     out["K10g"] = cycle_gather["cold"]
     idx = cold[:S.CHUNK]  # the old shape: one chunk a launch
     kt = timed(torch, lambda: K.spill_gather(big["xfer_rows"], big["fulfill"], idx), 20)
@@ -3098,6 +3220,95 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     torch.cuda.empty_cache()
     return launches, errs, out
 
+RELOAD_GEOMETRIES = ((14, 256), (18, 8192))  # (cap_log2, chunk) of testing/reload_cases.py
+SPLIT_LOG2S = (20, 24)  # the table sizes of testing/split_cases.py on the card
+
+
+def k10r_cases(torch, S, K, dev, errs):
+    """K10r against its plain version on the cases of
+    testing/reload_cases.py at 2^14 slots in chunks of 256 and at 2^18 in
+    chunks of 8192: each case's chunks in one launch and one launch a chunk
+    (the one-chunk entry, its lanes below the chunk's length active), the
+    sparse mask through the one-chunk entry alone; every leaf (the dump
+    row too: neither writes it) and the probe word equal, and the fault
+    bits the case is built for."""
+    import zlib
+
+    from tigerbeetle_tpu_torch.testing import reload_cases as RC
+
+    for log2, chunk in RELOAD_GEOMETRIES:
+        for case in RC.CASES:
+            rng = np.random.default_rng(zlib.crc32(f"{case}.{log2}.{chunk}".encode()))
+            c = RC.reload_case(case, log2, chunk, rng)
+            rows = torch.from_numpy(c["rows"].view(np.int32)).to(dev)
+            ful = torch.from_numpy(c["ful"].view(np.int32)).to(dev)
+            n = c["n"]
+            start = RC.to_torch(c["table"], dev)
+            name = f"K10 spill_reload (case {case}, 2^{log2}, chunks of {chunk}, {n} rows"
+            if c["active"] is not None:
+                act = torch.from_numpy(c["active"]).to(dev)
+                runs = [(f"{name})", lambda s: K.spill_reload(s, rows, ful, act, log2),
+                         lambda s: S.spill_reload_plain(s, rows, ful, act, log2))]
+            else:
+                lane = torch.arange(chunk, device=dev)
+
+                def by_chunk(s):
+                    probe = None
+                    for i in range(0, n, chunk):
+                        probe = K.spill_reload(s, rows[i:i + chunk], ful[i:i + chunk],
+                                               lane < min(chunk, n - i), log2)
+                    return probe
+
+                runs = [(f"{name}, one launch)",
+                         lambda s: K.spill_reload_chunks(s, rows, ful, n, log2, chunk),
+                         lambda s: S.spill_reload_chunks_plain(s, rows, ful, n, log2, chunk)),
+                        (f"{name}, one launch a chunk)", by_chunk,
+                         lambda s: S.spill_reload_chunks_plain(s, rows, ful, n, log2, chunk))]
+            for what, run_kernel, run_plain in runs:
+                _, sp = hold(torch, what, start, run_kernel, run_plain)
+                fault = int(sp["fault"]) & 0xFFFFFFFF
+                if (fault & c["fault"]) != c["fault"] or (fault == 0) != (c["fault"] == 0):
+                    fail(f"{what}: fault word {fault:#x}, the case is built for {c['fault']:#x}")
+                errs[what] = 0  # hold() failed the run on any difference
+            del start, rows, ful
+    torch.cuda.empty_cache()
+
+
+def k10s_cases(torch, S, K, dev, errs):
+    """K10s against its plain version on the tables of
+    testing/split_cases.py at 2^20 and 2^24 slots, each split at every rank
+    of split_cases.RANKS: both lists equal."""
+    import zlib
+
+    from tigerbeetle_tpu_torch.testing import split_cases as SC
+
+    for log2 in SPLIT_LOG2S:
+        for case in SC.CASES:
+            rng = np.random.default_rng(zlib.crc32(f"{case}.{log2}".encode()))
+            rows = torch.from_numpy(SC.split_case(case, log2, rng).view(np.int32)).to(dev)
+            live = int(S.spill_head_plain(rows, torch.zeros((), dtype=torch.int32, device=dev))[0])
+            worst = 0
+            for rank in SC.RANKS:
+                n_cold = SC.n_cold_of(rank, live)
+                got = K.spill_split(rows, log2, n_cold)
+                want = S.spill_split_plain(rows, n_cold)
+                torch.cuda.synchronize()
+                err = max(max_abs_diff(a, b) for a, b in zip(got, want))
+                if err:
+                    for side, a, b in zip(("cold", "hot"), got, want):
+                        idx = (a != b).nonzero()[:4].flatten().tolist()
+                        log(f"    {side}: {int((a != b).sum())} differ; at {idx}: kernel "
+                            f"{a[idx].tolist()}, plain {b[idx].tolist()}")
+                    fail(f"K10 spill_split (case {case}, 2^{log2}, n_cold {n_cold} of {live}) "
+                         "differs from its plain version")
+                worst = max(worst, err)
+            name = f"K10 spill_split (case {case}, 2^{log2}, {live} live, n_cold at {SC.RANKS})"
+            errs[name] = worst
+            log(f"  {name}: max_abs_err={worst}")
+            del rows
+    torch.cuda.empty_cache()
+
+
 def reload_gates(torch, L, S, types, constants, dev, big, b_log2, new_chunk, errs):
     """K10 reload's gate against its plain version, on clones: the chunk is
     all or nothing. At 2^24: used_slots just below half the slots
@@ -3110,18 +3321,22 @@ def reload_gates(torch, L, S, types, constants, dev, big, b_log2, new_chunk, err
     all_on = torch.ones(S.CHUNK, dtype=torch.bool, device=dev)
 
     def gate(name, start, rows_b, ful_b, log2, want_bits, want_exact):
-        name = f"K10 spill_reload (gate: {name})"
-        (probe,), sp = hold(torch, name, start,
-                            lambda s: K.spill_reload(s, rows_b, ful_b, all_on, log2),
-                            lambda s: S.spill_reload_plain(s, rows_b, ful_b, all_on, log2))
-        fault = int(sp["fault"])
-        if (fault & want_bits) != want_bits or (want_exact and fault != want_bits):
-            fail(f"{name}: fault word {fault:#x}, expected {want_bits:#x}")
-        if compare_states({k: v for k, v in sp.items() if k != "fault"},
-                          {k: v for k, v in start.items() if k != "fault"}):
-            fail(f"{name}: a faulted reload wrote to the table")
-        errs[name] = 0  # hold() failed the run on any difference
-        log(f"    probe word {int(probe)}; the table is as it was")
+        n = rows_b.shape[0]
+        for entry, run_kernel in (
+                ("", lambda s: K.spill_reload(s, rows_b, ful_b, all_on, log2)),
+                (", all chunks in one launch",
+                 lambda s: K.spill_reload_chunks(s, rows_b, ful_b, n, log2))):
+            what = f"K10 spill_reload (gate: {name}{entry})"
+            (probe,), sp = hold(torch, what, start, run_kernel,
+                                lambda s: S.spill_reload_plain(s, rows_b, ful_b, all_on, log2))
+            fault = int(sp["fault"])
+            if (fault & want_bits) != want_bits or (want_exact and fault != want_bits):
+                fail(f"{what}: fault word {fault:#x}, expected {want_bits:#x}")
+            if compare_states({k: v for k, v in sp.items() if k != "fault"},
+                              {k: v for k, v in start.items() if k != "fault"}):
+                fail(f"{what}: a faulted reload wrote to the table")
+            errs[what] = 0  # hold() failed the run on any difference
+            log(f"    probe word {int(probe)}; the table is as it was")
 
     rows_b, ful_b = new_chunk(100)
     full = dict(big)
@@ -3910,6 +4125,8 @@ def main() -> int:
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
     log(f"  K5's SASS: each of its {barriers_invalidate_l1(lib)} cluster barrier waits is "
         "followed by an L1 invalidation (CCTL.IVALL) before any load")
+    log(f"  K10r's SASS: each of its {barriers_invalidate_l1(lib, 'reload_chunks')} cluster "
+        "barrier waits is followed by an L1 invalidation (CCTL.IVALL) before any load")
     from tigerbeetle_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -3972,7 +4189,8 @@ def main() -> int:
     log(f"== phase 9: the bounded-memory ledger, DeviceLedger(ConfigProcess(20, {SPILL_LOG2}), "
         "forest=...) on cuda against NativeLedger(20, 24)")
     spill_launches, spill_errs, spill_rows = phase_spill(
-        torch, L, SM, types, constants, dev, card, ledger.state, ledger.process)
+        torch, L, SM, types, constants, dev, card, ledger.state, ledger.process, sector_ms)
+    cycle_trace(card)
 
     log("== phase 10: the sharded ledger on one card, ShardedLedger(8, ConfigProcess()) on cuda "
         "against NativeLedger(20, 24)")

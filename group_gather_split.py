@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K5 (the group commit) and K10's gather in the spill cycle, for two
-checkouts on one card, in alternating processes.
+"""K5 (the group commit) and K10 in the spill cycle, for two checkouts on
+one card, in alternating processes.
 
 Each round runs, for the `tigerbeetle_tpu_torch` package of one checkout,
 two processes of `chip_smoke.py` (of this checkout):
@@ -13,14 +13,18 @@ two processes of `chip_smoke.py` (of this checkout):
   card alone (CUDA events) and the wrapper's host time;
 - `cycle_child`: the spill cycle at phase 9's shape (2^20 transfer slots
   filled to the load limit: about 393 K rows spilled, 131 K kept), each
-  cycle's t_gather_d2h leg split into the host time in the gather calls, in
-  the copies' enqueue and in the waits for their events, and one cycle's
-  device time by kernel and copy from a trace.
+  cycle's legs (t_scan, t_gather_d2h, t_stage, t_rebuild) beside the host
+  time in the K10 calls within them (t_scan: the head and the split,
+  K10h and K10s; t_gather_d2h: the cold side's gather, K10g, its copies'
+  enqueue and the waits for them; t_rebuild: the hot side's gather and the
+  reloads, K10r, one call a chunk or one call for all), and one cycle's
+  device time by kernel and copy from a trace, for the whole cycle and for
+  each K10 call.
 
 The order is parent, this checkout, this checkout, parent, repeated
-`--rounds` times.
+`--rounds` times; `--children cycle` runs the spill cycle alone.
 
-    python3 group_gather_split.py --parent DIR [--rounds 1]
+    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle]
 
 DIR is a `git archive` of another commit in a git-ignored directory (such
 as `build/parent`). Needs one card and nvcc; each checkout builds its own
@@ -45,7 +49,10 @@ CHILD = (
     "s.loader.exec_module(m); m.{fn}()"
 )
 K5_KEYS = ("k5_ms", "k5_card_ms", "k5_host_ms")
-LEGS = ("t_gather_d2h", "gather_calls", "copies", "waits", "t_stage", "t_rebuild")
+# each cycle's legs and, after each, the K10 calls' host time within it
+LEGS = ("t_scan", "cycle_head", "split_idx", "t_gather_d2h", "gather", "copies", "waits",
+        "t_stage", "t_rebuild", "reload", "reload_chunks")
+CALLS = ("cycle_head", "split_idx", "gather", "reload", "reload_chunks")
 
 
 def child(label: str, repo: Path, fn: str) -> dict:
@@ -58,28 +65,41 @@ def child(label: str, repo: Path, fn: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def run(label: str, repo: Path) -> dict:
-    k5 = child(label, repo, "k5_child")
-    print(f"{label}: K5 " + ", ".join(f"{k} {k5[k]:.4f}" for k in K5_KEYS), flush=True)
-    for name, sp in sorted(k5["split"].items()):
-        print(f"{label}: {name} {sp['counts']} device us "
-              + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
-              + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
-    cyc = child(label, repo, "cycle_child")
-    for i, r in enumerate(cyc["runs"]):
-        print(f"{label}: cycle {i} spilled {r['spilled']}, gathers {r['n_gather']}; "
-              + ", ".join(f"{k} {r[k] * 1e3:.3f} ms" for k in LEGS), flush=True)
-    t = cyc["traced"]
-    print(f"{label}: traced cycle {t['counts']} device us "
-          + ", ".join(f"{k} {v:.1f}" for k, v in t["us"].items()), flush=True)
-    return {"k5": k5, "cycle": cyc}
+def run(label: str, repo: Path, children) -> dict:
+    out = {}
+    if "k5" in children:
+        k5 = out["k5"] = child(label, repo, "k5_child")
+        print(f"{label}: K5 " + ", ".join(f"{k} {k5[k]:.4f}" for k in K5_KEYS), flush=True)
+        for name, sp in sorted(k5["split"].items()):
+            print(f"{label}: {name} {sp['counts']} device us "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
+                  + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
+    if "cycle" in children:
+        cyc = out["cycle"] = child(label, repo, "cycle_child")
+        for i, r in enumerate(cyc["runs"]):
+            print(f"{label}: cycle {i} spilled {r['spilled']}, calls "
+                  + ", ".join(f"{c} {r['n_' + c]}" for c in CALLS) + "; "
+                  + ", ".join(f"{k} {r[k] * 1e3:.3f} ms" for k in LEGS), flush=True)
+        t = cyc["traced"]
+        print(f"{label}: traced cycle {t['counts']} device us "
+              + ", ".join(f"{k} {v:.1f}" for k, v in t["us"].items()), flush=True)
+        for name, sp in sorted(cyc["traced_calls"].items()):
+            print(f"{label}: traced {name} {sp['counts']} device us "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
+                  + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
+    return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--children", default="k5,cycle",
+                    help="which children to run, of k5 and cycle (comma-separated)")
     args = ap.parse_args()
+    children = set(args.children.split(","))
+    if not children or children - {"k5", "cycle"}:
+        ap.error(f"--children: {args.children!r}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -88,17 +108,19 @@ def main() -> int:
     for _ in range(args.rounds):
         for label, repo in (("parent", args.parent.resolve()), ("change", HERE),
                             ("change", HERE), ("parent", args.parent.resolve())):
-            runs[label].append(run(label, repo))
+            runs[label].append(run(label, repo, children))
     summary = {"card": card}
     for label, got in runs.items():
-        untraced = [r for g in got for r in g["cycle"]["runs"][:-1]]
-        summary[label] = {
-            **{k: float(np.median([g["k5"][k] for g in got])) for k in K5_KEYS},
-            "k5_trace": got[0]["k5"]["split"],
-            "cycle_ms": {k: float(np.median([r[k] for r in untraced])) * 1e3 for k in LEGS},
-            "cycle_gathers": untraced[0]["n_gather"],
-            "cycle_trace": got[0]["cycle"]["traced"],
-        }
+        summary[label] = s = {}
+        if "k5" in children:
+            s.update({k: float(np.median([g["k5"][k] for g in got])) for k in K5_KEYS})
+            s["k5_trace"] = got[0]["k5"]["split"]
+        if "cycle" in children:
+            untraced = [r for g in got for r in g["cycle"]["runs"][:-1]]
+            s["cycle_ms"] = {k: float(np.median([r[k] for r in untraced])) * 1e3 for k in LEGS}
+            s["cycle_calls"] = {c: untraced[0]["n_" + c] for c in CALLS}
+            s["cycle_trace"] = got[0]["cycle"]["traced"]
+            s["cycle_trace_calls"] = got[0]["cycle"]["traced_calls"]
     print(json.dumps(summary))
     return 0
 

@@ -1,5 +1,6 @@
-// Slot claim rounds (ops/hashtable.py `claim_slots`) as launches, for K2,
-// K9, K10's reload and K11 (K3 runs the same rounds in one cluster launch).
+// Slot claim rounds (ops/hashtable.py `claim_slots`) as launches, for K2
+// and K11 (K3, K5, K9, K10's reload and K11tf run the same rounds in one
+// cluster launch, cluster.cuh).
 //
 // The round bodies and the rule are claim.cuh's. Blocks run in no order, so
 // each barrier of the rule is a kernel boundary: a round is two launches,

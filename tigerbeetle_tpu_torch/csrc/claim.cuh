@@ -21,11 +21,11 @@
 // before it returns), so that select is the first free slot of the window.
 // Either way a lane index is always handled by the same thread in every
 // step, so the per-lane scratch needs no barrier; the claim column, which
-// other lanes' atomics change, is read past L1. K9 (install.cu) runs the
-// rounds chunk after chunk in one cluster launch (cluster.cuh
-// `cluster_claims`): there the table's key words, which an earlier chunk
-// wrote, are read past L1 too (kPastL1), as in K5's later slots
-// (group_commit.cu).
+// other lanes' atomics change, is read past L1. K9 (install.cu) and K10's
+// reload (spill_reload.cu) run the rounds chunk after chunk in one cluster
+// launch (cluster.cuh `cluster_claims`): there the table's key words, which
+// an earlier chunk wrote, are read past L1 too (kPastL1), as in K5's later
+// slots (group_commit.cu).
 //
 // `active` is an int32 array (lane i is active where it is nonzero) or a
 // callable `bool(int i)`.

@@ -1,7 +1,8 @@
 // Decoupled look-back (Merrill and Garland, "Single-pass Parallel Prefix
 // Scan with Decoupled Look-back", NVIDIA 2016) for a single-pass stable
 // compaction, and the per-call state it keeps between launches. Used by K8
-// (filter_scan.cu).
+// (filter_scan.cu) and K10's split (spill_split.cu, which clears its state
+// every call and so always passes epoch 1).
 //
 // Tiles are taken in order from a tile counter, so every tile's
 // predecessors were taken by blocks that are running or done: a tile may

@@ -24,7 +24,8 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     spill_head              K10 SpillKernels._cycle_head (models/spill.py)
     spill_split             K10 SpillKernels._split_idx
     spill_gather            K10 SpillKernels._gather
-    spill_reload            K10 SpillKernels._reload
+    spill_reload            K10 SpillKernels._reload (one chunk, or the
+                                rebuild's chunks in order: spill_reload_chunks)
 
 The sharded ledger's kernels (K11; JAX counterparts in
 tigerbeetle_tpu/parallel/mesh.py `ShardedLedgerKernels`):
@@ -95,6 +96,7 @@ _SIGNATURES = {
     "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
     "tb_spill_gather": [_P, _P, _P, _I64, _P, _P, _P],
     "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "tb_spill_reload_chunks": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
     "tb_mesh_lookup": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
     "tb_mesh_commit_accounts_fast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P,
@@ -547,26 +549,52 @@ def spill_gather(rows, fulfill, idx, out=None):
     return out_rows, out_ful
 
 
+def _check_reload_table(tbl, cap_log2: int) -> list[int]:
+    _check_rows(tbl["xfer_rows"], "xfer_rows", cap_log2)
+    for name in ("fulfill", "xfer_claim"):
+        _need(tbl[name], torch.int32, 1, name)
+    return _scalars(tbl, "xfer_used_slots", "fault")
+
+
 def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):
     """K10 reload: the stored rows `rows_b` [B, 32] with their fulfill words
     `ful_b` [B], lanes where `active` (bool [B]), into the transfer table of
     `tbl` (a dict with xfer_rows, fulfill, xfer_claim, xfer_used_slots and
-    fault) in place, all or nothing. Returns the probe word (int32 0-d)."""
+    fault) in place, all or nothing, in one launch of one cluster. Returns
+    the probe word (int32 0-d)."""
     B = _check_batch(rows_b, rows_b.shape[0])
-    _check_rows(tbl["xfer_rows"], "xfer_rows", cap_log2)
-    for name in ("fulfill", "xfer_claim"):
-        _need(tbl[name], torch.int32, 1, name)
+    used, fault = _check_reload_table(tbl, cap_log2)
     _need(ful_b, torch.int32, 1, "ful_b")
     _need(active, torch.bool, 1, "active")
     if B == 0 or ful_b.shape[0] != B or active.shape[0] != B:
         raise ValueError(f"spill_reload: rows {tuple(rows_b.shape)}, fulfill {tuple(ful_b.shape)}, "
                          f"active {tuple(active.shape)}")
-    used, fault = _scalars(tbl, "xfer_used_slots", "fault")
     probe = torch.empty((), dtype=torch.int32, device=rows_b.device)
     scratch = _scratch("tb_spill_reload_scratch", B, rows_b.device)
     _launch("tb_spill_reload", "spill_reload", _ptr(tbl["xfer_rows"]), _ptr(tbl["fulfill"]),
             _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b),
             _ptr(active), B, _ptr(probe), _ptr(scratch), _stream())
+    return probe
+
+
+def spill_reload_chunks(tbl, rows_b, ful_b, n: int, cap_log2: int, chunk: int = SPILL_CHUNK):
+    """K10 reload of the rebuild's whole hot side in one launch: the first
+    `n` stored rows of `rows_b` [>= n, 32] (fulfill words `ful_b`) in chunks
+    of `chunk` rows, in order, each chunk as one `spill_reload` call on its
+    slice with the lanes below its length active. Counted as a
+    `spill_reload` launch. Returns the probe word after the last chunk
+    (int32 0-d)."""
+    _check_batch(rows_b, n)
+    used, fault = _check_reload_table(tbl, cap_log2)
+    _need(ful_b, torch.int32, 1, "ful_b")
+    if ful_b.shape[0] < n or not 1 <= chunk < 1 << 31:
+        raise ValueError(f"spill_reload_chunks: rows {tuple(rows_b.shape)}, fulfill "
+                         f"{tuple(ful_b.shape)}, n {n}, chunk {chunk}")
+    probe = torch.empty((), dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_spill_reload_scratch", chunk, rows_b.device)
+    _launch("tb_spill_reload_chunks", "spill_reload", _ptr(tbl["xfer_rows"]), _ptr(tbl["fulfill"]),
+            _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b), n, chunk,
+            _ptr(probe), _ptr(scratch), _stream())
     return probe
 
 

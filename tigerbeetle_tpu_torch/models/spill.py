@@ -30,14 +30,16 @@ non-blocking upload and a CUDA event as the reuse fence). The IO worker
 touches host data only: it never makes a CUDA call.
 
 The device side is K10 (`SpillKernels`): the cycle head (live count and
-fault), the cold/hot split (a radix select of the timestamp watermark and
-two stable compactions), the row gather, and the reload (probe, claim,
-all-or-nothing gate, scatter). Each has a plain PyTorch version here
-(`spill_*_plain`), which the wrappers run for CPU tensors; for CUDA tensors
-they launch the kernels of `csrc/spill_split.cu` and `csrc/spill_reload.cu`.
-The rebuild's slot placement depends on the chunking (CHUNK rows a reload,
-ascending slot order, the claim rule), and slot placement is state, so the
-chunking is the JAX package's. The gather is not chunked: a cycle gathers
+fault), the cold/hot split (a select of the timestamp watermark and a
+stable partition of the live slots into two lists), the row gather, and
+the reload (probe, claim, all-or-nothing gate, scatter). Each has a plain
+PyTorch version here (`spill_*_plain`), which the wrappers run for CPU
+tensors; for CUDA tensors they launch the kernels of `csrc/spill_split.cu`
+and `csrc/spill_reload.cu`. The rebuild's slot placement depends on the
+chunking (CHUNK rows a reload, ascending slot order, the claim rule), and
+slot placement is state, so the chunking is the JAX package's; the rebuild
+reloads all its chunks in one call (`spill_reload_chunks`, one launch on a
+card), each as one reload. The gather is not chunked: a cycle gathers
 each side in one call (the JAX cycle gathers CHUNK windows because XLA
 wants one compiled shape), the cold side into a kept device staging buffer
 whose chunks are copied to the host in the JAX package's order, the hot
@@ -329,6 +331,32 @@ def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):
     return spill_reload_plain(tbl, rows_b, ful_b, active, cap_log2)
 
 
+def spill_reload_chunks_plain(tbl, rows_b, ful_b, n: int, cap_log2: int, chunk: int = CHUNK):
+    """Plain version of the rebuild's reloads (the JAX cycle's chunk loop
+    over `SpillKernels._reload`): the first `n` rows of `rows_b` (fulfill
+    words `ful_b`) in chunks of `chunk` rows, in order, each chunk one
+    `spill_reload_plain` on its slice with the lanes below its length
+    active. A chunk after a fault still probes and claims and ORs its bits
+    into the fault word, and writes nothing. Returns the last probe word
+    (that of the table as it stands where n is 0)."""
+    lane = torch.arange(chunk, device=rows_b.device)
+    probe = (tbl["xfer_used_slots"] & 0xFFFFFFFF).to(I32) ^ tbl["fault"]
+    for start in range(0, n, chunk):
+        k = min(chunk, n - start)
+        part = rows_b[start : start + chunk]
+        probe = spill_reload_plain(tbl, part, ful_b[start : start + chunk],
+                                   lane[:part.shape[0]] < k, cap_log2)
+    return probe
+
+
+def spill_reload_chunks(tbl, rows_b, ful_b, n: int, cap_log2: int, chunk: int = CHUNK):
+    """K10 rebuild wrapper: the plain chunk loop for CPU tensors, one launch
+    of the CUDA kernel for all the chunks else."""
+    if _check_device(rows_b):
+        return _k.spill_reload_chunks(tbl, rows_b, ful_b, n, cap_log2, chunk)
+    return spill_reload_chunks_plain(tbl, rows_b, ful_b, n, cap_log2, chunk)
+
+
 class SpillKernels:
     """The spill cycle's device entry points, closed over the transfer
     table's geometry (the counterpart of the JAX `SpillKernels`)."""
@@ -348,6 +376,9 @@ class SpillKernels:
 
     def reload(self, tbl, rows_b, ful_b, active):
         return spill_reload(tbl, rows_b, ful_b, active, self.t_log2)
+
+    def reload_chunks(self, tbl, rows_b, ful_b, n: int, chunk: int):
+        return spill_reload_chunks(tbl, rows_b, ful_b, n, self.t_log2, chunk)
 
 
 def fresh_table(t_log2: int, device) -> dict:
@@ -975,17 +1006,14 @@ class SpillManager:
         # 2. Rebuild: a fresh table, the hot tail reinserted chunk by chunk
         #    in slot order (device to device; hot rows never visit the host).
         #    One gather of the hot side up to a whole number of chunks (the
-        #    split pads its indices with the dump slot), then each chunk's
-        #    reload on its slice: the lanes the JAX cycle's chunks hold.
+        #    split pads its indices with the dump slot), then one call that
+        #    reloads the chunks in order: the lanes the JAX cycle's chunks
+        #    hold, one device launch on a card.
         new = fresh_table(self.kernels.t_log2, dev)
-        lane = torch.arange(CHUNK, device=dev)
         n_pad = -(-n_hot // CHUNK) * CHUNK
         if n_pad:
             rows_h, ful_h = self.kernels.gather(st["xfer_rows"], st["fulfill"], hot_idx[:n_pad])
-        for start in range(0, n_hot, CHUNK):
-            k = min(CHUNK, n_hot - start)
-            self.kernels.reload(new, rows_h[start : start + CHUNK], ful_h[start : start + CHUNK],
-                                lane < k)
+            self.kernels.reload_chunks(new, rows_h, ful_h, n_hot, CHUNK)
         new_fault = int(new["fault"])
         if new_fault:
             raise_on_fault(new_fault, "spill rebuild")
