@@ -150,7 +150,25 @@ Phases (each failure exits non-zero):
    accounts and on 8190 transfers: linked chains, posts and voids), their
    times (the serial transfer kernel's bound one shared-memory round trip
    an event), and a checkpoint blob restored into a fresh ledger on the
-   card answering alike.
+   card answering alike;
+11. in a process of its own (`chip_smoke.account_walk_child`), the serial
+   account commits (K2 serial and K11as, csrc/account_walk.cuh: a parallel
+   plan, then a one-warp walk that re-probes an event only where the batch
+   wrote into its window) against their plain versions on every hazard
+   request of tigerbeetle_tpu_torch/testing/hazards.py (ACCOUNT_CASES: an
+   insert at a later event's stop, live and rolled-back duplicates, a
+   rollback's tombstone at another id's stop, a window the batch fills,
+   tombstones and the empty and tombstone keys, a chain open at the end,
+   chains across the walk's groups of 32, a tripped entry gate, events past
+   n) at 2^14 slots a quarter full and at
+   the path's 2^20 (8 shards for K11as), each with the fault it is built
+   for and the events it re-probed; both at 1810 events (one linked pair)
+   and 8190 (a linked pair every 50) on the 2^20 tables against the plain
+   version on a host copy of the state; under torch.profiler two calls of
+   each at 1810 and at 8190 events must each be one or two kernels and no
+   memset; the re-probes of four more calls; both timed at 1810 events (one
+   linked pair) and 8190 (a linked pair every 50) through the wrapper and
+   on the card alone.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -411,6 +429,8 @@ def phase_kernels(torch, L, types, constants, dev):
         check(name,
               lambda s: kern(s, rows, n, ts + 10_000, a_log2),
               lambda s: plain(s, rows, n, ts + 10_000, a_log2))
+        if serial:
+            log(f"    re-probed {K.walk_reprobes('commit_accounts_serial')} of {n} events")
 
     for pv in (False, True):
         arr = fast_transfer_batch(types, rng, B, pv)
@@ -1502,11 +1522,13 @@ def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
 def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     """Each kernel and its plain version at the main path's shapes on the
     main path's state; returns {key: (kernel ms, plain ms, bound ms, bound_by)}
-    with medians and quartiles. A bound is bytes over the card's rate; for
-    the serial account kernel it is at least one dependent device-memory
-    load per event. K4 resolves its lookups ahead of its walk, so its bound
-    is the larger of its bytes and one dependent shared-memory round trip an
-    event (`smem_ns`): event i may read what event i - 1 wrote. K4 is also
+    with medians and quartiles. A bound is bytes over the card's rate. K4
+    resolves its lookups ahead of its walk, so its bound is the larger of
+    its bytes and one dependent shared-memory round trip an event
+    (`smem_ns`): event i may read what event i - 1 wrote. K2 serial's is
+    account_walk_bound: only its chain's events and its re-probed ones wait
+    for an earlier event (its old bound, a device-memory load an event, and
+    the round trip an event are printed beside it). K4 is also
     timed, with no plain run, on an 8190-event serial request (the sharded
     path's serial shape, over pendings K3 commits first)."""
     from tigerbeetle_tpu_torch import kernels as K
@@ -1518,10 +1540,8 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     B = 8190
     SECTOR = 32
 
-    def bound(nbytes, trips=0):
-        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        by_latency = trips * latency_ns * 1e-6
-        return (by_latency, "latency") if by_latency > by_bytes else (by_bytes, "bytes")
+    def bound(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
     # K1: lookup of 8190 account ids; the row gathered is one of the slots
     # probed, so its key sector is in its 128 bytes
@@ -1537,11 +1557,15 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     base = [5_000_000]
 
     def acct_rows(n, linked):
-        a = accounts(types, np.arange(base[0], base[0] + n))
-        if linked:
-            a["flags"][100:102] = [1, 0]
+        a = walk_request(types, base[0], n) if linked else accounts(
+            types, np.arange(base[0], base[0] + n))
         base[0] += n
         return L.accounts_to_batch(a, dev)["rows"]
+
+    def walk_bound(nbytes, n):
+        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        by_chain = n * smem_ns * 1e-6
+        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
 
     for key, n, reps, plain_reps, window in (("K2f", B, 10, 3, 32), ("K2s", 1810, 10, 2, 64)):
         serial = key == "K2s"
@@ -1553,9 +1577,19 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
         plain = L.commit_accounts_serial_plain if serial else L.commit_accounts_fast_plain
         it = iter(batches)
         kt = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), reps)
+        if not serial:
+            out[key] = (kt, timed(torch, lambda: plain(st, next(it), n, 10**13, a_log2),
+                                  plain_reps), *bound(nbytes))
+            continue
+        # the last timed call's re-probes and the request's chain
+        dependent = chain_events(walk_request(types, 1, n)["flags"]) + K.walk_reprobes(
+            "commit_accounts_serial")
         pt = timed(torch, lambda: plain(st, next(it), n, 10**13, a_log2), plain_reps)
-        # serial: each event's probe must see the event before it
-        out[key] = (kt, pt, *bound(nbytes, n if serial else 0))
+        out[key] = (kt, pt, *account_walk_bound(nbytes, dependent, smem_ns))
+        log(f"  K2s's bound: bytes {nbytes / H100_BYTES_PER_S * 1e3:.6f} ms, {dependent} "
+            f"dependent events (chain and re-probed) {dependent * smem_ns * 1e-6:.6f} ms; beside "
+            f"it one shared-memory round trip an event {n * smem_ns * 1e-6:.6f} ms and the old "
+            f"bound, a device-memory load an event, {n * latency_ns * 1e-6:.6f} ms")
 
     # K3 on fresh plain transfers; K4 on the linked request's residue: 200
     # chains of three, every tenth broken
@@ -1583,11 +1617,6 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
                                                       t_log2, False), 10, on_card=True)
     log(f"  K3 on the card alone: {kc[0]:.4f} ms [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] (through "
         f"its wrapper {kt[0]:.4f} ms)")
-
-    def walk_bound(nbytes, n):
-        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        by_chain = n * smem_ns * 1e-6
-        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
 
     n = 600
     batches = [xfer_rows(n) for _ in range(12)]
@@ -2801,6 +2830,24 @@ def cycle_child(cycles=3):
                       "card": torch.cuda.get_device_name(0)}))
 
 
+def spill_rate_child():
+    """In a process of its own: phase 9's requests alone (phase_spill up to
+    its rate), on the package first on sys.path; prints {"rate": transfers/s}
+    as the last line (group_gather_split.py --children spill)."""
+    import torch
+
+    from tigerbeetle_tpu_torch import constants, native, types
+    from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.kernels import build
+    from tigerbeetle_tpu_torch.models import ledger as L
+
+    build.build()
+    native.build()
+    rate = phase_spill(torch, L, SM, types, constants, torch.device("cuda"),
+                       torch.cuda.get_device_name(0), None, None, None, rate_only=True)
+    print(json.dumps({"rate": rate}))
+
+
 def cycle_trace(card) -> dict:
     """cycle_child in a process of its own (late in this one a profiler
     session recorded no kernels): in the traced cycle the split (K10s) must
@@ -2873,14 +2920,16 @@ def spill_requests(types, rng):
 
 
 def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_process,
-                sector_ms):
+                sector_ms, rate_only=False):
     """The bounded-memory path on cuda: StateMachine over DeviceLedger(2^20 /
     2^20 slots, forest=...) with the default threaded IO, against the
     native engine NativeLedger(20, 24) on the same requests; then K10
     against its plain versions at 2^20 (the first cycle's head, split,
     gather and rebuild on a copy of its table) and at 2^24 (on a copy of
     the main path's state), and K10's timing rows. Returns (launches,
-    {check: max_abs_err}, {key: timing row})."""
+    {check: max_abs_err}, {key: timing row}); with `rate_only`, only the
+    requests' transfers/s, once the IO worker is drained and the run's
+    cycles, launches and replies are checked (spill_rate_child)."""
     from tigerbeetle_tpu_torch import kernels as K
     from tigerbeetle_tpu_torch.io.storage import MemoryStorage, ZoneLayout
     from tigerbeetle_tpu_torch.lsm.grid import BLOCK_SIZE, Grid
@@ -2998,6 +3047,8 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     bad = [i for i, r in enumerate(replies) if r != b""]
     if bad:
         fail(f"requests {bad[:8]} failed on the spilling ledger")
+    if rate_only:
+        return n_xfer / sum(seconds)
 
     # the native engine on the same requests
     native = NativeLedger(20, 24)
@@ -3496,6 +3547,8 @@ def mesh_gates(torch, L, M, ht, types, constants, dev):
         plain = M.commit_accounts_serial_plain if serial else M.commit_accounts_fast_plain
         check(name, lambda s: kern(s, rows, n, ts + 10_000, a_log2),
               lambda s: plain(s, rows, n, ts + 10_000, a_log2), start)
+        if serial:
+            log(f"    re-probed {K.walk_reprobes('mesh_commit_accounts_serial')} of {n} events")
 
     B = 8190
     ids = np.concatenate([np.arange(1, 6001), np.arange(7_000_000, 7_000_000 + B - 6001), [0]])
@@ -3864,13 +3917,12 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
     """Each K11 kernel at the sharded path's shapes on its state, beside
     its plain version (for the serial ones, the plain run of
     mesh_main_shapes on the same kind of request, `serial_plain_ms`);
-    {key: (kernel ms, plain ms, bound ms, bound_by)}. The serial account
-    kernel's latency bound counts the dependent device-memory loads the
-    function needs: one per event. K11ts resolves its lookups ahead of the
-    walk, so its bound is the larger of its bytes and one dependent
-    shared-memory round trip an event (`smem_ns`): event i may read what
-    event i - 1 wrote. Its old bound, a device-memory load an event and one
-    more a post/void, is printed beside it."""
+    {key: (kernel ms, plain ms, bound ms, bound_by)}. K11ts resolves its
+    lookups ahead of its walk, so its bound is the larger of its bytes and
+    one dependent shared-memory round trip an event (`smem_ns`): event i may
+    read what event i - 1 wrote. K11as's is account_walk_bound. Their old
+    bounds, a device-memory load an event (and for K11ts one more a
+    post/void), are printed beside them."""
     from tigerbeetle_tpu_torch import kernels as K
 
     rng = np.random.default_rng(SEED + 13)
@@ -3881,10 +3933,13 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
     NA = N_ACCOUNTS - B
     SECTOR = 32
 
-    def bound(nbytes, trips=0):
+    def bound(nbytes):
+        return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
+
+    def walk_bound(nbytes, n):
         by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        by_latency = trips * latency_ns * 1e-6
-        return (by_latency, "latency") if by_latency > by_bytes else (by_bytes, "bytes")
+        by_chain = n * smem_ns * 1e-6
+        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
 
     def pad(arr):
         return torch.from_numpy(M.batch_rows(arr)).to(dev)
@@ -3903,9 +3958,8 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
     next_id = [30_000_000]
 
     def fresh_accounts(n, linked):
-        a = accounts(types, np.arange(next_id[0], next_id[0] + n))
-        if linked:
-            a["flags"][100:102] = [1, 0]
+        a = walk_request(types, next_id[0], n) if linked else accounts(
+            types, np.arange(next_id[0], next_id[0] + n))
         next_id[0] += n
         return pad(a)
 
@@ -3917,9 +3971,18 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
         kern = K.mesh_commit_accounts_serial if serial else K.mesh_commit_accounts_fast
         it = iter(batches)
         kt = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), 10)
-        pt = once(key) if serial else timed(
-            torch, lambda: M.commit_accounts_fast_plain(st, next(it), n, 10**13, a_log2), 3)
-        out[key] = (kt, pt, *bound(nbytes, n if serial else 0))
+        if not serial:
+            out[key] = (kt, timed(torch, lambda: M.commit_accounts_fast_plain(
+                st, next(it), n, 10**13, a_log2), 3), *bound(nbytes))
+            continue
+        # the last timed call's re-probes and the request's chain
+        dependent = chain_events(walk_request(types, 1, n)["flags"]) + K.walk_reprobes(
+            "mesh_commit_accounts_serial")
+        out[key] = (kt, once(key), *account_walk_bound(nbytes, dependent, smem_ns))
+        log(f"  K11as's bound: bytes {nbytes / H100_BYTES_PER_S * 1e3:.6f} ms, {dependent} "
+            f"dependent events (chain and re-probed) {dependent * smem_ns * 1e-6:.6f} ms; "
+            f"beside it one shared-memory round trip an event {n * smem_ns * 1e-6:.6f} ms and "
+            f"the old bound, a device-memory load an event, {n * latency_ns * 1e-6:.6f} ms")
 
     next_xfer = [8_000_000_000]
 
@@ -3975,12 +4038,7 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
     kt = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
                                                              t_log2), 10)
 
-    def walk_bound(nbytes):
-        by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-        by_chain = B * smem_ns * 1e-6
-        return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
-
-    out["K11ts"] = (kt, once("K11ts"), *walk_bound(nbytes))
+    out["K11ts"] = (kt, once("K11ts"), *walk_bound(nbytes, B))
     # and on the path's own linked request
     lk_arrs = [linked_request(types, rng, np.arange(9_000_000_000 + i * B,
                                                     9_000_000_000 + (i + 1) * B), 600)
@@ -3997,7 +4055,7 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
         f"{(B + n_pv) * latency_ns * 1e-6:.6f} ms; its bytes alone "
         f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms; {B} shared-memory round trips "
         f"{B * smem_ns * 1e-6:.6f} ms")
-    lb, lby = walk_bound(lk_bytes)
+    lb, lby = walk_bound(lk_bytes, B)
     log(f"  K11ts on a whole linked request of {B} events: {full[0]:.4f} ms [p25 {full[1]:.4f}, "
         f"p75 {full[2]:.4f}], bound {lb:.6f} ms ({lby}; old bound "
         f"{B * latency_ns * 1e-6:.6f} ms)")
@@ -4042,6 +4100,264 @@ def mesh_round_trip(torch, M, types, constants, dev):
         fail("a restored sharded ledger answers otherwise than the original")
     log(f"  checkpoint round trip at 2^12 / 2^14: a blob of {len(blob)} bytes restores; lookups "
         "and one more request answer alike")
+
+
+# ----------------------------------------------------------------------
+# phase 11: the serial account walk (K2 serial, K11as) on the hazard
+# requests of testing/hazards.py, its device launches from a trace, its
+# re-probes and its times, in a process of its own (serial_ab.py --kind walk
+# runs walk_times on another checkout too)
+# ----------------------------------------------------------------------
+
+WALK_KINDS = (("K2s", "commit_accounts_serial", 1), ("K11as", "mesh_commit_accounts_serial",
+                                                     MESH_SHARDS))
+WALK_SHAPES = (1810, 8190)  # the main path's second account request; a whole batch
+
+
+def walk_ledger(torch, L, M, types, constants, n_shards, log2, n_filler, dev):
+    """A ledger on the card with 2^log2 account slots (a shard), one table
+    or `n_shards`, holding testing/hazards.py's accounts and `n_filler`
+    more (ledger 2, ids from 1,000,001). Returns (the ledger, its batch
+    rows from an ACCOUNT_DTYPE array, its serial account commit, the plain
+    version)."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.testing import hazards as H
+
+    process = constants.ConfigProcess(account_slots_log2=log2, transfer_slots_log2=12)
+    if n_shards == 1:
+        led = L.DeviceLedger(process, device=dev)
+        batch = lambda arr: L.accounts_to_batch(arr, dev)["rows"]  # noqa: E731
+        kern, plain = K.commit_accounts_serial, L.commit_accounts_serial_plain
+    else:
+        led = M.ShardedLedger(n_shards, process, device=dev)
+        batch = lambda arr: torch.from_numpy(M.batch_rows(arr)).to(dev)  # noqa: E731
+        kern, plain = K.mesh_commit_accounts_serial, M.commit_accounts_serial_plain
+    Op = types.Operation
+    if any(led.execute_dense(Op.create_accounts, 10**12,
+                             types.accounts_to_np(H.hazard_accounts()))):
+        fail("the hazard accounts failed")
+    filler = accounts(types, np.arange(1_000_001, 1_000_001 + n_filler))
+    for i in range(0, n_filler, 8190):
+        if any(led.execute_dense(Op.create_accounts, 10**12 + i + 8190, filler[i:i + 8190])):
+            fail("a filler account request failed")
+    led.check_fault()
+    return led, batch, kern, plain
+
+
+def walk_request(types, first, n):
+    """n fresh accounts from id `first`: one linked pair (events 100 and
+    101, as the main path's 1810-event request) or, at 8190, a linked pair
+    every 50 events."""
+    a = accounts(types, np.arange(first, first + n))
+    if n == 1810:
+        a["flags"][100] = 1
+    else:
+        a["flags"][0::50] = 1
+    return a
+
+
+def chain_events(flags) -> int:
+    """Events in linked chains: each linked event and the one after it."""
+    linked = (np.asarray(flags) & 1) != 0
+    return int(np.count_nonzero(linked | np.concatenate(([False], linked[:-1]))))
+
+
+def account_walk_bound(nbytes, dependent, smem_ns):
+    """(bound ms, bound_by) of K2 serial and K11as: the larger of their bytes
+    (the batch rows, a 32-byte sector a probe, the rows written) and one
+    shared-memory round trip for each of the `dependent` events, those that
+    must wait for an earlier event of the batch: the events of linked
+    chains, and those whose probe window holds a row the batch wrote before
+    them (the walk's re-probes, false alarms included, so this errs high).
+    Every other event's answer is the table's as it was before the batch,
+    decided in parallel: a round trip for every event, the transfer walks'
+    bound, is not a floor here."""
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_chain = dependent * smem_ns * 1e-6
+    return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
+
+
+def walk_times(torch, types, walks, reps=10) -> dict:
+    """Each serial account commit of `walks` ({key: (state, batch, kern,
+    log2)}) at WALK_SHAPES on fresh ids: CUDA-event medians and quartiles
+    (ms) through the wrapper and on the card alone."""
+    out = {}
+    first = [30_000_001]
+    for key, (st, batch, kern, log2) in walks.items():
+        for n in WALK_SHAPES:
+            rows = []
+            for _ in range(2 * reps + 1):
+                rows.append(batch(walk_request(types, first[0], n)))
+                first[0] += n
+            kern(st, rows[-1], n, 10**13, log2)  # warm
+            it = iter(rows)
+            out[f"{key} {n}"] = timed(torch, lambda: kern(st, next(it), n, 10**13, log2), reps)
+            out[f"{key} {n} card"] = timed(torch, lambda: kern(st, next(it), n, 10**13, log2),
+                                           reps, on_card=True)
+    return out
+
+
+def account_walk_child(reps=10, sizes=(14, 20)):
+    """In a process of its own: K2 serial and K11as against their plain
+    versions on every hazard request of testing/hazards.py (ACCOUNT_CASES)
+    at 2^14 slots (4096 more accounts a shard: a crowded table) and at the
+    path's 2^20 (8 shards for K11as; the last of `sizes` holds N_ACCOUNTS
+    more), with each call's re-probes; at WALK_SHAPES on the larger tables
+    against the plain version on a host copy; under torch.profiler two calls
+    of each at WALK_SHAPES (each at most two kernels, no memset), with the
+    re-probes of four more and the bytes and chain events of the first
+    (for account_walk_bound); the times of walk_times. Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+    from tigerbeetle_tpu_torch.testing import hazards as H
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 40)
+    out = {"errs": {}, "cases": [], "trace": {}, "reprobes": {}, "bound_in": {}}
+    walks, plains = {}, {}
+    for log2 in sizes:
+        for key, counter, n_shards in WALK_KINDS:
+            n_filler = N_ACCOUNTS if log2 == sizes[-1] else (1 << log2) // 4 * n_shards
+            led, batch, kern, plain = walk_ledger(torch, L, M, types, constants, n_shards, log2,
+                                                  n_filler, dev)
+            label = [name for k, _c, name, _s, _r in KERNELS if k == key][0]
+            where = f"2^{log2}" + (f" x {n_shards} shards" if n_shards > 1 else "")
+            for case in H.ACCOUNT_CASES:
+                hz = H.account_hazard_request(case, rng, log2, n_shards)
+                start = clone_state(led.state)
+                H.prepare_account_hazard(start["acct_rows"], start["acct_used_slots"], hz, rng)
+                rows = batch(types.accounts_to_np(hz.events))
+                name = f"{label} (hazard {case}, {where}, {hz.n} of {len(hz.events)} events)"
+                _, sp = hold(torch, name, start, lambda s: kern(s, rows, hz.n, 10**13, log2),
+                             lambda s: plain(s, rows, hz.n, 10**13, log2))
+                want = {"window_full": L.FAULT_SERIAL,
+                        "gate_tripped": L.FAULT_CAPACITY}.get(case, 0)
+                if int(sp["fault"]) != want:
+                    fail(f"{name}: fault {int(sp['fault'])}, not {want}")
+                out["errs"][name] = 0
+                out["cases"].append([name, K.walk_reprobes(counter)])
+                del start, sp
+            if log2 == sizes[-1]:
+                walks[key] = (led.state, batch, kern, log2)
+                plains[key] = (plain, label, where)
+            else:
+                del led
+            torch.cuda.empty_cache()
+
+    # the timed shapes, held against the plain version on a copy of the
+    # state on the host (there it takes seconds, on the card a minute)
+    first = [25_000_001]
+    for key, (st, batch, kern, log2) in walks.items():
+        plain, label, where = plains[key]
+        counter = [c for k, c, _s in WALK_KINDS if k == key][0]
+        for n in WALK_SHAPES:
+            rows = batch(walk_request(types, first[0], n))
+            first[0] += n
+            sp = {k: v.to("cpu", copy=True) for k, v in st.items()}
+            rp = plain(sp, rows.cpu(), n, 10**13, log2)
+            rk = kern(st, rows, n, 10**13, log2)
+            torch.cuda.synchronize()
+            err = max(max_abs_diff(rk.cpu(), rp),
+                      compare_states({k: v.cpu() for k, v in st.items()}, sp))
+            name = (f"{label} ({n} events at {where}, "
+                    f"{'one linked pair' if n == 1810 else 'a linked pair every 50'})")
+            log(f"  {name}: max_abs_err={err} fault={int(sp['fault'])} (plain on the host)")
+            if err != 0:
+                fail(f"{name} differs from its plain version")
+            out["errs"][name] = err
+            out["cases"].append([name, K.walk_reprobes(counter)])
+            del sp, rp
+
+    # each call's device launches, and its re-probes
+    first = [20_000_001]
+    traced = []
+    for key, (st, batch, kern, log2) in walks.items():
+        for n in WALK_SHAPES:
+            for r in range(2):
+                traced.append((f"{key}_{n}_{r}", st, batch(walk_request(types, first[0], n)),
+                               kern, n, log2))
+                first[0] += n
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for name, st, rows, kern, n, log2 in traced:
+            with record_function(name):
+                kern(st, rows, n, 10**13, log2)
+        torch.cuda.synchronize()
+    out_dir = os.path.join(os.getcwd(), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "account_walk.json")
+    prof.export_chrome_trace(path)
+    out["trace"] = {name: _device_split(ev) for name, ev in _trace_device(path).items()}
+    for key, counter, n_shards in WALK_KINDS:
+        st, batch, kern, log2 = walks[key]
+        for n in WALK_SHAPES:
+            counts = []
+            for r in range(4):
+                req = walk_request(types, first[0], n)
+                rows = batch(req)
+                first[0] += n
+                if r == 0:
+                    key4 = rows[:n, :4].contiguous()
+                    probes = (probe_counts(torch, ht, key4, st["acct_rows"], log2, 64)
+                              if n_shards == 1 else
+                              mesh_probe_counts(torch, M, ht, key4, st["acct_rows"], log2, 64))
+                    out["bound_in"][f"{key} {n}"] = [n * (128 + 4 + 128) + probes * 32,
+                                                     chain_events(req["flags"])]
+                kern(st, rows, n, 10**13, log2)
+                counts.append(K.walk_reprobes(counter))
+            out["reprobes"][f"{key} {n}"] = counts
+    out["times"] = walk_times(torch, types, walks, reps)
+    for key, (st, *_rest) in walks.items():
+        if int(st["fault"]):
+            fail(f"{key}'s timed calls faulted: {int(st['fault'])}")
+    out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+
+
+def phase_account_walk(card, smem_ns) -> dict:
+    """account_walk_child in a process of its own (late in this one a
+    profiler session recorded no kernels): every hazard request bit-exact,
+    each traced call at most two kernels and no memset; the bounds at
+    WALK_SHAPES (account_walk_bound, with the median re-probes). Returns its
+    JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.account_walk_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the account walk's checks failed")
+    lines = proc.stdout.strip().splitlines()
+    got = json.loads(lines[-1])
+    reprobes = dict(got["cases"])
+    for line in lines[:-1]:
+        name = line.strip().split(": max_abs_err")[0]
+        log(line + (f" reprobes={reprobes[name]}" if name in reprobes else ""))
+    for name, sp in sorted(got["trace"].items()):
+        log(f"  trace {name}: {sp['counts']}; device us {sp['us']}; span {sp['span_us']:.1f} us")
+        kernels = sum(v for k, v in sp["counts"].items() if not k.startswith("mem"))
+        if not 1 <= kernels <= 2 or any(k.startswith("mem") for k in sp["counts"]):
+            fail(f"{name}: {sp['counts']}; one or two kernels and no memset expected")
+    for shape, counts in got["reprobes"].items():
+        nbytes, chain = got["bound_in"][shape]
+        n = int(shape.split()[-1])
+        dependent = chain + int(np.median(counts))
+        b, by = account_walk_bound(nbytes, dependent, smem_ns)
+        log(f"  {shape} events at 2^20: re-probes a call {counts}; bound {b:.6f} ms ({by}; bytes "
+            f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms, {chain} chain events and the median "
+            f"re-probes {dependent * smem_ns * 1e-6:.6f} ms; one shared-memory round trip an "
+            f"event {n * smem_ns * 1e-6:.6f} ms)")
+    t = got["times"]
+    for key in sorted(k for k in t if not k.endswith("card")):
+        ms, card_ms = t[key], t[key + " card"]
+        log(f"  {key} events at 2^20: {ms[0]:.4f} ms [p25 {ms[1]:.4f}, p75 {ms[2]:.4f}] through "
+            f"its wrapper, {card_ms[0]:.4f} ms on the card alone [{card}]")
+    return got
 
 
 KERNELS = [
@@ -4200,6 +4516,10 @@ def main() -> int:
 
     mesh_launches, mesh_errs, mesh_times = phase_mesh(
         torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns, tps)
+
+    log("== phase 11: the serial account walk (K2 serial, K11as) on its hazard requests at "
+        "2^14 and 2^20, its device launches, re-probes and times, in a process of its own")
+    errs.update(phase_account_walk(card, smem_ns)["errs"])
 
     errs.update(query_errs)
     errs.update(spill_errs)

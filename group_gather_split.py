@@ -19,12 +19,16 @@ two processes of `chip_smoke.py` (of this checkout):
   enqueue and the waits for them; t_rebuild: the hot side's gather and the
   reloads, K10r, one call a chunk or one call for all), and one cycle's
   device time by kernel and copy from a trace, for the whole cycle and for
-  each K10 call.
+  each K10 call;
+- `spill_rate_child` (only when named in `--children`): phase 9's 128
+  requests through StateMachine over the spilling ledger, its rate in
+  transfers/s. Phase 9 is mostly host work, so the spread of this rate
+  over one checkout's runs is what a phase-9 reading is held against.
 
 The order is parent, this checkout, this checkout, parent, repeated
 `--rounds` times; `--children cycle` runs the spill cycle alone.
 
-    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle]
+    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill]
 
 DIR is a `git archive` of another commit in a git-ignored directory (such
 as `build/parent`). Needs one card and nvcc; each checkout builds its own
@@ -87,6 +91,9 @@ def run(label: str, repo: Path, children) -> dict:
             print(f"{label}: traced {name} {sp['counts']} device us "
                   + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
                   + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
+    if "spill" in children:
+        out["spill"] = child(label, repo, "spill_rate_child")
+        print(f"{label}: phase 9 {out['spill']['rate']:.0f} transfers/s", flush=True)
     return out
 
 
@@ -95,10 +102,10 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--children", default="k5,cycle",
-                    help="which children to run, of k5 and cycle (comma-separated)")
+                    help="which children to run, of k5, cycle and spill (comma-separated)")
     args = ap.parse_args()
     children = set(args.children.split(","))
-    if not children or children - {"k5", "cycle"}:
+    if not children or children - {"k5", "cycle", "spill"}:
         ap.error(f"--children: {args.children!r}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -121,6 +128,8 @@ def main() -> int:
             s["cycle_calls"] = {c: untraced[0]["n_" + c] for c in CALLS}
             s["cycle_trace"] = got[0]["cycle"]["traced"]
             s["cycle_trace_calls"] = got[0]["cycle"]["traced_calls"]
+        if "spill" in children:
+            s["spill_rates"] = [g["spill"]["rate"] for g in got]
     print(json.dumps(summary))
     return 0
 

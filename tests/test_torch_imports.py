@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: neither tigerbeetle_tpu_torch nor
-chip_smoke.py nor group_ab.py imports jax or anything of tigerbeetle_tpu,
-and its ledgers default to the card."""
+chip_smoke.py nor the A/B and split scripts beside it imports jax or
+anything of tigerbeetle_tpu, and its ledgers default to the card."""
 
 import ast
 import pathlib
@@ -11,7 +11,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "tigerbeetle_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "group_ab.py"]
+    REPO / "chip_smoke.py", REPO / "group_ab.py", REPO / "serial_ab.py",
+    REPO / "group_gather_split.py", REPO / "cluster_split.py", REPO / "scan_install_split.py"]
 
 
 def _imported_modules(path: pathlib.Path):

@@ -11,14 +11,17 @@
 // gate passed. No host sync anywhere. Bound: bytes (a batch row in and out,
 // a few 32-byte probe sectors per event).
 //
-// Serial: one thread walks the events in order and updates the table in
-// place, with an undo log in the scratch buffer: a broken linked chain
-// tombstones the inserts it made. Entry gates as in JAX: the sticky fault
-// and the load-factor guard charged for all n events. Bound: latency, a
-// chain of dependent probes per event (the events of a chain depend on each
-// other, and the reference commits them one by one too).
+// Serial: account_walk.cuh's plan and one-warp walk on one table (the
+// single-table policy, shard 0 at row 0): a warp an event plans against the
+// table as it was, then one warp commits the events in order, re-probing an
+// event only where a row the batch wrote lies in its window at or before
+// the position its answers depend on, with an undo list for linked-chain
+// rollback. Entry gates as in JAX: the sticky fault and the load-factor
+// guard charged for all n events. Bound: account_walk.cuh's (the bytes, or a
+// shared-memory round trip for each chained or re-probed event).
 #include <cuda_runtime.h>
 
+#include "account_walk.cuh"
 #include "claim.cuh"
 #include "hash.cuh"
 #include "validate.cuh"
@@ -143,84 +146,29 @@ extern "C" int tb_commit_accounts_fast(uint32_t* acct_rows, uint32_t* acct_claim
 // serial
 // ---------------------------------------------------------------------------
 
-__global__ void accounts_serial(uint32_t* rows, int a_log2, ull* commit_ts, ull* count,
-                                ull* used, uint32_t* fault, const uint32_t* batch, int B, int n,
-                                ull timestamp, int32_t* results, int64_t* undo_slot,
-                                int32_t* undo_kind) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  uint32_t fault0 = *fault;
-  if (*used + (ull)n > (1ull << a_log2) / 2) fault0 |= FAULT_CAPACITY;
-  if (fault0) n = 0;
-  for (int i = 0; i < B; i++) results[i] = 0;
-  Row tomb;
-  for (int k = 0; k < ROW_WORDS; k++) tomb.w[k] = TOMB_WORD;
-  int chain_start = -1;
-  bool chain_broken = false, probe_bad = false;
-  ull cts = *commit_ts, ok_n = 0, applied_n = 0;
-  for (int i = 0; i < n; i++) {
-    Row row = load_row(batch + (size_t)i * ROW_WORDS);
-    Acct e = unpack_account(row);
-    bool linked = (e.flags & A_LINKED) != 0u;
-    if (linked && chain_start < 0) chain_start = i;
-    bool in_chain = chain_start >= 0;
-    uint32_t r = (in_chain && i == n - 1 && linked) ? 2u
-                 : chain_broken                     ? 1u
-                 : e.ts != 0                        ? 3u
-                                                    : 0u;
-    Key4 key = key_in(row, 0);
-    Found ex = table_lookup(rows, a_log2, key, WINDOW_SCALAR);
-    Acct exr = unpack_account(load_row(rows + (size_t)ex.slot * ROW_WORDS));
-    r = validate_create_account(r, e, exr, ex.found);
-    bool ok = r == 0u;
-    Found fr = table_probe_free(rows, a_log2, key, WINDOW_SCALAR);
-    if (!ex.resolved || (ok && !fr.resolved)) probe_bad = true;
-    undo_kind[i] = ok;
-    undo_slot[i] = fr.slot;
-    if (ok) {
-      ull ts = event_ts(timestamp, n, i);
-      if (fr.resolved) {
-        put64(row, 30, ts);
-        store_row(rows + (size_t)fr.slot * ROW_WORDS, row);
-      }
-      cts = ts;
-      applied_n++;
-    }
-    if (r != 0u && in_chain && !chain_broken) {  // roll back [chain_start, i)
-      for (int k = chain_start; k < i; k++) {
-        if (undo_kind[k]) store_row(rows + (size_t)undo_slot[k] * ROW_WORDS, tomb);
-        results[k] = 1;
-      }
-      chain_broken = true;
-    }
-    results[i] = (int32_t)r;
-    if (in_chain && (!linked || r == 2u)) {
-      chain_start = -1;
-      chain_broken = false;
-    }
-  }
-  for (int i = 0; i < n; i++) ok_n += results[i] == 0;
-  *commit_ts = cts;
-  *count += ok_n;
-  *used += applied_n;
-  *fault = fault0 | (probe_bad ? FAULT_SERIAL : 0u);
-}
-
 extern "C" size_t tb_commit_accounts_serial_scratch(int B) {
-  Carver c{nullptr, 0};
-  c.take<int64_t>(B);
-  c.take<int32_t>(B);
-  return c.off + 256;
+  size_t size;
+  acct_walk_carve(nullptr, B, &size);
+  return size;
 }
 
 extern "C" int tb_commit_accounts_serial(uint32_t* acct_rows, int a_log2, ull* commit_ts,
                                          ull* acct_count, ull* acct_used, uint32_t* fault,
                                          const uint32_t* batch, int B, int n, ull timestamp,
                                          int32_t* results, char* scratch, cudaStream_t stream) {
-  Carver c{scratch, 0};
-  int64_t* undo_slot = c.take<int64_t>(B);
-  int32_t* undo_kind = c.take<int32_t>(B);
-  accounts_serial<<<1, 1, 0, stream>>>(acct_rows, a_log2, commit_ts, acct_count, acct_used,
-                                       fault, batch, B, n, timestamp, results, undo_slot,
-                                       undo_kind);
-  return (int)cudaGetLastError();
+  size_t size;
+  AcctWalkArgs a{};
+  a.sc = acct_walk_carve(scratch, B, &size);
+  a.rows = acct_rows;
+  a.log2 = a_log2;
+  a.commit_ts = commit_ts;
+  a.count = acct_count;
+  a.used = acct_used;
+  a.fault = fault;
+  a.batch = batch;
+  a.B = B;
+  a.n = n;
+  a.timestamp = timestamp;
+  a.results = results;
+  return acct_walk_launch(a, AcctOneTable{1}, stream);
 }

@@ -15,14 +15,16 @@
 // it owns) before the last launch writes anything. Bound: bytes (a batch
 // row in and out, a few 32-byte probe sectors per event).
 //
-// Serial: one thread walks the events in order, as K2 serial, with the
-// JAX mesh's entry gate (all n events charged against every shard: a
-// tripped gate makes n = 0), W = 64 probes, and an undo log of global
-// slots; a broken chain tombstones its inserts on their owner shards;
-// `acct_used_slots` counts every applied insert on its owner, rolled back
-// or not. Bound: latency, a chain of dependent probes per event.
+// Serial: account_walk.cuh's plan and one-warp walk, as K2 serial, with the
+// owner-shard policy (every probe and insert on the key's owner, slots as
+// global rows, so the undo list needs no per-shard copies), the JAX mesh's
+// entry gate (all n events charged against every shard: a tripped gate
+// makes n = 0) and W = 64 probes; a broken chain tombstones its inserts on
+// their owner shards; `acct_used_slots` counts every applied insert on its
+// owner, rolled back or not. Bound: account_walk.cuh's.
 #include <cuda_runtime.h>
 
+#include "account_walk.cuh"
 #include "claim.cuh"
 #include "owner.cuh"
 #include "validate.cuh"
@@ -157,78 +159,10 @@ extern "C" int tb_mesh_commit_accounts_fast(uint32_t* acct_rows, uint32_t* acct_
 // serial
 // ---------------------------------------------------------------------------
 
-__global__ void mesh_accounts_serial(uint32_t* rows, int a_log2, int n_shards, ull* commit_ts,
-                                     ull* count, ull* used, uint32_t* fault, const uint32_t* batch,
-                                     int B, int n, ull timestamp, int32_t* results,
-                                     int64_t* undo_slot, int32_t* undo_kind) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  uint32_t fault0 = *fault;
-  for (int s = 0; s < n_shards; s++) {
-    if (used[s] + (ull)n > (1ull << a_log2) / 2) fault0 |= FAULT_CAPACITY;
-  }
-  if (fault0) n = 0;
-  for (int i = 0; i < B; i++) results[i] = 0;
-  Row tomb;
-  for (int k = 0; k < ROW_WORDS; k++) tomb.w[k] = TOMB_WORD;
-  ull applied[MESH_SHARDS_MAX];
-  for (int s = 0; s < n_shards; s++) applied[s] = 0;
-  int chain_start = -1;
-  bool chain_broken = false, probe_bad = false;
-  ull cts = *commit_ts, ok_n = 0;
-  for (int i = 0; i < n; i++) {
-    Row row = load_row(batch + (size_t)i * ROW_WORDS);
-    Acct e = unpack_account(row);
-    bool linked = (e.flags & A_LINKED) != 0u;
-    if (linked && chain_start < 0) chain_start = i;
-    bool in_chain = chain_start >= 0;
-    uint32_t r = (in_chain && i == n - 1 && linked) ? 2u
-                 : chain_broken                     ? 1u
-                 : e.ts != 0                        ? 3u
-                                                    : 0u;
-    Key4 key = key_in(row, 0);
-    int owner = owner_of(key, n_shards);
-    size_t base = shard_base(owner, a_log2);
-    Found ex = owner_lookup(rows, a_log2, n_shards, key, WINDOW_SCALAR);
-    r = validate_create_account(r, e, unpack_account(found_row(rows, ex)), ex.found);
-    bool ok = r == 0u;
-    Found fr = table_probe_free(rows + base * ROW_WORDS, a_log2, key, WINDOW_SCALAR);
-    if (!ex.resolved || (ok && !fr.resolved)) probe_bad = true;
-    undo_kind[i] = ok;
-    undo_slot[i] = (int64_t)base + fr.slot;
-    if (ok) {
-      ull ts = event_ts(timestamp, n, i);
-      if (fr.resolved) {
-        put64(row, 30, ts);
-        store_row(rows + (size_t)undo_slot[i] * ROW_WORDS, row);
-      }
-      cts = ts;
-      applied[owner]++;
-    }
-    if (r != 0u && in_chain && !chain_broken) {  // roll back [chain_start, i)
-      for (int k = chain_start; k < i; k++) {
-        if (undo_kind[k]) store_row(rows + (size_t)undo_slot[k] * ROW_WORDS, tomb);
-        results[k] = 1;
-      }
-      chain_broken = true;
-    }
-    results[i] = (int32_t)r;
-    if (in_chain && (!linked || r == 2u)) {
-      chain_start = -1;
-      chain_broken = false;
-    }
-  }
-  for (int i = 0; i < n; i++) ok_n += results[i] == 0;
-  *commit_ts = cts;
-  *count += ok_n;
-  for (int s = 0; s < n_shards; s++) used[s] += applied[s];
-  *fault = fault0 | (probe_bad ? FAULT_SERIAL : 0u);
-}
-
 extern "C" size_t tb_mesh_commit_accounts_serial_scratch(int B) {
-  Carver c{nullptr, 0};
-  c.take<int64_t>(B);
-  c.take<int32_t>(B);
-  return c.off + 256;
+  size_t size;
+  acct_walk_carve(nullptr, B, &size);
+  return size;
 }
 
 extern "C" int tb_mesh_commit_accounts_serial(uint32_t* acct_rows, int a_log2, int n_shards,
@@ -236,11 +170,20 @@ extern "C" int tb_mesh_commit_accounts_serial(uint32_t* acct_rows, int a_log2, i
                                               uint32_t* fault, const uint32_t* batch, int B,
                                               int n, ull timestamp, int32_t* results,
                                               char* scratch, cudaStream_t stream) {
-  Carver c{scratch, 0};
-  int64_t* undo_slot = c.take<int64_t>(B);
-  int32_t* undo_kind = c.take<int32_t>(B);
-  mesh_accounts_serial<<<1, 1, 0, stream>>>(acct_rows, a_log2, n_shards, commit_ts, acct_count,
-                                            acct_used, fault, batch, B, n, timestamp, results,
-                                            undo_slot, undo_kind);
-  return (int)cudaGetLastError();
+  if (n_shards < 1 || n_shards > MESH_SHARDS_MAX) return (int)cudaErrorInvalidValue;
+  size_t size;
+  AcctWalkArgs a{};
+  a.sc = acct_walk_carve(scratch, B, &size);
+  a.rows = acct_rows;
+  a.log2 = a_log2;
+  a.commit_ts = commit_ts;
+  a.count = acct_count;
+  a.used = acct_used;
+  a.fault = fault;
+  a.batch = batch;
+  a.B = B;
+  a.n = n;
+  a.timestamp = timestamp;
+  a.results = results;
+  return acct_walk_launch(a, AcctShards{n_shards}, stream);
 }

@@ -81,15 +81,13 @@
 
 #include "owner.cuh"
 #include "validate.cuh"
+#include "warp_window.cuh"
 
 #define WALK_THREADS 512
 // prefetch warps (of the 12 off the walker's scheduler) and ring entries:
 // on an H100, 8 beat 4 and 12 (PERF.md)
 #define WALK_DEPTH 8
 #define WALK_LOG 128       // write-log records kept (at most four an event, or a rollback)
-#define WALK_FULL 0xFFFFFFFFu
-
-static_assert(WINDOW_SCALAR == 64, "a warp probes a window as two positions a lane");
 
 // One lookup's answer, and what the log check needs to place a slot in it.
 struct WalkLook {
@@ -207,28 +205,6 @@ static WalkUndo walk_carve_undo(char* scratch, int B, size_t* size) {
   return u;
 }
 
-struct WalkWin {
-  Probe pr;
-  int64_t sb;
-  uint4 a, b;  // the key words at probe positions lane and lane + 32
-};
-
-__device__ __forceinline__ WalkWin win_load(const uint32_t* rows, int log2, int64_t sb,
-                                            const Key4& key, int lane) {
-  WalkWin w;
-  w.pr = probe_of(key, log2);
-  w.sb = sb;
-  w.a = *reinterpret_cast<const uint4*>(rows + (size_t)(sb + w.pr.at(lane)) * ROW_WORDS);
-  w.b = *reinterpret_cast<const uint4*>(rows + (size_t)(sb + w.pr.at(lane + 32)) * ROW_WORDS);
-  return w;
-}
-
-__device__ __forceinline__ uint64_t ballot64(bool lo, bool hi) {
-  return (uint64_t)__ballot_sync(WALK_FULL, lo) | ((uint64_t)__ballot_sync(WALK_FULL, hi) << 32);
-}
-
-__device__ __forceinline__ int first_bit(uint64_t m) { return m ? __ffsll((long long)m) - 1 : 64; }
-
 // s * x = 1 mod 2^32 for odd s (Newton's iteration doubles the correct
 // low bits, from 3: s * s = 1 mod 8).
 __device__ __forceinline__ uint32_t inv_odd(uint32_t s) {
@@ -242,13 +218,8 @@ __device__ __forceinline__ uint32_t inv_odd(uint32_t s) {
 // table_probe_free's answer: the first free position, or the last probe.
 __device__ __forceinline__ WalkLook win_resolve(const WalkWin& w, const Key4& key,
                                                 WalkEntry* fr = nullptr) {
-  bool probeable = !key_empty(key) && !key_tomb(key);
-  Key4 ka{{w.a.x, w.a.y, w.a.z, w.a.w}};
-  Key4 kb{{w.b.x, w.b.y, w.b.z, w.b.w}};
-  uint64_t hit = ballot64(probeable && key_eq(ka, key), probeable && key_eq(kb, key));
-  uint64_t emp = ballot64(key_empty(ka), key_empty(kb));
-  uint64_t fre = emp | ballot64(key_tomb(ka), key_tomb(kb));
-  int h = first_bit(hit), e = first_bit(emp), f = first_bit(fre);
+  const WinIdx x = win_index(w, key);
+  const int h = x.h, e = x.e, f = x.f;
   int fl = min(f, WINDOW_SCALAR - 1);
   WalkLook l;
   l.sb = w.sb;

@@ -35,6 +35,9 @@ tigerbeetle_tpu/parallel/mesh.py `ShardedLedgerKernels`):
     mesh_commit_transfers_fast    _commit_transfers_fast
     mesh_commit_transfers_serial  _commit_transfers_serial
 
+`walk_reprobes` reads how many events the last serial account commit (K2
+serial, K11as) resolved again on the table as it stood.
+
 `chase` and `chase_shared` are no kernels of the ledger: pointer chases
 that measure the card's dependent-load latency, from device memory and from
 shared memory, for the serial kernels' bounds; nor is `sector_probe`, which
@@ -125,6 +128,9 @@ _SCRATCH = (
 )
 
 _lib = None
+# the last scratch buffer of each serial account walk, whose header holds its
+# re-probe count (walk_reprobes)
+_WALK_SCRATCH: dict = {}
 
 
 def library() -> ctypes.CDLL:
@@ -246,11 +252,20 @@ def commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
     _check_rows(state["acct_rows"], "acct_rows", a_log2)
     results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
     scratch = _scratch("tb_commit_accounts_serial_scratch", B, rows_b.device)
+    _WALK_SCRATCH["commit_accounts_serial"] = scratch
     _launch("tb_commit_accounts_serial", "commit_accounts_serial",
             _ptr(state["acct_rows"]), a_log2,
             *_scalars(state, "commit_ts", "acct_count", "acct_used_slots", "fault"),
             _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
     return results
+
+
+def walk_reprobes(counter: str) -> int:
+    """The events that the last call of the serial account walk `counter`
+    (`commit_accounts_serial`, `mesh_commit_accounts_serial`) resolved again
+    because the batch had written into their probe windows. Read from that
+    call's scratch header: it waits for the call to finish."""
+    return int(_WALK_SCRATCH[counter][:8].view(torch.int64)[0])
 
 
 def _check_fast_state(state, a_log2: int, t_log2: int) -> None:
@@ -658,6 +673,7 @@ def mesh_commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: i
     S = _mesh_table(state["acct_rows"], "acct_rows", a_log2)
     results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
     scratch = _scratch("tb_mesh_commit_accounts_serial_scratch", B, rows_b.device)
+    _WALK_SCRATCH["mesh_commit_accounts_serial"] = scratch
     _launch("tb_mesh_commit_accounts_serial", "mesh_commit_accounts_serial",
             _ptr(state["acct_rows"]), a_log2, S,
             *_mesh_scalars(state, "acct_used_slots", "acct_count", S),

@@ -41,15 +41,57 @@ FAULT_SERIAL on the single table and not on the sharded ledger;
 The requests are made in plain Python and numpy from the caller's generator;
 the tests hold the plain versions against the JAX package on them, and
 `chip_smoke.py` holds the kernels against their plain versions on them.
+
+`account_hazard_request` does the same for the serial account commit (K2
+serial, K11as: csrc/account_walk.cuh), which plans every event against the
+table as it was before the batch and re-probes an event only where a row
+the batch wrote lies in its probe window at or before the position its
+answers depend on (`stop`). Its cases, in ACCOUNT_CASES:
+
+- `shared_window`: ids whose windows hold another id's first probe
+  position at their `stop` (the rows before it filled first): that id's
+  insert lands there, and they insert past it; a duplicate of each;
+- `dup_live`: one id inserted, then again (exists, then with other flags
+  and another code), and as the last link of a chain it breaks;
+- `dup_after_rollback`: a chain broken by an invalid last link, then its
+  ids again: they insert again, into their own tombstones;
+- `rollback_frees_window`: a broken chain's tombstone frees the position
+  another id's window stopped at: that id inserts into it;
+- `window_full`: an id whose window is full but for one position (filled
+  first) that an earlier insert takes: its lookup and free-slot probe do
+  not resolve (FAULT_SERIAL), it writes nothing yet counts as applied, and
+  its chain's rollback tombstones its last probe, another row; it then
+  inserts into that tombstone;
+- `tomb_window`: tombstones in a window before the batch (made first):
+  inserts reuse them, lookups pass them; ids 0 and 2^128 - 1 (the empty and
+  the tombstone key) probe their windows too;
+- `chain_open_at_end`: a chain still open at the last event;
+- `chains_across_groups`: chains that cross the walk's groups of 32 events:
+  one broken by its last link (its rollback reaches back into the group
+  before), whose first ids then insert again into their tombstones, one
+  that holds, and one still open at the last event;
+- `gate_tripped`: the load guard charged all n events trips (one shard one
+  slot short): every code 0, nothing written;
+- `pad_past_n`: events past n in the batch (duplicates, links) that must
+  neither commit nor code.
+
+`prepare_account_hazard` makes the table what a case assumes.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from tigerbeetle_tpu_torch.ops import hashtable as ht
 from tigerbeetle_tpu_torch.types import Account, AccountFlags, Transfer, TransferFlags
+
+ACCOUNT_CASES = ("shared_window", "dup_live", "dup_after_rollback", "rollback_frees_window",
+                 "window_full", "tomb_window", "chain_open_at_end", "chains_across_groups",
+                 "gate_tripped", "pad_past_n")
+GATE_SHARD = 2  # the shard left one slot short by gate_tripped (0 on one table)
 
 CASES = ("chain_break_reuse", "duplicate_id", "pending_post", "post_and_void",
          "hot_account", "shared_window", "missing_tomb", "missing_full")
@@ -277,3 +319,227 @@ def hazard_request(case: str, rng, t_log2: int, n_shards: int,
     else:
         raise ValueError(f"unknown hazard case {case!r}")
     return q.events
+
+
+# ----------------------------------------------------------------------
+# the serial account commit (K2 serial, K11as)
+# ----------------------------------------------------------------------
+
+
+@dataclass
+class AccountHazard:
+    """A request of account_hazard_request and what it assumes of the
+    table: `junk` rows (shard, slot) hold a live row of random words (made
+    so where they are empty or tombstones), `tombs` rows are tombstones
+    (where they are empty), and with `used` set, shard GATE_SHARD's
+    `acct_used_slots` is that. The batch holds all `events`; n of them are
+    committed."""
+
+    events: list
+    n: int
+    used: int | None = None
+    junk: list = field(default_factory=list)
+    tombs: list = field(default_factory=list)
+
+
+def _owner_np(ids, n_shards: int) -> np.ndarray:
+    from tigerbeetle_tpu_torch.parallel.mesh import owner_of_ids_np
+
+    ids = np.asarray(ids, dtype=np.uint64)
+    if n_shards == 1:
+        return np.zeros(len(ids), dtype=np.int64)
+    return owner_of_ids_np(ids, np.zeros(len(ids), dtype=np.uint64), n_shards)
+
+
+def _window(key_id: int, log2: int, n_shards: int):
+    """(owner shard, the 64 probe positions) of id `key_id`."""
+    pos = ht.probe_positions(_key4([key_id]), log2, ht.WINDOW_SCALAR)[0].numpy()
+    return int(_owner_np([key_id], n_shards)[0]), pos
+
+
+def window_ids(log2: int, n_shards: int, shard: int, pos: int, k: int, start: int,
+               max_index: int = 3) -> list:
+    """The first k ids from `start` up owned by `shard` whose probe window
+    holds position `pos` at an index <= max_index: [(id, index), ...]."""
+    out = []
+    chunk = 1 << 16
+    for lo in range(start, start + (1 << 26), chunk):
+        ids = np.arange(lo, lo + chunk, dtype=np.uint64)
+        pp = ht.probe_positions(_key4(ids), log2, max_index + 1).numpy()
+        hit = (pp == pos) & (_owner_np(ids, n_shards) == shard)[:, None]
+        for r in np.nonzero(hit.any(1))[0]:
+            out.append((int(ids[r]), int(np.argmax(hit[r]))))
+            if len(out) == k:
+                return out
+    raise ValueError(f"fewer than {k} ids from {start} hold position {pos} of shard {shard}")
+
+
+def _acct(id_, linked=False, **kw) -> Account:
+    kw.setdefault("ledger", 1)
+    kw.setdefault("code", 1)
+    return Account(id=id_, flags=int(AccountFlags.linked) if linked else 0, **kw)
+
+
+def account_hazard_request(case: str, rng, a_log2: int, n_shards: int,
+                           first_id: int = 5_000_000) -> AccountHazard:
+    """The request of `case` (one of ACCOUNT_CASES), 11-100 accounts on ledger
+    1 with ids from `first_id` up, and what it assumes of a table of 2^a_log2
+    slots a shard over n_shards (1: one table) holding hazard_accounts()."""
+    ev: list = []
+    nxt = [first_id]
+
+    def fresh() -> int:
+        nxt[0] += 1
+        return nxt[0]
+
+    def plain(k: int) -> None:
+        for _ in range(k):
+            ev.append(_acct(fresh(), user_data_64=int(rng.integers(1, 1 << 40))))
+
+    def bad(linked=False) -> None:  # ledger_must_not_be_zero
+        ev.append(_acct(fresh(), linked, ledger=0))
+
+    hz = AccountHazard(ev, 0)
+
+    def before(key_id: int, j: int, what: list) -> None:
+        """Rows of key_id's window before index j into `what` (junk: its
+        lookup's stop is then position j, where an empty slot waits)."""
+        shard, pos = _window(key_id, a_log2, n_shards)
+        what.extend((shard, int(q)) for q in pos[:j])
+
+    if case == "shared_window":
+        a = fresh()
+        sa, pa = _window(a, a_log2, n_shards)
+        (b, jb), (c, jc) = window_ids(a_log2, n_shards, sa, int(pa[0]), 2, first_id + 10_000)
+        before(b, jb, hz.junk)
+        before(c, jc, hz.junk)
+        plain(2)
+        ev.append(_acct(a))  # lands on b's and c's stop
+        ev.append(_acct(b))  # re-probed: inserts past a
+        plain(1)
+        ev.append(_acct(c))
+        ev.append(_acct(b, user_data_64=7))  # exists_with_different_user_data_64
+        ev.append(_acct(a))  # exists
+        plain(10)
+    elif case == "dup_live":
+        x = fresh()
+        plain(2)
+        ev.append(_acct(x))
+        plain(1)
+        ev.append(_acct(x))  # exists
+        ev.append(Account(id=x, ledger=1, code=1,  # exists_with_different_flags
+                          flags=int(AccountFlags.debits_must_not_exceed_credits)))
+        ev.append(_acct(x, code=2))  # exists_with_different_code
+        y = fresh()
+        ev.append(_acct(y, True))
+        ev.append(_acct(x))  # exists: the chain breaks, y is tombstoned
+        ev.append(_acct(y))  # inserts again
+        plain(5)
+    elif case == "dup_after_rollback":
+        x, z = fresh(), fresh()
+        plain(2)
+        ev.append(_acct(x, True))
+        ev.append(_acct(z, True))
+        bad()  # the chain breaks: x and z tombstoned
+        plain(1)
+        ev.append(_acct(x))  # inserts again, into its tombstone
+        ev.append(_acct(x))  # exists
+        ev.append(_acct(z))
+        plain(4)
+    elif case == "rollback_frees_window":
+        a, b = fresh(), fresh()
+        sa, pa = _window(a, a_log2, n_shards)
+        ((c, jc),) = window_ids(a_log2, n_shards, sa, int(pa[0]), 1, first_id + 20_000)
+        before(c, jc, hz.junk)
+        plain(2)
+        ev.append(_acct(a, True))  # lands on c's stop
+        ev.append(_acct(b, True))
+        bad()  # a's slot becomes a tombstone
+        ev.append(_acct(c))  # re-probed: inserts into the tombstone
+        ev.append(_acct(a))  # inserts past c
+        ev.append(_acct(b))
+        ev.append(_acct(c))  # exists
+        plain(3)
+    elif case == "window_full":
+        z = fresh()
+        sz, pz = _window(z, a_log2, n_shards)
+        ((k, jk),) = window_ids(a_log2, n_shards, sz, int(pz[0]), 1, first_id + 30_000,
+                                max_index=ht.WINDOW_SCALAR - 1)
+        _, pk = _window(k, a_log2, n_shards)
+        hz.junk.extend((sz, int(q)) for j, q in enumerate(pk) if j != jk)
+        plain(2)
+        ev.append(_acct(z))  # takes the last free position of k's window
+        plain(1)
+        ev.append(_acct(k, True))  # unresolved: writes nothing, applied, FAULT_SERIAL
+        ev.append(_acct(fresh(), True))
+        bad()  # the rollback tombstones k's last probe
+        ev.append(_acct(k))  # inserts into that tombstone (still unresolved)
+        ev.append(_acct(k))  # exists, found at its last probe
+        plain(3)
+    elif case == "tomb_window":
+        t0 = fresh()
+        s0, p0 = _window(t0, a_log2, n_shards)
+        hz.tombs.extend((s0, int(q)) for q in p0[:3])
+        ((t1, j1),) = window_ids(a_log2, n_shards, s0, int(p0[0]), 1, first_id + 40_000)
+        before(t1, j1, hz.junk)
+        plain(2)
+        ev.append(_acct(0))  # id_must_not_be_zero: probes the empty key's window
+        ev.append(_acct((1 << 128) - 1))  # id_must_not_be_int_max: the tombstone key's
+        ev.append(_acct(t0))  # passes three tombstones, inserts into the first
+        ev.append(_acct(t1))  # its free slot was t0's tombstone: re-probed
+        ev.append(_acct(t0, user_data_128=5))  # exists_with_different_user_data_128
+        ev.append(_acct(fresh(), True))
+        ev.append(_acct(t1))  # exists: the chain breaks
+        plain(3)
+    elif case == "chain_open_at_end":
+        plain(3)
+        for _ in range(2):
+            ev.append(_acct(fresh(), True))
+        plain(3)
+        for _ in range(3):  # linked_event_chain_open at the last, the others 1
+            ev.append(_acct(fresh(), True))
+    elif case == "chains_across_groups":
+        plain(20)
+        chain = [fresh() for _ in range(25)]  # events 20-44
+        ev.extend(_acct(c, True) for c in chain)
+        bad()  # event 45 breaks it: all 25 rolled back, across events 31 | 32
+        plain(5)
+        ev.extend(_acct(c) for c in chain[:3])  # insert again, into their tombstones
+        ev.extend(_acct(fresh(), True) for _ in range(20))  # events 54-73, across 63 | 64
+        plain(4)  # the first ends that chain
+        ev.extend(_acct(fresh(), True) for _ in range(22))  # events 78-99, open at the end
+    elif case == "gate_tripped":
+        plain(4)
+        ev.append(_acct(fresh(), True))
+        plain(15)
+        hz.used = (1 << a_log2) // 2 - len(ev) + 1
+    elif case == "pad_past_n":
+        plain(6)
+        ev.append(_acct(fresh(), True))
+        plain(13)
+        hz.n = len(ev)
+        ev.extend(_acct(e.id, True) for e in ev[:8])  # past n: duplicates, links
+        return hz
+    else:
+        raise ValueError(f"unknown account hazard case {case!r}")
+    hz.n = len(ev)
+    return hz
+
+
+def prepare_account_hazard(acct_rows, used, hz: AccountHazard, rng) -> None:
+    """In place: the account table ([2^a + 1, 32], or [S, 2^a + 1, 32]
+    sharded; a numpy array of 32-bit words or an int32 torch tensor on any
+    device) and `acct_used_slots` (0-d, or [S]) as `hz` assumes them."""
+    is_torch = isinstance(acct_rows, torch.Tensor)
+    rows = acct_rows if is_torch else acct_rows.view(np.int32)
+    rows = rows if rows.ndim == 3 else rows[None]
+    for shard, slot in hz.junk:
+        key = rows[shard, slot, :4]
+        if bool((key == 0).all()) or bool((key == -1).all()):
+            words = rng.integers(1, 1 << 31, 32).astype(np.int32)
+            rows[shard, slot] = torch.from_numpy(words).to(rows.device) if is_torch else words
+    for shard, slot in hz.tombs:
+        if bool((rows[shard, slot, :4] == 0).all()):
+            rows[shard, slot] = -1
+    if hz.used is not None:
+        used[GATE_SHARD if used.ndim else ...] = hz.used
