@@ -37,7 +37,15 @@ Phases (each failure exits non-zero):
    slots of 64 and of 8192 lanes, each giving the codes and fault word it
    is built for; the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
-   slot;
+   slot, and on every case of tigerbeetle_tpu_torch/testing/fold_cases.py
+   (k of 1, 2, 5 and 16, n_pad of 1 to 8192, empty and inactive slots
+   anywhere, repeated ring indices, chains of 0 and 2^64 - 1), its wrapper
+   raising ValueError and launching nothing on a bad slot count, lane count
+   or ring index; the state fingerprint (K6) on every case of
+   tigerbeetle_tpu_torch/testing/fp_cases.py (no live row, tombstones, keys
+   with one word set, a live dump row, every slot live, one in 997) at 2^14
+   / 2^16 slots, at counts that are no multiple of a block's rows and with
+   an empty account table; both leave their kept scratch words zero;
 3. the main path at deployment size: StateMachine over
    DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
    the reference benchmark's traffic (10,000 accounts, batches of 8190,
@@ -64,7 +72,8 @@ Phases (each failure exits non-zero):
    beside its plain version and its bound (the serial K4 also on a request
    of 8190 events: linked chains, then posts and voids; K5 also on the
    card alone; K9 on one chunk and on phase 3's restore, 133 chunks of 8192
-   in one call);
+   in one call; K6 and K7 also on the card alone, K6 beside its 64-byte
+   fetch floor);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -95,7 +104,11 @@ Phases (each failure exits non-zero):
    call must be one kernel and a table's K9 install one, with no memset,
    and both are timed through their wrappers and on the card alone; in
    another process (`chip_smoke.k5_child`), each K5 group of 16 x 8190
-   must be one kernel and no memset, timed likewise;
+   must be one kernel and no memset, timed likewise; and in a third
+   (`chip_smoke.digest_child`), each K6 call on tables of phase 6's live
+   rows and each K7 call (k from 1 to 16, with a ring and without) must be
+   one kernel with no memset and no copy, both timed through their
+   wrappers and on the card alone;
 9. the bounded-memory ledger: StateMachine over DeviceLedger(2^20 account /
    2^20 transfer slots, forest=Forest(Grid(MemoryStorage), memtable_max=
    8192)) on cuda with the threaded IO worker: 10,000 accounts and 128
@@ -738,17 +751,19 @@ def k5_cases(torch, L, constants, dev):
                          f"built for {c['fault_after']}")
 
 
-def fold_compare(torch, L, K, name, flat, n_pad, ns, active, idxs, rng) -> int:
+def fold_compare(torch, L, K, name, flat, n_pad, ns, active, idxs, rng, start=None) -> int:
     """K7 and its plain version from one random chain value (and ring, when
-    `idxs` is given) on the same codes: the chain and every ring entry, the
-    dump slot included, must be equal. Returns the largest difference."""
+    `idxs` is given), or from `start` = (chain int64, ring int64 numpy or
+    None), on the same codes: the chain and every ring entry, the dump slot
+    included, must be equal. Returns the largest difference."""
     from tigerbeetle_tpu_torch.models.dual_ledger import APPLY_RING
 
     dev = flat.device
-    chk0 = torch.tensor(int(rng.integers(-(1 << 63), 1 << 63)), dtype=torch.int64, device=dev)
-    ring0 = None
-    if idxs is not None:
-        ring0 = torch.from_numpy(rng.integers(-(1 << 63), 1 << 63, APPLY_RING + 1)).to(dev)
+    if start is None:
+        start = (int(rng.integers(-(1 << 63), 1 << 63)),
+                 None if idxs is None else rng.integers(-(1 << 63), 1 << 63, APPLY_RING + 1))
+    chk0 = torch.tensor(start[0], dtype=torch.int64, device=dev)
+    ring0 = None if start[1] is None else torch.from_numpy(start[1]).to(dev)
     ck, cp = chk0.clone(), chk0.clone()
     rk = None if ring0 is None else ring0.clone()
     rp = None if ring0 is None else ring0.clone()
@@ -804,6 +819,87 @@ def phase_fold_kernels(torch, L, dev):
                  [APPLY_RING - 1], rng)
     fold_compare(torch, L, K, "K7 fold (solo, 8190 lanes, no ring)", flat(1, 8190), 8190,
                  [8190], [True], None, rng)
+    fold_case_kernels(torch, L, K, dev)
+
+
+def fold_case_kernels(torch, L, K, dev):
+    """K7 against its plain version on every case of
+    tigerbeetle_tpu_torch/testing/fold_cases.py (k of 1, 2, 5 and 16, n_pad
+    of 1 to 8192, empty, full and inactive slots anywhere, colliding and
+    repeated ring indices, the dump slot, chains of 0 and 2^64 - 1), from the
+    case's own chain and ring; then the wrapper's argument checks: a slot
+    count, a lane count or a ring index out of range raises ValueError and
+    launches nothing."""
+    import zlib
+
+    from tigerbeetle_tpu_torch.ops.u128 import to_i64
+    from tigerbeetle_tpu_torch.testing import fold_cases
+
+    for name in fold_cases.CASES:
+        c = fold_cases.fold_case(name, np.random.default_rng(SEED + zlib.crc32(name.encode())))
+        flat = torch.from_numpy(c["flat"].view(np.int32)).to(dev)
+        ring = None if c["ring"] is None else c["ring"].view(np.int64)
+        fold_compare(torch, L, K, f"K7 fold ({name}, k {len(c['ns'])} x {c['n_pad']})", flat,
+                     c["n_pad"], c["ns"], c["active"], c["idxs"], None,
+                     start=(to_i64(c["chk"]), ring))
+        if int(K._kept("fold", dev).abs().sum()):
+            fail(f"K7 fold ({name}) left its scratch words nonzero")
+    chk = torch.zeros((), dtype=torch.int64, device=dev)
+    ring = torch.zeros(16, dtype=torch.int64, device=dev)
+    flat = torch.zeros(17 * 8, dtype=torch.int32, device=dev)
+    before = K.LAUNCHES["fold"]
+    for what, args in (("17 slots", (chk, flat, 8, [8] * 17, [True] * 17)),
+                       ("no slot", (chk, flat, 8, [], [])),
+                       ("a count past n_pad", (chk, flat, 8, [8, 9], [True, True])),
+                       ("a negative count", (chk, flat, 8, [-1], [True])),
+                       ("codes past flat", (chk, flat[:15], 8, [8, 8], [True, True])),
+                       ("a ring index past the ring", (chk, flat, 8, [8], [True], ring, [16])),
+                       ("a negative ring index", (chk, flat, 8, [8], [True], ring, [-1]))):
+        try:
+            K.fold(*args)
+        except ValueError:
+            continue
+        fail(f"K7 fold with {what} did not raise ValueError")
+    torch.cuda.synchronize()
+    if K.LAUNCHES["fold"] != before or int(chk) or int(ring.abs().sum()):
+        fail("a K7 fold refused for its arguments launched or wrote")
+    log(f"  K7 fold: {len(fold_cases.CASES)} cases of testing/fold_cases.py equal; 7 bad "
+        "argument sets raise ValueError and launch nothing")
+
+
+def fp_case_kernels(torch, L, K, dev):
+    """K6 against its plain version on every case of
+    tigerbeetle_tpu_torch/testing/fp_cases.py (no live row, tombstones, keys
+    with one word set or three all ones, empty and tombstone keys over
+    nonzero words, live rows only in the first and last slots, a live dump
+    row, every slot live, one in 997) at GEOMETRIES_CHIP (2^14 / 2^16 slots,
+    counts that are no multiple of a block's rows, an empty account table);
+    its kept scratch words must be zero after each call."""
+    import zlib
+
+    from tigerbeetle_tpu_torch.ops.u128 import to_i64
+    from tigerbeetle_tpu_torch.testing import fp_cases
+
+    for a_slots, x_slots in fp_cases.GEOMETRIES_CHIP:
+        for name in fp_cases.CASES:
+            rng = np.random.default_rng(SEED + zlib.crc32(f"{name}.{a_slots}.{x_slots}".encode()))
+            st = fp_cases.fp_case(name, a_slots, x_slots, rng)
+            state = {t: torch.from_numpy(st[t].view(np.int32)).to(dev)
+                     for t in ("acct_rows", "xfer_rows")}
+            state["commit_ts"] = torch.tensor(to_i64(int(st["commit_ts"])), dtype=torch.int64,
+                                              device=dev)
+            got = K.fingerprint(state["acct_rows"], state["xfer_rows"], state["commit_ts"])
+            torch.cuda.synchronize()
+            want = L.state_fingerprint_plain(state)
+            err = max_abs_diff(got, want)
+            scratch = int(K._kept("fingerprint", dev).abs().sum())
+            log(f"  K6 fingerprint ({name}, {a_slots} / {x_slots} slots): max_abs_err={err}, "
+                f"live {int(want[2])} / {int(want[3])}")
+            if err != 0:
+                fail(f"K6 fingerprint ({name}, {a_slots} / {x_slots}) differs from its plain "
+                     f"version: {got.tolist()} against {want.tolist()}")
+            if scratch:
+                fail(f"K6 fingerprint ({name}) left its scratch words nonzero")
 
 
 def mixed_batches(types, rng, n_batches, n):
@@ -1519,7 +1615,7 @@ def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
     return n * (128 + 4 + 128) + tp * 32 + touched * 2 * 128 + (ap - touched) * 32
 
 
-def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
+def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns, sector_ms=None):
     """Each kernel and its plain version at the main path's shapes on the
     main path's state; returns {key: (kernel ms, plain ms, bound ms, bound_by)}
     with medians and quartiles. A bound is bytes over the card's rate. K4
@@ -1684,13 +1780,23 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
     # bytes are read too
     fp = K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"]).cpu().tolist()
     slots = st["acct_rows"].shape[0] - 1 + st["xfer_rows"].shape[0] - 1
-    nbytes = slots * SECTOR + (fp[2] + fp[3]) * 96 + 5 * 8
-    kt = timed(torch, lambda: K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"]),
-               20)
+    live = fp[2] + fp[3]
+    nbytes = slots * SECTOR + live * 96 + 5 * 8
+    fn = lambda: K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"])  # noqa: E731
+    kt = timed(torch, fn, 20)
+    kc = timed(torch, fn, 20, on_card=True)
     pt = timed(torch, lambda: L.state_fingerprint_plain(st), 3)
     out["K6"] = (kt, pt, *bound(nbytes))
-    log(f"  K6 reads {slots} key sectors and {fp[2] + fp[3]} live rows; the whole tables "
-        f"({slots * 128} bytes) would take {slots * 128 / H100_BYTES_PER_S * 1e3:.6f} ms")
+    # the card fetches 64 bytes for a sector: a key's half of every row and
+    # the other half of a live row, at 3.35 TB/s and at the sector probe's
+    # rate for one sector a row (phase 1)
+    floor = (slots + live) * 64 / H100_BYTES_PER_S * 1e3
+    probe = (slots + live) * sector_ms[1] / (1 << 24) if sector_ms else float("nan")
+    log(f"  K6 ({slots} slots, {live} live rows): {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 "
+        f"{kt[2]:.4f}] through its wrapper, {kc[0]:.4f} [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] on "
+        f"the card alone; bound {out['K6'][2]:.6f} ms (32-byte sectors), 64-byte fetch floor "
+        f"{floor:.6f} at 3.35 TB/s and {probe:.6f} at the sector probe's rate; the whole "
+        f"tables ({slots * 128} bytes) would take {slots * 128 / H100_BYTES_PER_S * 1e3:.6f} ms")
 
     # K9: consecutive 8192-row chunks into a fresh table (one chunk a call),
     # then the restore's shape, RESTORE_CHUNKS chunks in one call
@@ -1761,10 +1867,15 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns):
         ns, act, idxs = [B] * k, [True] * k, list(range(k))
         chains = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
         rings = [torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=dev) for _ in range(2)]
-        kt = timed(torch, lambda: K.fold(chains[0], flat, n_pad, ns, act, rings[0], idxs), 20)
+        fn = lambda: K.fold(chains[0], flat, n_pad, ns, act, rings[0], idxs)  # noqa: E731
+        kt = timed(torch, fn, 20)
+        kc = timed(torch, fn, 20, on_card=True)
         pt = timed(torch, lambda: L.fold_codes_plain(chains[1], flat, n_pad, ns, act, rings[1],
                                                      idxs), 5)
         out[key] = (kt, pt, *bound(k * B * 4 + k * 8 + 2 * 8))
+        log(f"  {key} ({k} x {B} codes with its ring): {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 "
+            f"{kt[2]:.4f}] through its wrapper, {kc[0]:.4f} [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] "
+            f"on the card alone; bound {out[key][2]:.6f} ms")
 
     ledger.check_fault()
     host_breakdown(torch, L, types, rng, dev, out["K3"][0][0])
@@ -2667,6 +2778,185 @@ def k5_trace(card) -> dict:
         if any(not k.startswith("xfer") and not k.startswith("group") for k in sp["counts"]) \
                 or sum(sp["counts"].values()) != 1:
             fail(f"{name}: {sp['counts']}; one group_commit kernel and no memset expected")
+    return got
+
+
+# phase 6's live rows (2^20 account / 2^24 transfer slots): the 10,000
+# accounts and the 3,786,750 transfers that phases 3-5 leave
+DIGEST_LIVE_ACCOUNTS = N_ACCOUNTS
+DIGEST_LIVE_SHARE = 0.2257
+
+
+def digest_state(torch, dev) -> dict:
+    """Tables of phase 6's geometry and live rows, made on the card from the
+    seed: 2^20 account slots holding 10,000 rows, 2^24 transfer slots about
+    22.6% live, a few tombstones in each."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    st = {}
+    for table, log2, share in (("acct_rows", 20, None), ("xfer_rows", 24, DIGEST_LIVE_SHARE)):
+        n = 1 << log2
+        rows = torch.zeros((n + 1, 32), dtype=torch.int32, device=dev)
+        if share is None:
+            live = torch.randperm(n, generator=g, device=dev)[:DIGEST_LIVE_ACCOUNTS]
+        else:
+            live = (torch.rand(n, generator=g, device=dev) < share).nonzero().squeeze(1)
+        body = torch.randint(-(1 << 31), 1 << 31, (live.numel(), 32), generator=g, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+        body[:, 0] |= 1
+        body[:, 3] &= 0x7FFFFFFF
+        rows[live] = body
+        tombs = torch.randint(0, n, (1000,), generator=g, device=dev)
+        rows[tombs[(rows[tombs, :4] == 0).all(1)], :4] = -1
+        st[table] = rows
+        del body, live
+    st["commit_ts"] = torch.tensor(1_700_000_000_123_456_789, dtype=torch.int64, device=dev)
+    return st
+
+
+def digest_child(reps=20):
+    """In a process of its own: K6 on tables of phase 6's geometry and live
+    rows (2^20 account slots with 10,000 live rows, 2^24 transfer slots about
+    22.6% live, a few tombstones) and K7 on a group of 16 x 8190 codes
+    (n_pad 8192) and on one request of 8190, each with its ring, through
+    the `fingerprint` and `fold` wrappers of the checkout on sys.path: each
+    call against its plain version once, CUDA-event times through the
+    wrapper and on the card alone, the wrapper's host time (one call while
+    the card is busy, and the mean of 200 calls back to back, 20 for K6), and under
+    torch.profiler the device kernels, memsets and copies of three K6 calls
+    and of a K7 call for each k from 1 to 16, with a ring and without.
+    Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.models.dual_ledger import APPLY_RING
+
+    dev = torch.device("cuda")
+    st = digest_state(torch, dev)
+
+    def k6():
+        return K.fingerprint(st["acct_rows"], st["xfer_rows"], st["commit_ts"])
+
+    rng = np.random.default_rng(SEED + 12)
+    B = 8190
+    folds = {}
+    for key, k, n_pad in (("k7", GROUP_K, 8192), ("k7s", 1, B)):
+        flat = torch.from_numpy(fold_codes_np(rng, k * n_pad + 1).view(np.int32)).to(dev)
+        folds[key] = (flat, n_pad, [B] * k, [True] * k, list(range(k)))
+    chains = {key: torch.zeros((), dtype=torch.int64, device=dev) for key in folds}
+    rings = {key: torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=dev) for key in folds}
+
+    def k7(key):
+        flat, n_pad, ns, act, idxs = folds[key]
+        K.fold(chains[key], flat, n_pad, ns, act, rings[key], idxs)
+
+    # each against its plain version
+    want = L.state_fingerprint_plain(st)
+    if not torch.equal(k6(), want):
+        fail(f"K6 differs from its plain version: {k6().tolist()} against {want.tolist()}")
+    for key, (flat, n_pad, ns, act, idxs) in folds.items():
+        ck, rk = torch.full((), 12345, dtype=torch.int64, device=dev), rings[key].clone()
+        cp, rp = ck.clone(), rk.clone()
+        K.fold(ck, flat, n_pad, ns, act, rk, idxs)
+        L.fold_codes_plain(cp, flat, n_pad, ns, act, rp, idxs)
+        if not (torch.equal(ck, cp) and torch.equal(rk, rp)):
+            fail(f"K7 ({key}) differs from its plain version")
+
+    # the trace: every call after a warm one of its shape
+    traced = []
+    for k in range(1, GROUP_K + 1):
+        flat = torch.from_numpy(fold_codes_np(rng, k * 8192 + 1).view(np.int32)).to(dev)
+        ns = [int(x) for x in rng.integers(0, 8193, k)]
+        traced.append((k, flat, ns, [bool(x) for x in rng.random(k) < 0.8], list(range(k))))
+    chk = torch.zeros((), dtype=torch.int64, device=dev)
+    ring = torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=dev)
+    k6()
+    for k, flat, ns, act, idxs in traced:
+        K.fold(chk, flat, 8192, ns, act, ring, idxs)
+        K.fold(chk, flat, 8192, ns, act)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(3):
+            with record_function(f"k6_{i}"):
+                k6()
+        for k, flat, ns, act, idxs in traced:
+            with record_function(f"k7_{k}_ring"):
+                K.fold(chk, flat, 8192, ns, act, ring, idxs)
+            with record_function(f"k7_{k}"):
+                K.fold(chk, flat, 8192, ns, act)
+        torch.cuda.synchronize()
+    calls = {k: v for k, v in K.LAUNCHES.items() if v}
+    out_dir = os.path.join(os.getcwd(), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "digest.json")
+    prof.export_chrome_trace(path)
+    split = {name: _device_split(ev) for name, ev in _trace_device(path).items()}
+    out = {"calls": calls, "split": split, "live": [int(want[2]), int(want[3])],
+           "slots": [st["acct_rows"].shape[0] - 1, st["xfer_rows"].shape[0] - 1]}
+
+    def host_ms(fn):
+        """Median host time of fn's call (enqueue only: the card is kept
+        busy meanwhile)."""
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1 << 24)
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return float(np.median(ts))
+
+    def loop_ms(fn, calls=200):
+        """The mean time of `calls` calls back to back, then one wait: the
+        host's time a call where it is slower than the card."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    for key, fn in (("k6", k6), ("k7", lambda: k7("k7")), ("k7s", lambda: k7("k7s"))):
+        out[f"{key}_ms"] = timed(torch, fn, reps)
+        out[f"{key}_card_ms"] = timed(torch, fn, reps, on_card=True)
+        out[f"{key}_host_ms"] = host_ms(fn)
+        out[f"{key}_loop_ms"] = loop_ms(fn, 20 if key == "k6" else 200)
+    out["card"] = torch.cuda.get_device_name(0)
+    print(json.dumps(out))
+
+
+def digest_trace(card) -> dict:
+    """digest_child in a process of its own: each K6 call and each K7 call
+    (k from 1 to 16, with a ring and without) must be one kernel on the card,
+    with no memset and no copy. Returns its JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.digest_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced K6 and K7 calls failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name, sp in sorted(got["split"].items()):
+        log(f"  trace {name}: {sp['counts']}; device us {sp['us']}")
+    log(f"  K6 ({got['slots'][0]} / {got['slots'][1]} slots, {got['live'][0]} / {got['live'][1]} "
+        f"live): {got['k6_ms'][0]:.4f} ms through its wrapper, {got['k6_card_ms'][0]:.4f} on the "
+        f"card alone, the wrapper's host time {got['k6_host_ms']:.4f} (back to back "
+        f"{got['k6_loop_ms']:.4f} a call) [{card}]")
+    for key, what in (("k7", f"{GROUP_K} x 8190 with its ring"), ("k7s", "one request of 8190")):
+        log(f"  K7 ({what}): {got[key + '_ms'][0]:.4f} ms through its wrapper, "
+            f"{got[key + '_card_ms'][0]:.4f} on the card alone, the wrapper's host time "
+            f"{got[key + '_host_ms']:.4f} (back to back {got[key + '_loop_ms']:.4f} a call) "
+            f"[{card}]")
+    if len(got["split"]) != 3 + 2 * GROUP_K:
+        fail(f"the digest trace holds {len(got['split'])} calls, not {3 + 2 * GROUP_K}")
+    for name, sp in got["split"].items():
+        if any(k.startswith(("memset", "memcpy")) for k in sp["counts"]) \
+                or sum(sp["counts"].values()) != 1:
+            fail(f"{name}: {sp['counts']}; one kernel and no memset or copy expected")
     return got
 
 
@@ -4467,6 +4757,7 @@ def main() -> int:
     k5_cases(torch, L, constants, dev)
     k9_cases(torch, L, K, constants, dev)
     phase_fold_kernels(torch, L, dev)
+    fp_case_kernels(torch, L, K, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
     log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
@@ -4488,6 +4779,7 @@ def main() -> int:
     k8_cases(torch, L, K, dev, query_errs)
     k8_k9_trace(card)
     k5_trace(card)
+    digest_trace(card)
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")
@@ -4497,7 +4789,7 @@ def main() -> int:
     phase_trace(torch, SM, types, sm, dev)
 
     log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
-    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, smem_ns)
+    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, smem_ns, sector_ms)
 
     log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)

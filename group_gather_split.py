@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K5 (the group commit) and K10 in the spill cycle, for two checkouts on
-one card, in alternating processes.
+"""K5 (the group commit), K10 in the spill cycle and the digests K6 and K7,
+for two checkouts on one card, in alternating processes.
 
 Each round runs, for the `tigerbeetle_tpu_torch` package of one checkout,
 two processes of `chip_smoke.py` (of this checkout):
@@ -20,6 +20,13 @@ two processes of `chip_smoke.py` (of this checkout):
   reloads, K10r, one call a chunk or one call for all), and one cycle's
   device time by kernel and copy from a trace, for the whole cycle and for
   each K10 call;
+- `digest_child` (only when named in `--children`): K6 on tables of phase
+  6's geometry and live rows and K7 on a group of 16 x 8190 codes and on
+  one request of 8190, each with its ring, through the `fingerprint` and
+  `fold` wrappers: the times through the wrapper and on the card alone
+  (CUDA events), the wrapper's host time, and the device kernels, memsets
+  and copies of traced calls (three K6, and a K7 for each k from 1 to 16
+  with a ring and without);
 - `spill_rate_child` (only when named in `--children`): phase 9's 128
   requests through StateMachine over the spilling ledger, its rate in
   transfers/s. Phase 9 is mostly host work, so the spread of this rate
@@ -28,7 +35,7 @@ two processes of `chip_smoke.py` (of this checkout):
 The order is parent, this checkout, this checkout, parent, repeated
 `--rounds` times; `--children cycle` runs the spill cycle alone.
 
-    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill]
+    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill,digest]
 
 DIR is a `git archive` of another commit in a git-ignored directory (such
 as `build/parent`). Needs one card and nvcc; each checkout builds its own
@@ -57,6 +64,8 @@ K5_KEYS = ("k5_ms", "k5_card_ms", "k5_host_ms")
 LEGS = ("t_scan", "cycle_head", "split_idx", "t_gather_d2h", "gather", "copies", "waits",
         "t_stage", "t_rebuild", "reload", "reload_chunks")
 CALLS = ("cycle_head", "split_idx", "gather", "reload", "reload_chunks")
+DIGEST_KEYS = tuple(f"{k}_{t}" for k in ("k6", "k7", "k7s")
+                    for t in ("ms", "card_ms", "host_ms", "loop_ms"))
 
 
 def child(label: str, repo: Path, fn: str) -> dict:
@@ -91,6 +100,14 @@ def run(label: str, repo: Path, children) -> dict:
             print(f"{label}: traced {name} {sp['counts']} device us "
                   + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items())
                   + f"; span {sp['span_us']:.1f}, gaps {sp['gap_us']:.1f}", flush=True)
+    if "digest" in children:
+        dg = out["digest"] = child(label, repo, "digest_child")
+        # the event times are (median, p25, p75); the host time a median
+        print(f"{label}: digests, live {dg['live']}: "
+              + ", ".join(f"{k} {np.ravel(dg[k])[0]:.4f}" for k in DIGEST_KEYS), flush=True)
+        for name, sp in sorted(dg["split"].items()):
+            print(f"{label}: traced {name} {sp['counts']} device us "
+                  + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items()), flush=True)
     if "spill" in children:
         out["spill"] = child(label, repo, "spill_rate_child")
         print(f"{label}: phase 9 {out['spill']['rate']:.0f} transfers/s", flush=True)
@@ -102,10 +119,11 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--children", default="k5,cycle",
-                    help="which children to run, of k5, cycle and spill (comma-separated)")
+                    help="which children to run, of k5, cycle, spill and digest "
+                         "(comma-separated)")
     args = ap.parse_args()
     children = set(args.children.split(","))
-    if not children or children - {"k5", "cycle", "spill"}:
+    if not children or children - {"k5", "cycle", "spill", "digest"}:
         ap.error(f"--children: {args.children!r}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -130,6 +148,11 @@ def main() -> int:
             s["cycle_trace_calls"] = got[0]["cycle"]["traced_calls"]
         if "spill" in children:
             s["spill_rates"] = [g["spill"]["rate"] for g in got]
+        if "digest" in children:
+            s["digest"] = {k: [float(np.ravel(g["digest"][k])[0]) for g in got]
+                           for k in DIGEST_KEYS}
+            s["digest_trace"] = {name: sp["counts"]
+                                 for name, sp in got[0]["digest"]["split"].items()}
     print(json.dumps(summary))
     return 0
 

@@ -11,90 +11,141 @@
 // and, for the ring forms, ring[idx[j]] = c after slot j.
 //
 // Bound on an H100: bytes, k * n * 4 code bytes read once (0.16 us for 16 x
-// 8190 at 3.35 TB/s); far below one launch's latency, so the two launches
-// bound it in practice.
+// 8190 at 3.35 TB/s); far below one launch's latency, which bounds it in
+// practice.
 //
-// Design: pass 1 is a grid of (lane blocks, k slots), one thread per lane,
-// a warp-shuffle and shared-memory reduction, and one atomicAdd per block
-// into the slot's u64 scratch word. The sum wraps mod 2^64, so any order
-// gives the same bits. Pass 2 is one thread: it chains the k slots in
-// order, writes the chain value into the ring slot by slot (a later slot
-// with the same index wins, deterministically), updates chk in place and
-// zeroes the scratch words for the next call on the stream. The slot
-// counts, flags and ring indices travel by value in the launch.
+// Design: one launch of FOLD_BLOCKS blocks, whatever k. The grid's warps
+// are dealt out to the slots (warp g sums slot g % k, lanes g / k * 32 +
+// lane in steps of 32 times the slot's warp count), so any n_pad and any k
+// <= FOLD_K_MAX keep every block busy; a thread issues all its code loads
+// (4 at most for 16 x 8192) before it mixes any. Each warp reduces its sum
+// with shuffles, each block its warps' sums per slot in shared memory, and
+// one thread a slot adds the block's sum into the slot's kept scratch word
+// with atomicAdd. The block that finishes last (a counter in the scratch)
+// takes the slot sums with atomicExch, which leaves the words zeroed for the
+// next call, and one thread chains the k slots in order, writes the chain
+// value into the ring slot by slot (a later slot with the same index wins)
+// and updates chk in place. The sums wrap mod 2^64, so any order gives the
+// same bits. The slot counts, flags and ring indices travel by value in the
+// launch. (A 16-block cluster that adds the blocks' sums through
+// distributed shared memory took 1.3 us more on the card for 16 x 8190: its
+// two cluster barriers cost more than the atomics, PERF.md.)
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
 
 #define FOLD_K_MAX 16
-#define FOLD_THREADS 256
+#define FOLD_BLOCKS 256
+#define FOLD_THREADS 128
+#define FOLD_WARPS (FOLD_THREADS / 32)
+#define FOLD_UNROLL 4  // code loads a thread issues before it mixes any
+#define FOLD_BAD_ARGUMENT (-1)
 
-struct FoldSlots {
+// Kept between calls (per device and stream): a sum a slot, the count of
+// blocks done. Zero before a call, left zero by its last block.
+struct FoldScratch {
+  ull slot[FOLD_K_MAX];
+  unsigned int done;
+};
+
+struct FoldArgs {
+  const uint32_t* flat;
+  ull* chk;
+  ull* ring;
+  FoldScratch* sc;
+  int n_pad, k;
   int n[FOLD_K_MAX];
   int idx[FOLD_K_MAX];
   unsigned active;  // bit j: slot j advances the chain
 };
 
-__global__ void fold_lanes(const uint32_t* __restrict__ flat, int n_pad, FoldSlots s,
-                           ull* batch_h) {
-  int j = blockIdx.y;
-  int n = s.n[j];
-  int first = blockIdx.x * FOLD_THREADS;
-  if (first >= n) return;  // the whole block lies past the slot's lanes
-  int lane = first + threadIdx.x;
+__global__ void __launch_bounds__(FOLD_THREADS) fold_slots(FoldArgs a) {
+  __shared__ ull s_warp[FOLD_WARPS];
+  __shared__ ull s_slot[FOLD_K_MAX];
+  __shared__ bool s_last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k = a.k;
+  const int g = (int)blockIdx.x * FOLD_WARPS + warp;
+  const int j = g % k;
+  const int n = a.n[j];
+  const int step = (FOLD_BLOCKS * FOLD_WARPS - j + k - 1) / k * 32;  // the slot's warps x 32
+  const uint32_t* codes = a.flat + (size_t)j * a.n_pad;
   ull m = 0;
-  if (lane < n) {
-    ull code = flat[(size_t)j * n_pad + lane];
-    m = fp_mix(code * FP_MUL + (ull)lane + 1ull);
+  for (int l0 = g / k * 32 + lane; l0 < n; l0 += FOLD_UNROLL * step) {
+    uint32_t v[FOLD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < FOLD_UNROLL; u++) {
+      const int l = l0 + u * step;
+      v[u] = l < n ? __ldg(codes + l) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < FOLD_UNROLL; u++) {
+      const int l = l0 + u * step;
+      if (l < n) m += fp_mix((ull)v[u] * FP_MUL + (ull)l + 1ull);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) m += __shfl_down_sync(0xFFFFFFFFu, m, off);
-  __shared__ ull s_sum[FOLD_THREADS / 32];
-  int w_lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (w_lane == 0) s_sum[warp] = m;
+  if (lane == 0) s_warp[warp] = m;
+  __syncthreads();
+  if ((int)threadIdx.x < k) {
+    ull s = 0;
+    for (int w = 0; w < FOLD_WARPS; w++) {
+      if (((int)blockIdx.x * FOLD_WARPS + w) % k == (int)threadIdx.x) s += s_warp[w];
+    }
+    if (s != 0) atomicAdd(&a.sc->slot[threadIdx.x], s);
+    __threadfence();  // the block's sums land before its count of done
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(&a.sc->done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();  // the last block: every other block's sums are in
+  if ((int)threadIdx.x < k) s_slot[threadIdx.x] = atomicExch(&a.sc->slot[threadIdx.x], 0ull);
   __syncthreads();
   if (threadIdx.x != 0) return;
-  ull total = 0;
-#pragma unroll
-  for (int w = 0; w < FOLD_THREADS / 32; w++) total += s_sum[w];
-  atomicAdd(batch_h + j, total);
-}
-
-__global__ void fold_chain(ull* chk, ull* ring, int k, FoldSlots s, ull* batch_h) {
-  ull c = *chk;
-  for (int j = 0; j < k; j++) {
-    if (s.active >> j & 1u) c = fp_mix(c ^ (batch_h[j] + (ull)s.n[j]));
-    if (ring != nullptr) ring[s.idx[j]] = c;
-    batch_h[j] = 0;
+  atomicExch(&a.sc->done, 0u);
+  ull c = *a.chk;
+  for (int s = 0; s < k; s++) {
+    if (a.active >> s & 1u) c = fp_mix(c ^ (s_slot[s] + (ull)a.n[s]));
+    if (a.ring != nullptr) a.ring[a.idx[s]] = c;
   }
-  *chk = c;
+  *a.chk = c;
 }
 
-// flat: k slots of n_pad u32 codes (more words may follow); ns, active,
-// idxs: host arrays of k slot counts (0 <= n <= n_pad), flags and ring
-// indices (0 <= idx < ring_len; ignored without a ring); chk: one u64, read
-// and written; ring: ring_len u64 or null; scratch: FOLD_K_MAX zeroed u64,
-// left zeroed.
-extern "C" int tb_fold(const uint32_t* flat, int n_pad, int k, const int* ns,
-                       const uint8_t* active, const int* idxs, ull* chk, ull* ring,
-                       int ring_len, ull* scratch, cudaStream_t stream) {
-  if (k < 1 || k > FOLD_K_MAX || n_pad < 0) return (int)cudaErrorInvalidValue;
-  FoldSlots s{};
+extern "C" size_t tb_fold_scratch_bytes() { return sizeof(FoldScratch); }
+
+// flat: flat_len u32 codes, slot j at [j * n_pad, (j + 1) * n_pad); slots:
+// host 64-bit ints, k slot counts (0 <= n <= n_pad), then the active flags
+// as a bit mask, then (with a ring) k ring indices (0 <= idx < ring_len);
+// chk: one u64, read and written; ring: ring_len u64 or null; scratch:
+// tb_fold_scratch_bytes() bytes, zero before the first call on a stream and
+// left zero by each call. Returns FOLD_BAD_ARGUMENT, launching nothing, on a
+// slot count k outside 1..16, a count or an index out of its range, or
+// codes past flat_len.
+extern "C" int tb_fold(const uint32_t* flat, long long flat_len, int n_pad, int k,
+                       const long long* slots, ull* chk, ull* ring, int ring_len, void* scratch,
+                       cudaStream_t stream) {
+  if (k < 1 || k > FOLD_K_MAX || n_pad < 0 || n_pad > (1 << 30) ||
+      (long long)k * n_pad > flat_len)
+    return FOLD_BAD_ARGUMENT;
+  FoldArgs a{};
+  a.flat = flat;
+  a.chk = chk;
+  a.ring = ring;
+  a.sc = static_cast<FoldScratch*>(scratch);
+  a.n_pad = n_pad;
+  a.k = k;
+  a.active = (unsigned)slots[k];
   for (int j = 0; j < k; j++) {
-    if (ns[j] < 0 || ns[j] > n_pad) return (int)cudaErrorInvalidValue;
-    s.n[j] = ns[j];
-    if (active[j]) s.active |= 1u << j;
+    if (slots[j] < 0 || slots[j] > n_pad) return FOLD_BAD_ARGUMENT;
+    a.n[j] = (int)slots[j];
     if (ring != nullptr) {
-      if (idxs[j] < 0 || idxs[j] >= ring_len) return (int)cudaErrorInvalidValue;
-      s.idx[j] = idxs[j];
+      const long long idx = slots[k + 1 + j];
+      if (idx < 0 || idx >= ring_len) return FOLD_BAD_ARGUMENT;
+      a.idx[j] = (int)idx;
     }
   }
-  int blocks = (n_pad + FOLD_THREADS - 1) / FOLD_THREADS;
-  if (blocks > 0) {
-    fold_lanes<<<dim3(blocks, k), FOLD_THREADS, 0, stream>>>(flat, n_pad, s, scratch);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  fold_chain<<<1, 1, 0, stream>>>(chk, ring, k, s, scratch);
+  fold_slots<<<FOLD_BLOCKS, FOLD_THREADS, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -48,6 +48,7 @@ for the scans' bounds.
 from __future__ import annotations
 
 import ctypes
+import struct
 import threading
 
 import numpy as np
@@ -91,9 +92,9 @@ _SIGNATURES = {
                                    _P, _P, _P],
     "tb_group_commit": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                         _P, _P, _P, _P],
-    "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P],
+    "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P, _P],
     "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _P, _P],
-    "tb_fold": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P],
+    "tb_fold": [_P, _I64, _I, _I, ctypes.c_char_p, _P, _P, _I, _P, _P],
     "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _U32, _P],
     "tb_spill_head": [_P, _I, _P, _P, _P],
     "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
@@ -127,6 +128,10 @@ _SCRATCH = (
     "tb_mesh_commit_transfers_serial_scratch",
 )
 
+# the kernels whose scratch is kept zeroed between calls, with the C
+# function that gives its size
+_KEPT = {"fingerprint": "tb_fingerprint_scratch_bytes", "fold": "tb_fold_scratch_bytes"}
+
 _lib = None
 # the last scratch buffer of each serial account walk, whose header holds its
 # re-probe count (walk_reprobes)
@@ -147,6 +152,10 @@ def library() -> ctypes.CDLL:
         for name in _SCRATCH:
             fn = getattr(lib, name)
             fn.argtypes = [_I]
+            fn.restype = ctypes.c_size_t
+        for name in _KEPT.values():
+            fn = getattr(lib, name)
+            fn.argtypes = []
             fn.restype = ctypes.c_size_t
         lib.tb_error_string.argtypes = [_I]
         lib.tb_error_string.restype = ctypes.c_char_p
@@ -169,7 +178,10 @@ def _launch(name: str, counter: str, *args) -> None:
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current stream on the current device, as a raw handle (what
+    `torch.cuda.current_stream().cuda_stream` gives, without the Stream
+    object)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _ptr(t) -> int:
@@ -349,17 +361,37 @@ def group_commit(state, rows, ns, tss, a_log2: int, t_log2: int):
     return flat, summary
 
 
+_kept_tls = threading.local()
+
+
+def _kept(kernel: str, device):
+    """The scratch buffer of `kernel` (a key of _KEPT) for one device and
+    stream: zeroed once; each call's last block leaves it zero again, and a
+    thread's launches on one stream run in order, so no two calls share it
+    in flight."""
+    bufs = _kept_tls.__dict__.setdefault("bufs", {})
+    key = (kernel, device, _stream())
+    buf = bufs.get(key)
+    if buf is None:
+        nbytes = getattr(library(), _KEPT[kernel])()
+        buf = bufs[key] = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+    return buf
+
+
 def fingerprint(acct_rows, xfer_rows, commit_ts):
     """K6: int64 [5] = accounts_fp, transfers_fp, live accounts, live
-    transfers (u64 bits), commit_ts; the tables' last (dump) rows excluded."""
+    transfers (u64 bits), commit_ts; the tables' last (dump) rows excluded.
+    One launch over both tables."""
     for t, name in ((acct_rows, "acct_rows"), (xfer_rows, "xfer_rows")):
         _need(t, torch.int32, 2, name)
         if t.shape[1] != 32 or t.shape[0] < 1:
             raise ValueError(f"{name}: shape {tuple(t.shape)}")
     _need(commit_ts, torch.int64, 0, "commit_ts")
-    out = torch.empty(5, dtype=torch.int64, device=acct_rows.device)
+    dev = acct_rows.device
+    out = torch.empty(5, dtype=torch.int64, device=dev)
     _launch("tb_fingerprint", "fingerprint", _ptr(acct_rows), acct_rows.shape[0] - 1,
-            _ptr(xfer_rows), xfer_rows.shape[0] - 1, _ptr(commit_ts), _ptr(out), _stream())
+            _ptr(xfer_rows), xfer_rows.shape[0] - 1, _ptr(commit_ts), _ptr(out),
+            _ptr(_kept("fingerprint", dev)), _stream())
     return out
 
 
@@ -406,20 +438,7 @@ def install_rows_chunked(state, table: str, rows, ful, cap_log2: int, chunk: int
     _install(state, table, rows, ful, chunk, n, cap_log2)
 
 
-FOLD_K_MAX = 16  # csrc/fold.cu FOLD_K_MAX
-_fold_tls = threading.local()
-
-
-def _fold_scratch(device):
-    """K7's zeroed u64 scratch words, one buffer per thread, device and
-    stream: the kernel leaves them zeroed, and a thread's launches on one
-    stream run in order, so no two folds share words in flight."""
-    bufs = _fold_tls.__dict__.setdefault("bufs", {})
-    key = (device, _stream())
-    buf = bufs.get(key)
-    if buf is None:
-        buf = bufs[key] = torch.zeros(FOLD_K_MAX, dtype=torch.int64, device=device)
-    return buf
+_FOLD_BAD_ARGUMENT = -1  # csrc/fold.cu FOLD_BAD_ARGUMENT
 
 
 def fold(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
@@ -427,29 +446,33 @@ def fold(chk, flat, n_pad: int, ns, active, ring=None, idxs=None) -> None:
     n_pad), lanes < ns[j]) into the chain `chk` (0-d int64, u64 bits) in
     place; a slot advances the chain where `active[j]`. With a `ring` (1-d
     int64), ring[idxs[j]] takes the chain value after slot j, in slot
-    order. `ns`, `active` and `idxs` are host sequences of length k."""
-    ns = np.ascontiguousarray(ns, dtype=np.int32)
-    k = ns.shape[0]
-    act = np.ascontiguousarray(active, dtype=np.uint8)
+    order. `ns`, `active` and `idxs` are host sequences of length k. One
+    launch. Raises ValueError, launching nothing, where 1 <= k <= 16, 0 <=
+    ns[j] <= n_pad or 0 <= idxs[j] < len(ring) fails (checked in C)."""
     _need(flat, torch.int32, 1, "flat")
     _need(chk, torch.int64, 0, "chk")
-    if not 1 <= k <= FOLD_K_MAX or act.shape != (k,) or flat.shape[0] < k * n_pad \
-            or ((ns < 0) | (ns > n_pad)).any():
-        raise ValueError(f"fold: flat {tuple(flat.shape)}, n_pad {n_pad}, ns {ns.tolist()}, "
-                         f"active {act.tolist()}")
-    ring_len = 0
-    idx = None
+    k = len(ns)
     if ring is not None:
         _need(ring, torch.int64, 1, "ring")
-        ring_len = ring.shape[0]
-        idx = np.ascontiguousarray(idxs, dtype=np.int32)
-        if idx.shape != (k,) or ((idx < 0) | (idx >= ring_len)).any():
-            raise ValueError(f"fold: ring indices {idx.tolist()} for a ring of {ring_len}")
-    # ns, active and idxs are read on the host during the call
-    _launch("tb_fold", "fold", _ptr(flat), n_pad, k, ns.ctypes.data, act.ctypes.data,
-            None if idx is None else idx.ctypes.data, _ptr(chk),
-            None if ring is None else _ptr(ring), ring_len, _ptr(_fold_scratch(flat.device)),
-            _stream())
+    if len(active) != k or (ring is not None and len(idxs) != k):
+        raise ValueError(f"fold: {k} slots, {len(active)} active flags, ring indices "
+                         f"{None if idxs is None else list(idxs)}")
+    mask = sum(1 << j for j, a in enumerate(active) if a)
+    slots = [*ns, mask] if ring is None else [*ns, mask, *idxs]
+    lib = library()
+    # the slot counts, the active mask and the ring indices, read on the
+    # host during the call
+    err = lib.tb_fold(_ptr(flat), flat.shape[0], n_pad, k, struct.pack(f"{len(slots)}q", *slots),
+                      _ptr(chk), None if ring is None else _ptr(ring),
+                      0 if ring is None else ring.shape[0], _ptr(_kept("fold", flat.device)),
+                      _stream())
+    if err == _FOLD_BAD_ARGUMENT:
+        raise ValueError(f"fold: flat {tuple(flat.shape)}, n_pad {n_pad}, ns {list(ns)}, ring "
+                         f"indices {None if idxs is None else list(idxs)} for a ring of "
+                         f"{0 if ring is None else ring.shape[0]}")
+    if err != 0:
+        raise RuntimeError(f"tb_fold: CUDA error {err} ({lib.tb_error_string(err).decode()})")
+    LAUNCHES["fold"] += 1
 
 
 QUERY_LIMIT = 8192  # csrc/filter_scan.cu QUERY_LIMIT
