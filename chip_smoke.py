@@ -45,7 +45,14 @@ Phases (each failure exits non-zero):
    tigerbeetle_tpu_torch/testing/fp_cases.py (no live row, tombstones, keys
    with one word set, a live dump row, every slot live, one in 997) at 2^14
    / 2^16 slots, at counts that are no multiple of a block's rows and with
-   an empty account table; both leave their kept scratch words zero;
+   an empty account table; both leave their kept scratch words zero; the
+   lookups (K1, and K11l on 1 and on 8 shards) on every case of
+   tigerbeetle_tpu_torch/testing/lookup_cases.py (hits at once and after
+   tombstones, misses ended by an empty slot after tombstones or at once,
+   windows with one tombstone or none, the all-zero and all-ones keys, one
+   key in many lanes, a table or one shard with no empty slot) at 2^16
+   slots and 1, 33 and 8190 keys: found, rows and resolved of every lane,
+   and each crafted lane's answer as its chain is built to give;
 3. the main path at deployment size: StateMachine over
    DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
    the reference benchmark's traffic (10,000 accounts, batches of 8190,
@@ -73,7 +80,9 @@ Phases (each failure exits non-zero):
    of 8190 events: linked chains, then posts and voids; K5 also on the
    card alone; K9 on one chunk and on phase 3's restore, 133 chunks of 8192
    in one call; K6 and K7 also on the card alone, K6 beside its 64-byte
-   fetch floor);
+   fetch floor; K1 also on the card alone, beside its bound: the larger of
+   its bytes and 1 + its longest probe chain dependent loads at phase 1's
+   chase time);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -108,7 +117,12 @@ Phases (each failure exits non-zero):
    (`chip_smoke.digest_child`), each K6 call on tables of phase 6's live
    rows and each K7 call (k from 1 to 16, with a ring and without) must be
    one kernel with no memset and no copy, both timed through their
-   wrappers and on the card alone;
+   wrappers and on the card alone; and in a fourth
+   (`chip_smoke.lookup_child`), K1 and K11l (8 shards) on 2^20 account
+   slots a table holding phase 3's 10,000 accounts: each wrapper call one
+   kernel with no memset or copy, each lookup request of 8190 ids through
+   StateMachine one kernel and one device-to-host copy, both timed through
+   the wrapper and on the card alone, the request's wall time;
 9. the bounded-memory ledger: StateMachine over DeviceLedger(2^20 account /
    2^20 transfer slots, forest=Forest(Grid(MemoryStorage), memtable_max=
    8192)) on cuda with the threaded IO worker: 10,000 accounts and 128
@@ -162,8 +176,9 @@ Phases (each failure exits non-zero):
    two copies of that state at the path's shapes (the serial ones on 1810
    accounts and on 8190 transfers: linked chains, posts and voids), their
    times (the serial transfer kernel's bound one shared-memory round trip
-   an event), and a checkpoint blob restored into a fresh ledger on the
-   card answering alike;
+   an event; K11l also on the card alone, beside its bound as K1's), and
+   a checkpoint blob restored into a fresh ledger on the card answering
+   alike;
 11. in a process of its own (`chip_smoke.account_walk_child`), the serial
    account commits (K2 serial and K11as, csrc/account_walk.cuh: a parallel
    plan, then a one-warp walk that re-probes an event only where the batch
@@ -902,6 +917,60 @@ def fp_case_kernels(torch, L, K, dev):
                 fail(f"K6 fingerprint ({name}) left its scratch words nonzero")
 
 
+def lookup_case_kernels(torch, L, K, dev):
+    """K1 and K11l against their plain versions on every case of
+    tigerbeetle_tpu_torch/testing/lookup_cases.py (hits at once and after
+    tombstones, misses ended by an empty slot after tombstones or at once,
+    windows with one tombstone or none, the all-zero and all-ones keys, one
+    key in many lanes, a table or one shard with no empty slot) at
+    LOG2_CHIP slots (K11l on 1 and on 8 shards of them) and batches of 1,
+    33 and 8190 keys: found, rows and resolved of every lane bit-identical,
+    and the crafted lanes' answers those their chains are built to give."""
+    import zlib
+
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+    from tigerbeetle_tpu_torch.testing import lookup_cases as LC
+
+    log2 = LC.LOG2_CHIP
+    for S in (0,) + LC.SHARDS:
+        name_k = f"K11 mesh_lookup ({S} shard{'s' if S > 1 else ''})" if S else "K1 lookup"
+        worst, lanes = 0, 0
+        for name in LC.CASES:
+            for n in LC.SIZES:
+                rng = np.random.default_rng(SEED + zlib.crc32(f"{name}.{n}.{S}".encode()))
+                case = LC.lookup_case(name, log2, n, rng, n_shards=S)
+                rows = torch.from_numpy(case["rows"].view(np.int32)).to(dev)
+                key4 = torch.from_numpy(case["key4"].view(np.int32)).to(dev)
+                if S:
+                    got = K.mesh_lookup(key4, rows, log2)
+                    want = M.lookup_plain(rows, key4, log2)
+                else:
+                    got = K.lookup(key4, rows, log2)
+                    want = L.table_lookup_plain(key4, rows, log2)
+                torch.cuda.synchronize()
+                errs = [max_abs_diff(a, b) for a, b in zip(got, want)]
+                c = case["crafted"]
+                found, out, res = (t.cpu().numpy() for t in got)
+                crafted = case["rows"].reshape(-1, 32)[case["slot"][c]]
+                if S:
+                    crafted = np.where(case["found"][c][:, None], crafted, 0)
+                ok = (found[c] == case["found"][c]).all() and (
+                    res[c] == case["resolved"][c]).all() and (
+                    out.view(np.uint32)[c] == crafted).all()
+                if max(errs) or not ok:
+                    for what, a, b in zip(("found", "rows", "resolved"), got, want):
+                        if not torch.equal(a, b):
+                            idx = (a != b).nonzero()[:4].tolist()
+                            log(f"    {what}: {int((a != b).sum())} differ; at {idx}: kernel "
+                                f"{[int(a[tuple(i)]) for i in idx]}, plain "
+                                f"{[int(b[tuple(i)]) for i in idx]}")
+                    fail(f"{name_k} ({name}, {n} keys) differs from its plain version "
+                         f"({errs}) or from its crafted answers ({bool(ok)})")
+                worst, lanes = max([worst] + errs), lanes + int(c.sum())
+        log(f"  {name_k}: {len(LC.CASES)} cases of testing/lookup_cases.py x {LC.SIZES} keys at "
+            f"2^{log2} slots equal, max_abs_err={worst}; {lanes} crafted lanes answer as built")
+
+
 def mixed_batches(types, rng, n_batches, n):
     """Random traffic over every tier: limit accounts, pendings and their
     posts/voids (earlier and same batch), linked chains, balancing flags,
@@ -1542,15 +1611,38 @@ def phase_trace(torch, SM, types, sm, dev, n_requests=16):
 # ----------------------------------------------------------------------
 
 
-def probe_counts(torch, ht, key4, rows, cap_log2, window):
-    """Probes each key needs on this table: up to the hit or first empty."""
+def probe_lengths(torch, ht, key4, rows, cap_log2, window):
+    """The probes each key needs on this table (int64 [B]): up to the hit
+    or the first empty slot."""
     pos = ht.probe_positions(key4, cap_log2, window)
     k4 = rows[pos, :4]
     hit = (k4 == key4.unsqueeze(-2)).all(-1)
     stop = hit | (k4 == 0).all(-1)
     j = torch.arange(window, device=key4.device)
-    first = torch.where(stop, j, window - 1).amin(-1)
-    return int((first + 1).sum())
+    return torch.where(stop, j, window - 1).amin(-1) + 1
+
+
+def probe_counts(torch, ht, key4, rows, cap_log2, window):
+    """Probes the keys need on this table, summed."""
+    return int(probe_lengths(torch, ht, key4, rows, cap_log2, window).sum())
+
+
+def lookup_bound(lengths, latency_ns):
+    """K1's (or K11l's) least time from each key's probe chain (`lengths`,
+    probe_lengths or mesh_probe_lengths): the larger of its bytes (each key
+    read, a 32-byte key sector a probe past the row it finds, the row read
+    and written, two flags written) and its latency (the key, then the
+    longest chain's probes: 1 + that many dependent loads at `latency_ns`,
+    the pointer chase over the memory level the timed calls read from).
+    Returns (ms, "bytes" or "latency", bytes ms, latency ms, longest chain)."""
+    B = lengths.shape[0]
+    nbytes = B * (16 + 128 + 128 + 2) + (int(lengths.sum()) - B) * 32
+    longest = int(lengths.max())
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_latency = (1 + longest) * latency_ns * 1e-6
+    if by_latency > by_bytes:
+        return by_latency, "latency", by_bytes, by_latency, longest
+    return by_bytes, "bytes", by_bytes, by_latency, longest
 
 
 def timed(torch, fn, reps, on_card=False):
@@ -1615,7 +1707,8 @@ def transfer_bytes(torch, ht, st, rows, a_log2, t_log2, window):
     return n * (128 + 4 + 128) + tp * 32 + touched * 2 * 128 + (ap - touched) * 32
 
 
-def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns, sector_ms=None):
+def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
+                 sector_ms=None):
     """Each kernel and its plain version at the main path's shapes on the
     main path's state; returns {key: (kernel ms, plain ms, bound ms, bound_by)}
     with medians and quartiles. A bound is bytes over the card's rate. K4
@@ -1639,14 +1732,18 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, smem_ns, sector_m
     def bound(nbytes):
         return nbytes / H100_BYTES_PER_S * 1e3, "bytes"
 
-    # K1: lookup of 8190 account ids; the row gathered is one of the slots
-    # probed, so its key sector is in its 128 bytes
+    # K1: lookup of 8190 account ids, bound by its bytes or its longest
+    # chain of dependent loads
     key4 = L.ids_to_batch([int(x) for x in rng.integers(1, N_ACCOUNTS + 1, B)], dev)["key4"]
-    probes = probe_counts(torch, ht, key4, st["acct_rows"], a_log2, 32)
-    nbytes = B * (16 + 128 + 128 + 8 + 2) + (probes - B) * SECTOR
-    out["K1"] = (timed(torch, lambda: K.lookup(key4, st["acct_rows"], a_log2), 20),
+    b = lookup_bound(probe_lengths(torch, ht, key4, st["acct_rows"], a_log2, 32), l2_ns)
+    fn = lambda: K.lookup(key4, st["acct_rows"], a_log2)  # noqa: E731
+    out["K1"] = (timed(torch, fn, 20),
                  timed(torch, lambda: L.table_lookup_plain(key4, st["acct_rows"], a_log2), 5),
-                 *bound(nbytes))
+                 *b[:2])
+    kc = timed(torch, fn, 20, on_card=True)
+    log(f"  K1 ({B} keys): {out['K1'][0][0]:.4f} ms through its wrapper, {kc[0]:.4f} [p25 "
+        f"{kc[1]:.4f}, p75 {kc[2]:.4f}] on the card alone; bound {b[0]:.6f} ms ({b[1]}; bytes "
+        f"{b[2]:.6f}, 1 + {b[4]} dependent loads {b[3]:.6f})")
 
     # K2: fresh accounts each run; a fresh id's probe ends at the empty
     # slot its row is written to
@@ -2814,6 +2911,31 @@ def digest_state(torch, dev) -> dict:
     return st
 
 
+def host_ms(torch, fn, reps) -> float:
+    """Median host time of fn's call (enqueue only: the card is kept busy
+    meanwhile)."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 24)
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return float(np.median(ts))
+
+
+def loop_ms(torch, fn, calls=200) -> float:
+    """The mean time of `calls` calls back to back, then one wait: the
+    host's time a call where it is slower than the card."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / calls
+
+
 def digest_child(reps=20):
     """In a process of its own: K6 on tables of phase 6's geometry and live
     rows (2^20 account slots with 10,000 live rows, 2^24 transfer slots about
@@ -2897,34 +3019,11 @@ def digest_child(reps=20):
     out = {"calls": calls, "split": split, "live": [int(want[2]), int(want[3])],
            "slots": [st["acct_rows"].shape[0] - 1, st["xfer_rows"].shape[0] - 1]}
 
-    def host_ms(fn):
-        """Median host time of fn's call (enqueue only: the card is kept
-        busy meanwhile)."""
-        ts = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1 << 24)
-            t0 = time.perf_counter()
-            fn()
-            ts.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-        return float(np.median(ts))
-
-    def loop_ms(fn, calls=200):
-        """The mean time of `calls` calls back to back, then one wait: the
-        host's time a call where it is slower than the card."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / calls
-
     for key, fn in (("k6", k6), ("k7", lambda: k7("k7")), ("k7s", lambda: k7("k7s"))):
         out[f"{key}_ms"] = timed(torch, fn, reps)
         out[f"{key}_card_ms"] = timed(torch, fn, reps, on_card=True)
-        out[f"{key}_host_ms"] = host_ms(fn)
-        out[f"{key}_loop_ms"] = loop_ms(fn, 20 if key == "k6" else 200)
+        out[f"{key}_host_ms"] = host_ms(torch, fn, reps)
+        out[f"{key}_loop_ms"] = loop_ms(torch, fn, 20 if key == "k6" else 200)
     out["card"] = torch.cuda.get_device_name(0)
     print(json.dumps(out))
 
@@ -2957,6 +3056,141 @@ def digest_trace(card) -> dict:
         if any(k.startswith(("memset", "memcpy")) for k in sp["counts"]) \
                 or sum(sp["counts"].values()) != 1:
             fail(f"{name}: {sp['counts']}; one kernel and no memset or copy expected")
+    return got
+
+
+# ----------------------------------------------------------------------
+# the lookups (K1, K11l) alone, in a process of their own
+# ----------------------------------------------------------------------
+
+# (key, wrapper, shards): K1 on a DeviceLedger, K11l on a ShardedLedger
+LOOKUP_KINDS = (("K1", "lookup", 0), ("K11l", "mesh_lookup", 8))
+LOOKUP_TRACED = 3  # lookup requests traced for each kind
+
+
+def lookup_ledger(torch, SM, L, M, types, constants, n_shards, log2, dev):
+    """StateMachine over a DeviceLedger (`n_shards` 0) or a ShardedLedger of
+    `n_shards` shards, 2^log2 account slots a table holding phase 3's 10,000
+    accounts from phase 3's two account requests (the second, with a linked
+    pair, on the serial tier); its transfer tables 2^14 slots (a lookup of
+    accounts reads none of them)."""
+    process = constants.ConfigProcess(account_slots_log2=log2, transfer_slots_log2=14)
+    ledger = (M.ShardedLedger(n_shards, process, device=dev) if n_shards
+              else L.DeviceLedger(process, device=dev))
+    sm = SM.StateMachine(ledger)
+    for _kind, op, body in main_path_requests(types, np.random.default_rng(SEED + 1))[:2]:
+        sm.prepare(op, body)
+        if sm.commit(op, sm.prepare_timestamp + 10**12, body) != b"":
+            fail("an account request of the lookup ledger failed")
+    return sm, ledger
+
+
+def lookup_child(reps=20, log2=20):
+    """In a process of its own, for K1 and for K11l (8 shards): StateMachine
+    over a ledger with 2^log2 account slots a table holding phase 3's 10,000
+    accounts (lookup_ledger), and 8190 random ids of them, looked up through
+    the wrapper (`lookup`, `mesh_lookup` of the checkout on sys.path): once
+    against the plain version (found, rows and resolved), CUDA-event times
+    through the wrapper and on the card alone, the wrapper's host time, the
+    bound (lookup_bound, at this process's pointer chase over 8 MiB: the
+    timed calls repeat the same ids, whose chains sit in L2); then lookup
+    requests of those ids through StateMachine.commit, their wall time, and
+    under torch.profiler one wrapper call and LOOKUP_TRACED requests, the
+    device kernels, memsets and copies of each. Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+
+    dev = torch.device("cuda")
+    Op = types.Operation
+    B = 8190
+    l2_ns = load_latency_ns(torch, K, dev, 1 << 23, 1 << 15)
+    ids = np.random.default_rng(SEED + 15).integers(1, N_ACCOUNTS + 1, B).astype(np.uint64)
+    body = np.stack([ids, np.zeros_like(ids)], axis=1).tobytes()
+    out = {"card": torch.cuda.get_device_name(0), "l2_ns": l2_ns}
+    for key, wrapper, S in LOOKUP_KINDS:
+        sm, ledger = lookup_ledger(torch, SM, L, M, types, constants, S, log2, dev)
+        rows = ledger.state["acct_rows"]
+        key4 = L.ids_to_batch([int(x) for x in ids], dev)["key4"]
+        fn = lambda: getattr(K, wrapper)(key4, rows, log2)  # noqa: E731
+        got = fn()
+        want = (M.lookup_plain(rows, key4, log2) if S else L.table_lookup_plain(key4, rows, log2))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) or not bool(got[0].all()):
+            fail(f"{key} differs from its plain version, or missed an account")
+        b = lookup_bound(mesh_probe_lengths(torch, M, ht, key4, rows, log2, 32) if S else
+                         probe_lengths(torch, ht, key4, rows, log2, 32), l2_ns)
+        reply = sm.commit(Op.lookup_accounts, 0, body)
+        if len(reply) != 128 * B:
+            fail(f"{key}: a lookup request returned {len(reply) // 128} of {B} accounts")
+        req = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if sm.commit(Op.lookup_accounts, 0, body) != reply:
+                fail(f"{key}: a lookup request's reply changed")
+            req.append((time.perf_counter() - t0) * 1e3)
+        out[key] = {
+            "ms": timed(torch, fn, reps), "card_ms": timed(torch, fn, reps, on_card=True),
+            "host_ms": host_ms(torch, fn, reps), "loop_ms": loop_ms(torch, fn),
+            "request_ms": tuple(float(x) for x in np.percentile(req, [50, 25, 75])),
+            "bound_ms": b[0], "bound_by": b[1], "bytes_ms": b[2], "latency_ms": b[3],
+            "longest": b[4],
+        }
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(f"{key}_call"):
+                fn()
+                torch.cuda.synchronize()
+            for i in range(LOOKUP_TRACED):
+                with record_function(f"{key}_request_{i}"):
+                    sm.commit(Op.lookup_accounts, 0, body)
+        out_dir = os.path.join(os.getcwd(), "build", "trace")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"lookup_{key}.json")
+        prof.export_chrome_trace(path)
+        out[key]["split"] = {name: _device_split(ev) for name, ev in _trace_device(path).items()}
+        del sm, ledger, rows, got, want
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def lookup_trace(card) -> dict:
+    """lookup_child in a process of its own: each K1 and K11l wrapper call
+    must be one kernel with no memset or copy, and each lookup request of
+    8190 ids through StateMachine one kernel and one device-to-host copy
+    (beside the upload of its keys), with no memset. Returns its JSON."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.lookup_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:], proc.stderr[-3000:])
+        fail("the traced lookups failed")
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, _wrapper, S in LOOKUP_KINDS:
+        g = got[key]
+        log(f"  {key} (8190 of 10,000 accounts at 2^20 slots{f', {S} shards' if S else ''}): "
+            f"{g['ms'][0]:.4f} ms through its wrapper, {g['card_ms'][0]:.4f} [p25 "
+            f"{g['card_ms'][1]:.4f}, p75 {g['card_ms'][2]:.4f}] on the card alone, the wrapper's "
+            f"host time {g['host_ms']:.4f} (back to back {g['loop_ms']:.4f} a call); a lookup "
+            f"request through StateMachine {g['request_ms'][0]:.4f} ms; bound {g['bound_ms']:.6f} "
+            f"ms ({g['bound_by']}; bytes {g['bytes_ms']:.6f}, 1 + {g['longest']} dependent loads "
+            f"at {got['l2_ns']:.1f} ns {g['latency_ms']:.6f}) [{card}]")
+        for name, sp in sorted(g["split"].items()):
+            log(f"  trace {name}: {sp['counts']}; device us {sp['us']}")
+            kernels = sum(v for k, v in sp["counts"].items() if not k.startswith(("mem",)))
+            d2h = sum(v for k, v in sp["counts"].items() if k.startswith("memcpy") and "DtoH" in k)
+            memsets = sum(v for k, v in sp["counts"].items() if k.startswith("memset"))
+            want_d2h = 0 if name.endswith("_call") else 1
+            if kernels != 1 or d2h != want_d2h or memsets:
+                fail(f"{name}: {sp['counts']}; one kernel, {want_d2h} device-to-host copy and no "
+                     "memset expected")
     return got
 
 
@@ -3957,15 +4191,21 @@ def serial_hazards(torch, M, types, process, rng, dev, errs):
             f"codes={ {i: int(c) for i, c in enumerate(codes) if c} }")
 
 
-def mesh_probe_counts(torch, M, ht, key4, rows, log2, window):
-    """Probes the keys need on their owner shards' tables (to the hit or
-    the first empty slot)."""
+def mesh_probe_lengths(torch, M, ht, key4, rows, log2, window):
+    """The probes each key needs on its owner shard's table (to the hit or
+    the first empty slot), shard by shard (int64 [B])."""
     owners = M.owner_of_key4(key4, rows.shape[0])
-    return sum(probe_counts(torch, ht, key4[owners == s].contiguous(), rows[s], log2, window)
-               for s in range(rows.shape[0]) if bool((owners == s).any()))
+    return torch.cat([probe_lengths(torch, ht, key4[owners == s].contiguous(), rows[s], log2,
+                                    window) for s in range(rows.shape[0])])
 
 
-def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns, tps_main):
+def mesh_probe_counts(torch, M, ht, key4, rows, log2, window):
+    """Probes the keys need on their owner shards' tables, summed."""
+    return int(mesh_probe_lengths(torch, M, ht, key4, rows, log2, window).sum())
+
+
+def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, l2_ns, smem_ns,
+               tps_main):
     """The sharded ledger on one card: the fault gates at 2^12 / 2^14, the
     main path at ConfigProcess() per shard against NativeLedger(20, 24),
     each kernel against its plain version on copies of that state, their
@@ -4036,7 +4276,8 @@ def phase_mesh(torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns
     errs.update(shape_errs)
     log(f"  peak memory with the ledger and two copies: {torch.cuda.max_memory_allocated()} "
         "bytes")
-    times = mesh_timing(torch, L, M, ht, types, ledger, dev, hbm_ns, smem_ns, serial_plain_ms)
+    times = mesh_timing(torch, L, M, ht, types, ledger, dev, hbm_ns, l2_ns, smem_ns,
+                        serial_plain_ms)
     del sm, ledger
     torch.cuda.empty_cache()
     mesh_round_trip(torch, M, types, constants, dev)
@@ -4203,7 +4444,8 @@ def mesh_main_shapes(torch, L, M, types, ledger, dev):
     return errs, {"K11as": plain_ms[as_name], "K11ts": plain_ms[ts_name]}
 
 
-def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial_plain_ms):
+def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
+                serial_plain_ms):
     """Each K11 kernel at the sharded path's shapes on its state, beside
     its plain version (for the serial ones, the plain run of
     mesh_main_shapes on the same kind of request, `serial_plain_ms`);
@@ -4239,11 +4481,15 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, smem_ns, serial
         return ms, ms, ms
 
     key4 = L.ids_to_batch([int(x) for x in rng.integers(1, N_ACCOUNTS + 1, B)], dev)["key4"]
-    probes = mesh_probe_counts(torch, M, ht, key4, st["acct_rows"], a_log2, 32)
-    nbytes = B * (16 + 128 + 128 + 2) + (probes - B) * SECTOR
-    out["K11l"] = (timed(torch, lambda: K.mesh_lookup(key4, st["acct_rows"], a_log2), 20),
+    b = lookup_bound(mesh_probe_lengths(torch, M, ht, key4, st["acct_rows"], a_log2, 32), l2_ns)
+    fn = lambda: K.mesh_lookup(key4, st["acct_rows"], a_log2)  # noqa: E731
+    out["K11l"] = (timed(torch, fn, 20),
                    timed(torch, lambda: M.lookup_plain(st["acct_rows"], key4, a_log2), 5),
-                   *bound(nbytes))
+                   *b[:2])
+    kc = timed(torch, fn, 20, on_card=True)
+    log(f"  K11l ({B} keys): {out['K11l'][0][0]:.4f} ms through its wrapper, {kc[0]:.4f} [p25 "
+        f"{kc[1]:.4f}, p75 {kc[2]:.4f}] on the card alone; bound {b[0]:.6f} ms ({b[1]}; bytes "
+        f"{b[2]:.6f}, 1 + {b[4]} dependent loads {b[3]:.6f})")
 
     next_id = [30_000_000]
 
@@ -4758,6 +5004,7 @@ def main() -> int:
     k9_cases(torch, L, K, constants, dev)
     phase_fold_kernels(torch, L, dev)
     fp_case_kernels(torch, L, K, dev)
+    lookup_case_kernels(torch, L, K, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
     log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
@@ -4780,6 +5027,7 @@ def main() -> int:
     k8_k9_trace(card)
     k5_trace(card)
     digest_trace(card)
+    lookup_trace(card)
 
     log("== phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")
@@ -4789,7 +5037,7 @@ def main() -> int:
     phase_trace(torch, SM, types, sm, dev)
 
     log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
-    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, smem_ns, sector_ms)
+    times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, l2_ns, smem_ns, sector_ms)
 
     log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)
@@ -4807,7 +5055,7 @@ def main() -> int:
     from tigerbeetle_tpu_torch.parallel import mesh as M
 
     mesh_launches, mesh_errs, mesh_times = phase_mesh(
-        torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, smem_ns, tps)
+        torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, l2_ns, smem_ns, tps)
 
     log("== phase 11: the serial account walk (K2 serial, K11as) on its hazard requests at "
         "2^14 and 2^20, its device launches, re-probes and times, in a process of its own")

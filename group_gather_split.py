@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""K5 (the group commit), K10 in the spill cycle and the digests K6 and K7,
-for two checkouts on one card, in alternating processes.
+"""K5 (the group commit), K10 in the spill cycle, the digests K6 and K7 and
+the lookups K1 and K11l, for two checkouts on one card, in alternating
+processes.
 
 Each round runs, for the `tigerbeetle_tpu_torch` package of one checkout,
 two processes of `chip_smoke.py` (of this checkout):
@@ -27,6 +28,13 @@ two processes of `chip_smoke.py` (of this checkout):
   (CUDA events), the wrapper's host time, and the device kernels, memsets
   and copies of traced calls (three K6, and a K7 for each k from 1 to 16
   with a ring and without);
+- `lookup_child` (only when named in `--children`): K1 on a DeviceLedger
+  and K11l on a ShardedLedger of 8 shards, 2^20 account slots a table
+  holding phase 3's 10,000 accounts, 8190 of their ids: the times through
+  the `lookup` and `mesh_lookup` wrappers and on the card alone (CUDA
+  events), the wrapper's host time, the bound, the wall time of a lookup
+  request of those ids through StateMachine, and the device kernels,
+  memsets and copies of a traced wrapper call and of traced requests;
 - `spill_rate_child` (only when named in `--children`): phase 9's 128
   requests through StateMachine over the spilling ledger, its rate in
   transfers/s. Phase 9 is mostly host work, so the spread of this rate
@@ -35,7 +43,7 @@ two processes of `chip_smoke.py` (of this checkout):
 The order is parent, this checkout, this checkout, parent, repeated
 `--rounds` times; `--children cycle` runs the spill cycle alone.
 
-    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill,digest]
+    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill,digest,lookup]
 
 DIR is a `git archive` of another commit in a git-ignored directory (such
 as `build/parent`). Needs one card and nvcc; each checkout builds its own
@@ -66,6 +74,8 @@ LEGS = ("t_scan", "cycle_head", "split_idx", "t_gather_d2h", "gather", "copies",
 CALLS = ("cycle_head", "split_idx", "gather", "reload", "reload_chunks")
 DIGEST_KEYS = tuple(f"{k}_{t}" for k in ("k6", "k7", "k7s")
                     for t in ("ms", "card_ms", "host_ms", "loop_ms"))
+LOOKUP_KINDS = ("K1", "K11l")
+LOOKUP_KEYS = ("ms", "card_ms", "host_ms", "loop_ms", "request_ms", "bound_ms")
 
 
 def child(label: str, repo: Path, fn: str) -> dict:
@@ -108,6 +118,15 @@ def run(label: str, repo: Path, children) -> dict:
         for name, sp in sorted(dg["split"].items()):
             print(f"{label}: traced {name} {sp['counts']} device us "
                   + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items()), flush=True)
+    if "lookup" in children:
+        lk = out["lookup"] = child(label, repo, "lookup_child")
+        for kind in LOOKUP_KINDS:
+            print(f"{label}: {kind} " + ", ".join(f"{k} {np.ravel(lk[kind][k])[0]:.4f}"
+                                                  for k in LOOKUP_KEYS)
+                  + f" ({lk[kind]['bound_by']}, longest chain {lk[kind]['longest']})", flush=True)
+            for name, sp in sorted(lk[kind]["split"].items()):
+                print(f"{label}: traced {name} {sp['counts']} device us "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items()), flush=True)
     if "spill" in children:
         out["spill"] = child(label, repo, "spill_rate_child")
         print(f"{label}: phase 9 {out['spill']['rate']:.0f} transfers/s", flush=True)
@@ -119,11 +138,11 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--children", default="k5,cycle",
-                    help="which children to run, of k5, cycle, spill and digest "
+                    help="which children to run, of k5, cycle, spill, digest and lookup "
                          "(comma-separated)")
     args = ap.parse_args()
     children = set(args.children.split(","))
-    if not children or children - {"k5", "cycle", "spill", "digest"}:
+    if not children or children - {"k5", "cycle", "spill", "digest", "lookup"}:
         ap.error(f"--children: {args.children!r}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -153,6 +172,12 @@ def main() -> int:
                            for k in DIGEST_KEYS}
             s["digest_trace"] = {name: sp["counts"]
                                  for name, sp in got[0]["digest"]["split"].items()}
+        if "lookup" in children:
+            s["lookup"] = {kind: {k: [float(np.ravel(g["lookup"][kind][k])[0]) for g in got]
+                                  for k in LOOKUP_KEYS} for kind in LOOKUP_KINDS}
+            s["lookup_trace"] = {kind: {name: sp["counts"] for name, sp in
+                                        got[0]["lookup"][kind]["split"].items()}
+                                 for kind in LOOKUP_KINDS}
     print(json.dumps(summary))
     return 0
 

@@ -6,33 +6,33 @@
 // W = 32, masks by owner, and one psum combines found, row and the
 // unresolved flag.
 //
-// Bound on an H100: bytes, as K1 (lookup.cu): a lane reads its 16-byte key,
-// one 32-byte sector per probe of its owner's chain and the found row, and
-// writes the row and two flags. Design: one thread per lane probes the
-// owner shard alone (owner.cuh), which gives the psum's answer without the
-// other S - 1 probes; rows move as 16-byte vector loads and stores.
+// Bound on an H100: latency before bytes, as K1 (lookup.cu). Design: K1's
+// group of eight threads a key (group_probe.cuh) on the key's owner shard
+// alone (owner.cuh), which gives the psum's answer without the other S - 1
+// probes; the row is written from the group's registers where the key is
+// found, and all zero where not, into the same one output buffer as K1's.
 #include <cuda_runtime.h>
 
+#include "group_probe.cuh"
 #include "owner.cuh"
 
 __global__ void mesh_lookup_kernel(const uint32_t* __restrict__ key4, int B,
                                    const uint32_t* __restrict__ rows, int cap_log2, int n_shards,
-                                   uint8_t* __restrict__ found, uint8_t* __restrict__ resolved,
-                                   uint32_t* __restrict__ out_rows) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  Found f = owner_lookup(rows, cap_log2, n_shards, key_at(key4 + 4 * (size_t)i), WINDOW);
-  found[i] = f.found;
-  resolved[i] = f.resolved;
-  store_row(out_rows + (size_t)i * ROW_WORDS, found_row(rows, f));
+                                   uint8_t* __restrict__ out) {
+  Group g = group_of_thread();
+  if (g.key >= B) return;  // the whole group: its threads share the key
+  Key4 key = key_at(key4 + 4 * (size_t)g.key);
+  const uint32_t* shard = rows + shard_base(owner_of(key, n_shards), cap_log2) * ROW_WORDS;
+  GroupFound f = group_lookup(shard, cap_log2, key, WINDOW, g);
+  group_store(out, B, g.key, g, f.found ? f.part : make_uint4(0u, 0u, 0u, 0u), f.found,
+              f.resolved);
 }
 
 extern "C" int tb_mesh_lookup(const uint32_t* key4, int B, const uint32_t* rows, int cap_log2,
-                              int n_shards, uint8_t* found, uint8_t* resolved, uint32_t* out_rows,
-                              cudaStream_t stream) {
+                              int n_shards, uint8_t* out, cudaStream_t stream) {
   if (B > 0) {
-    mesh_lookup_kernel<<<grid_for(B), LANES_PER_BLOCK, 0, stream>>>(
-        key4, B, rows, cap_log2, n_shards, found, resolved, out_rows);
+    mesh_lookup_kernel<<<group_grid_for(B), LANES_PER_BLOCK, 0, stream>>>(
+        key4, B, rows, cap_log2, n_shards, out);
   }
   return (int)cudaGetLastError();
 }

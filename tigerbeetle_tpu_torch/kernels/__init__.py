@@ -83,7 +83,7 @@ LAUNCHES = {
 }
 
 _SIGNATURES = {
-    "tb_lookup": [_P, _I, _P, _I, _P, _P, _P, _P, _P],
+    "tb_lookup": [_P, _I, _P, _I, _P, _P],
     "tb_commit_accounts_fast": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
     "tb_commit_accounts_serial": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
     "tb_commit_transfers_fast": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -102,7 +102,7 @@ _SIGNATURES = {
     "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tb_spill_reload_chunks": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
     "tb_chase": [_P, ctypes.c_uint32, _I, _P, _P],
-    "tb_mesh_lookup": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
+    "tb_mesh_lookup": [_P, _I, _P, _I, _I, _P, _P],
     "tb_mesh_commit_accounts_fast": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P,
                                      _P],
     "tb_mesh_commit_accounts_serial": [_P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _U64, _P, _P, _P],
@@ -229,19 +229,47 @@ def _u64(x: int) -> int:
     return x & ((1 << 64) - 1)
 
 
-def lookup(key4, rows, cap_log2: int):
-    """K1: probe `key4` [B, 4] in `rows`; returns (found, rows [B, 32], resolved)."""
+LOOKUP_ROW_BYTES = 128  # a key's row in a lookup's buffer; with its two flags a key takes 130 bytes
+
+
+def lookup_bytes(B: int) -> int:
+    """The bytes of a lookup's buffer for B keys, whole int32 words."""
+    return B * (LOOKUP_ROW_BYTES + 2) + (-B * (LOOKUP_ROW_BYTES + 2)) % 4
+
+
+def lookup_views(buf, B: int):
+    """(found bool [B], rows int32 [B, 32], resolved bool [B]): views of a
+    lookup's one buffer `buf` (bool [lookup_bytes(B)], on the card or a host
+    copy of it). csrc/group_probe.cuh
+    `group_store` writes it so: B rows, then B found bytes, then B resolved
+    bytes. Four view operations: each costs the host about as much as an
+    allocation."""
+    rows_end = B * LOOKUP_ROW_BYTES
+    return (buf[rows_end:rows_end + B],
+            buf.view(torch.int32).as_strided((B, 32), (32, 1)),
+            buf[rows_end + B:rows_end + 2 * B])
+
+
+def _lookup_out(key4, rows):
     _need(key4, torch.int32, 2, "key4")
-    _check_rows(rows, "rows", cap_log2)
+    if key4.shape[1] != 4:
+        raise ValueError(f"key4: shape {tuple(key4.shape)}, want [B, 4]")
     B = key4.shape[0]
-    dev = rows.device
-    slot = torch.empty(B, dtype=torch.int64, device=dev)
-    found = torch.empty(B, dtype=torch.bool, device=dev)
-    resolved = torch.empty(B, dtype=torch.bool, device=dev)
-    out = torch.empty((B, 32), dtype=torch.int32, device=dev)
-    _launch("tb_lookup", "lookup", _ptr(key4), B, _ptr(rows), cap_log2,
-            _ptr(slot), _ptr(found), _ptr(resolved), _ptr(out), _stream())
-    return found, out, resolved
+    return B, torch.empty(lookup_bytes(B), dtype=torch.bool, device=rows.device)
+
+
+def lookup_raw(key4, rows, cap_log2: int):
+    """K1: probe `key4` [B, 4] in `rows`; returns the kernel's one output
+    buffer (bool [lookup_bytes(B)], read by `lookup_views`)."""
+    _check_rows(rows, "rows", cap_log2)
+    B, out = _lookup_out(key4, rows)
+    _launch("tb_lookup", "lookup", _ptr(key4), B, _ptr(rows), cap_log2, _ptr(out), _stream())
+    return out
+
+
+def lookup(key4, rows, cap_log2: int):
+    """K1 as (found, rows [B, 32], resolved), views of `lookup_raw`'s buffer."""
+    return lookup_views(lookup_raw(key4, rows, cap_log2), key4.shape[0])
 
 
 def commit_accounts_fast(state, rows_b, n: int, timestamp: int, a_log2: int):
@@ -658,20 +686,22 @@ def _mesh_scalars(state, used: str, count: str, S: int) -> list[int]:
     return [commit_ts, n, _ptr(state[used]), fault]
 
 
-def mesh_lookup(key4, rows, cap_log2: int):
+def mesh_lookup_raw(key4, rows, cap_log2: int):
     """K11 lookup: probe `key4` [B, 4] on each key's owner shard of the
-    sharded table `rows` [S, capacity + 1, 32]; returns (found, rows [B,
-    32], all zero where not found, resolved)."""
-    _need(key4, torch.int32, 2, "key4")
+    sharded table `rows` [S, capacity + 1, 32]; returns the kernel's one
+    output buffer (bool [lookup_bytes(B)], read by `lookup_views`; a row is
+    all zero where its key is not found)."""
     S = _mesh_table(rows, "rows", cap_log2)
-    B = key4.shape[0]
-    dev = rows.device
-    found = torch.empty(B, dtype=torch.bool, device=dev)
-    resolved = torch.empty(B, dtype=torch.bool, device=dev)
-    out = torch.empty((B, 32), dtype=torch.int32, device=dev)
-    _launch("tb_mesh_lookup", "mesh_lookup", _ptr(key4), B, _ptr(rows), cap_log2, S,
-            _ptr(found), _ptr(resolved), _ptr(out), _stream())
-    return found, out, resolved
+    B, out = _lookup_out(key4, rows)
+    _launch("tb_mesh_lookup", "mesh_lookup", _ptr(key4), B, _ptr(rows), cap_log2, S, _ptr(out),
+            _stream())
+    return out
+
+
+def mesh_lookup(key4, rows, cap_log2: int):
+    """K11 lookup as (found, rows [B, 32], resolved), views of
+    `mesh_lookup_raw`'s buffer."""
+    return lookup_views(mesh_lookup_raw(key4, rows, cap_log2), key4.shape[0])
 
 
 def mesh_commit_accounts_fast(state, rows_b, n: int, timestamp: int, a_log2: int):

@@ -448,11 +448,13 @@ def table_lookup_plain(key4, rows, cap_log2: int):
     return found, rows[slot], res
 
 
-def table_lookup(key4, rows, cap_log2: int):
+def table_lookup(key4, rows, cap_log2: int, raw: bool = False):
     """K1 wrapper (`LedgerKernels._lookup_*` in the JAX package). Resolve is
-    per lane: only the caller knows which lanes were requested."""
+    per lane: only the caller knows which lanes were requested. With `raw`,
+    a CUDA table gives the kernel's one output buffer (`kernels.lookup_views`
+    reads it) in place of its views."""
     if _check_device(rows):
-        return _k.lookup(key4, rows, cap_log2)
+        return (_k.lookup_raw if raw else _k.lookup)(key4, rows, cap_log2)
     return table_lookup_plain(key4, rows, cap_log2)
 
 
@@ -1246,11 +1248,11 @@ class LedgerKernels:
         """Residue codes back into their original lanes."""
         return r_fast.index_copy_(0, idx, r_res)
 
-    def lookup_accounts(self, state, ids):
-        return table_lookup(ids["key4"], state["acct_rows"], self.a_log2)
+    def lookup_accounts(self, state, ids, raw: bool = False):
+        return table_lookup(ids["key4"], state["acct_rows"], self.a_log2, raw)
 
-    def lookup_transfers(self, state, ids):
-        return table_lookup(ids["key4"], state["xfer_rows"], self.t_log2)
+    def lookup_transfers(self, state, ids, raw: bool = False):
+        return table_lookup(ids["key4"], state["xfer_rows"], self.t_log2, raw)
 
     def filter_scan(self, state, table: str, field: str, value_words):
         """K8 over the "acct" or "xfer" table: (first QUERY_LIMIT matching
@@ -1816,9 +1818,11 @@ class HostLedgerBase:
     prepare clock (reference: src/state_machine.zig:336-343), the lookups
     (reference: src/state_machine.zig:701-736) and the commit clock.
     Subclasses provide `state`, `device` and `kernels.lookup_accounts` /
-    `kernels.lookup_transfers`, which return (found, rows, resolved)."""
+    `kernels.lookup_transfers`, which return (found, rows, resolved), or
+    with `raw` on the card the kernel's one output buffer."""
 
     prepare_timestamp = 0
+    _lookup_host = None  # the pinned host buffer a lookup's output comes back into (on the card)
 
     def prepare(self, operation: Operation, event_count: int) -> None:
         """Advance the prepare timestamp (reference: src/state_machine.zig:336-343)."""
@@ -1826,10 +1830,27 @@ class HostLedgerBase:
             self.prepare_timestamp += event_count
 
     def _lookup(self, kernel, ids: list[int]):
-        found, rows, resolved = kernel(self.state, ids_to_batch(ids, self.device))
-        if not bool(resolved.all()):
+        """(found, rows) of `ids` as numpy arrays. On the card the kernel's
+        one output buffer comes back in one copy into a pinned host buffer
+        kept by the ledger, with one wait. `found` is the caller's own;
+        there `rows` is a view of the pinned buffer, good until this
+        ledger's next lookup (a ledger serves one caller at a time), so a
+        caller copies out what it keeps."""
+        batch = ids_to_batch(ids, self.device)
+        if self.device.type == "cuda":
+            buf = kernel(self.state, batch, raw=True)
+            if self._lookup_host is None or self._lookup_host.numel() < buf.numel():
+                self._lookup_host = torch.empty(buf.numel(), dtype=buf.dtype, pin_memory=True)
+            host = self._lookup_host[:buf.numel()]
+            host.copy_(buf, non_blocking=True)
+            torch.cuda.current_stream(buf.device).synchronize()
+            out = _k.lookup_views(host, len(ids))
+        else:
+            out = kernel(self.state, batch)
+        found, rows, resolved = (t.numpy() for t in out)
+        if not resolved.all():
             raise RuntimeError("lookup probe-window overflow: grow the table")
-        return found.cpu().numpy(), rows.cpu().numpy().view(np.uint32)
+        return found.copy(), rows.view(np.uint32)
 
     def lookup_rows(self, operation: Operation, ids: list[int]) -> bytes:
         """Found objects' 128-byte wire rows, request order, missing skipped:

@@ -207,12 +207,13 @@ def lookup_plain(rows, key4, log2: int):
     return found, row, res
 
 
-def lookup(rows, key4, log2: int):
+def lookup(rows, key4, log2: int, raw: bool = False):
     """K11 lookup wrapper: the plain version for CPU tensors, the CUDA
     kernel else. Resolve is per lane: only the caller knows which lanes
-    were requested."""
+    were requested. With `raw`, a CUDA table gives the kernel's one output
+    buffer (`kernels.lookup_views` reads it) in place of its views."""
     if _check_device(rows):
-        return _k.mesh_lookup(key4, rows, log2)
+        return (_k.mesh_lookup_raw if raw else _k.mesh_lookup)(key4, rows, log2)
     return lookup_plain(rows, key4, log2)
 
 
@@ -650,11 +651,11 @@ class ShardedLedgerKernels:
     def commit_accounts_serial(self, state, ev, n: int, timestamp: int):
         return commit_accounts_serial(state, ev["rows"], n, timestamp, self.a_log2)
 
-    def lookup_accounts(self, state, ids):
-        return lookup(state["acct_rows"], ids["key4"], self.a_log2)
+    def lookup_accounts(self, state, ids, raw: bool = False):
+        return lookup(state["acct_rows"], ids["key4"], self.a_log2, raw)
 
-    def lookup_transfers(self, state, ids):
-        return lookup(state["xfer_rows"], ids["key4"], self.t_log2)
+    def lookup_transfers(self, state, ids, raw: bool = False):
+        return lookup(state["xfer_rows"], ids["key4"], self.t_log2, raw)
 
 
 # ----------------------------------------------------------------------
