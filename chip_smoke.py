@@ -52,7 +52,15 @@ Phases (each failure exits non-zero):
    windows with one tombstone or none, the all-zero and all-ones keys, one
    key in many lanes, a table or one shard with no empty slot) at 2^16
    slots and 1, 33 and 8190 keys: found, rows and resolved of every lane,
-   and each crafted lane's answer as its chain is built to give;
+   and each crafted lane's answer as its chain is built to give; the fast
+   account commit (K2 fast) on every case of
+   tigerbeetle_tpu_torch/testing/account_cases.py (ids sharing a whole
+   probe window, so that two lose all four claim rounds, or a first
+   position; windows with no empty slot, with and without tombstones; the
+   load guard at its limit and one past; a sticky fault; every event
+   failing; padding lanes; tombstones reused; a batch timestamp below the
+   stored commit_ts and below n; a new id twice) at 2^10 slots and 128
+   lanes and at 2^14 and 2048, each leaving the fault word it is built for;
 3. the main path at deployment size: StateMachine over
    DeviceLedger(ConfigProcess()) (2^20 account / 2^24 transfer slots) with
    the reference benchmark's traffic (10,000 accounts, batches of 8190,
@@ -73,8 +81,9 @@ Phases (each failure exits non-zero):
    the fold (K7) on the results of a real group (16 x 8192) and of a real
    request (8190); K9 also on three chunks of 8192 in one call;
 5. a torch.profiler trace of more main-path requests (the card's busy and
-   idle share; one K3 kernel and no memset a request) and a cProfile of the
-   host's share;
+   idle share; one K3 kernel and no memset a request), of one K2 fast call
+   of 8190 new accounts on a copy of the account table (one kernel, no
+   memset) and a cProfile of the host's share;
 6. each kernel timed on the main path's state at its main-path shape,
    beside its plain version and its bound (the serial K4 also on a request
    of 8190 events: linked chains, then posts and voids; K5 also on the
@@ -82,7 +91,8 @@ Phases (each failure exits non-zero):
    in one call; K6 and K7 also on the card alone, K6 beside its 64-byte
    fetch floor; K1 also on the card alone, beside its bound: the larger of
    its bytes and 1 + its longest probe chain dependent loads at phase 1's
-   chase time);
+   chase time; K2 fast and K11af also on the card alone, beside the floor
+   of one cluster launch passing 4, 7 and 10 cluster barriers);
 7. the dual-commit follower at deployment size: DualLedger(20, 24,
    follower=True, warm_kernels=True) on cuda, driven as the replica drives
    it (native execute answers, then apply_commit at finalize, in op order):
@@ -161,9 +171,11 @@ Phases (each failure exits non-zero):
    contention on one slot, a request in which no lane wants a slot, no free
    slot on any shard, overflow, both capacity gates and one shard exactly at
    and one past its load limit, a sticky fault, a linked chain across four
-   shards broken mid-chain, post and void across shards), and the serial
+   shards broken mid-chain, post and void across shards), the serial
    transfer kernel on the hazard requests of
-   tigerbeetle_tpu_torch/testing/hazards.py; then StateMachine over
+   tigerbeetle_tpu_torch/testing/hazards.py and the fast account kernel
+   (K11af) on the cases of tigerbeetle_tpu_torch/testing/account_cases.py
+   at 2^10 and 2^12 slots per shard; then StateMachine over
    ShardedLedger(8, ConfigProcess()) (2^20 account and 2^24 transfer slots
    per shard, about 19 GiB) with phase 3's requests (10,000 accounts, 64 x
    8190 benchmark transfers and 8190 pendings on the fast tier, their
@@ -172,7 +184,8 @@ Phases (each failure exits non-zero):
    kernel ran; the rate of the 64 benchmark requests and the wall time of
    the two-phase and linked ones; four fast requests on a fresh sharded
    ledger in a process of their own, under the profiler, must each be one
-   fast-commit launch and no memset; each kernel against its plain version on
+   fast-commit launch and no memset, and so must its first create_accounts
+   request (8190, K11af); each kernel against its plain version on
    two copies of that state at the path's shapes (the serial ones on 1810
    accounts and on 8190 transfers: linked chains, posts and voids), their
    times (the serial transfer kernel's bound one shared-memory round trip
@@ -427,6 +440,56 @@ def hold(torch, name, start, run_kernel, run_plain):
     return rp, sp
 
 
+# (cap_log2, lanes) of the account cases (testing/account_cases.py): the CPU
+# tests' geometry, where ids share whole windows, and that of the fault gates
+ACCOUNT_GEOMETRIES = {None: ((10, 128), (14, 2048)), 8: ((10, 128), (12, 2048))}
+
+
+def account_case_kernels(torch, n_shards, dev, errs=None):
+    """K2 fast (`n_shards` None) or K11af (8 shards) against its plain
+    version on the card on every case of testing/account_cases.py at each
+    geometry of ACCOUNT_GEOMETRIES: codes and every leaf equal, and the
+    fault word each case is built for. Records errs[name] when given."""
+    import zlib
+
+    from tigerbeetle_tpu_torch import convert
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.constants import ConfigProcess
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+    from tigerbeetle_tpu_torch.testing import account_cases as AC
+
+    if n_shards:
+        name0, kern, plain = ("K11 mesh_commit_accounts fast", K.mesh_commit_accounts_fast,
+                              M.commit_accounts_fast_plain)
+    else:
+        name0, kern, plain = ("K2 commit_accounts fast", K.commit_accounts_fast,
+                              L.commit_accounts_fast_plain)
+    for log2, B in ACCOUNT_GEOMETRIES[n_shards]:
+        process = ConfigProcess(account_slots_log2=log2, transfer_slots_log2=8)
+        base = convert.state_to_numpy(M.ShardedLedger(n_shards, process, device="cpu").state
+                                      if n_shards else L.init_state(process, "cpu"))
+        for case in AC.CASES:
+            rng = np.random.default_rng(SEED + zlib.crc32(f"{case}.{log2}.{n_shards}".encode()))
+            c = AC.account_case(case, log2, n_shards, B, rng)
+            st = dict(base, acct_rows=c["acct_rows"],
+                      acct_used_slots=np.asarray(c["used"], dtype=np.uint64).reshape(
+                          base["acct_used_slots"].shape),
+                      acct_count=np.uint64(c["count"]), commit_ts=np.uint64(c["commit_ts"]),
+                      fault=np.uint32(c["fault"]))
+            rows = torch.from_numpy(c["rows"].view(np.int32)).to(dev)
+            n, ts = c["n"], c["timestamp"]
+            where = f"2^{log2} x {n_shards}" if n_shards else f"2^{log2}"
+            name = f"{name0} (case {case}, {where}, {B} lanes)"
+            _, sp = hold(torch, name, convert.state_from_numpy(st, dev),
+                         lambda s: kern(s, rows, n, ts, log2),
+                         lambda s: plain(s, rows, n, ts, log2))
+            if int(sp["fault"]) != c["want_fault"]:
+                fail(f"{name}: fault {int(sp['fault'])}, not {c['want_fault']}")
+            if errs is not None:
+                errs[name] = 0
+
+
 def phase_kernels(torch, L, types, constants, dev):
     """K1-K4 against their plain versions on the card, on every failure
     path and the fault gates, at a reduced geometry."""
@@ -527,6 +590,7 @@ def phase_kernels(torch, L, types, constants, dev):
           lambda s: K.commit_accounts_fast(s, rows, 256, ts + 40_000, a_log2),
           lambda s: L.commit_accounts_fast_plain(s, rows, 256, ts + 40_000, a_log2),
           start=faulted)
+    account_case_kernels(torch, None, dev)
 
 
 def k4_hazards(torch, L, types, K, process, rng, dev):
@@ -1588,6 +1652,24 @@ def phase_trace(torch, SM, types, sm, dev, n_requests=16):
     for line in table.splitlines():
         log("   ", line)
 
+    # one K2 fast call of 8190 new accounts on a copy of the account table
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.models import ledger as L
+
+    st = {k: sm.backend.state[k].clone() for k in ACCOUNT_LEAVES}
+    rows = L.accounts_to_batch(accounts(types, np.arange(50_000_001, 50_000_001 + 8190)),
+                               dev)["rows"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        K.commit_accounts_fast(st, rows, 8190, 10**13, sm.backend.kernels.a_log2)
+        torch.cuda.synchronize()
+    kernels, memsets = traced_kernels(prof, os.path.join(out_dir, "k2_fast.json"))
+    log(f"  a traced K2 fast call (8190 new accounts at 2^20): {kernels}, memsets {memsets}")
+    if sum(kernels.values()) != 1 or not all("acct_commit_fast" in k for k in kernels) \
+            or memsets:
+        fail("a K2 fast call must be one kernel and no memset")
+    del st
+
     bodies = [request() for _ in range(n_requests)]
     torch.cuda.synchronize()
     pr = cProfile.Profile()
@@ -1604,6 +1686,20 @@ def phase_trace(torch, SM, types, sm, dev, n_requests=16):
     for line in buf.getvalue().splitlines():
         if line.strip() and not line.startswith(("   Ordered", "   List")):
             log("   ", line.rstrip())
+
+
+def traced_kernels(prof, path) -> tuple:
+    """({kernel name: count}, memsets) of a torch.profiler run, from its
+    chrome trace written to `path`."""
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    kernels = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    return kernels, sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset")
 
 
 # ----------------------------------------------------------------------
@@ -1760,9 +1856,16 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
         by_chain = n * smem_ns * 1e-6
         return (by_chain, "latency") if by_chain > by_bytes else (by_bytes, "bytes")
 
+    # the one-cluster floor of K2 fast and K11af: a launch and a cluster
+    # barrier for each phase and claim round (4 with no claim, 7 with one
+    # contended round after round 0, 10 with all of them)
+    floor = {b: timed(torch, lambda: K.cluster_floor(b), 20, on_card=True) for b in (4, 7, 10)}
+    log("  the one-cluster floor on the card alone (one launch of 16 x 512 threads): "
+        + ", ".join(f"{b} barriers {t[0]:.4f} ms [p25 {t[1]:.4f}, p75 {t[2]:.4f}]"
+                    for b, t in floor.items()))
     for key, n, reps, plain_reps, window in (("K2f", B, 10, 3, 32), ("K2s", 1810, 10, 2, 64)):
         serial = key == "K2s"
-        batches = [acct_rows(n, serial) for _ in range(reps + plain_reps)]
+        batches = [acct_rows(n, serial) for _ in range((1 if serial else 2) * reps + plain_reps)]
         probes = probe_counts(torch, ht, batches[0][:, :4].contiguous(), st["acct_rows"], a_log2,
                               window)
         nbytes = n * (128 + 4 + 128) + probes * SECTOR
@@ -1773,6 +1876,9 @@ def phase_timing(torch, L, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
         if not serial:
             out[key] = (kt, timed(torch, lambda: plain(st, next(it), n, 10**13, a_log2),
                                   plain_reps), *bound(nbytes))
+            kc = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), reps, on_card=True)
+            log(f"  {key} ({n} new accounts): {kt[0]:.4f} ms through its wrapper, {kc[0]:.4f} "
+                f"[p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] on the card alone")
             continue
         # the last timed call's re-probes and the request's chain
         dependent = chain_events(walk_request(types, 1, n)["flags"]) + K.walk_reprobes(
@@ -2418,6 +2524,35 @@ def barriers_invalidate_l1(lib, kernel="group_commit_kernel") -> int:
     if waits == 0:
         fail(f"{kernel}: no cluster barrier found in its SASS")
     return waits
+
+
+def kernel_resources(lib, needle: str) -> list:
+    """[(entry, registers, stack frame bytes, (spill store, spill load
+    bytes))] of each kernel whose mangled name holds `needle`, from the
+    build's `-Xptxas -v` report beside `lib`."""
+    import re
+
+    out, entry = [], None
+    for line in (lib.parent / "build.log").read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = m.group(1) if needle in m.group(1) else None
+            frame = None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            frame = (int(m.group(1)), (int(m.group(2)), int(m.group(3))))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and frame is not None:
+            out.append((entry, int(m.group(1)), *frame))
+            entry = None
+    if not out:
+        fail(f"the build report names no kernel {needle!r}")
+    return out
 
 
 def sector_rates(torch, K, dev, card) -> dict:
@@ -3192,6 +3327,140 @@ def lookup_trace(card) -> dict:
                 fail(f"{name}: {sp['counts']}; one kernel, {want_d2h} device-to-host copy and no "
                      "memset expected")
     return got
+
+
+# ----------------------------------------------------------------------
+# the fast account commits (K2 fast, K11af) alone, in a process of their own
+# ----------------------------------------------------------------------
+
+# (key, wrapper, shards): K2 fast on a DeviceLedger, K11af on a ShardedLedger
+ACCOUNT_KINDS = (("K2f", "commit_accounts_fast", 0), ("K11af", "mesh_commit_accounts_fast", 8))
+ACCOUNT_LEAVES = ("acct_rows", "acct_claim", "acct_used_slots", "acct_count", "commit_ts", "fault")
+
+
+def accounts_child(reps=10, log2=20):
+    """In a process of its own, for K2 fast and for K11af (8 shards):
+    StateMachine over a ledger with 2^log2 account slots a table holding
+    phase 3's 10,000 accounts (lookup_ledger), and a batch of 8190 new
+    accounts committed through the wrapper (`commit_accounts_fast`,
+    `mesh_commit_accounts_fast` of the checkout on sys.path), the account
+    leaves put back before each call: once against the plain version on a
+    copy of the state (codes and every leaf), CUDA-event times through the
+    wrapper and on the card alone, the wrapper's host time, the bound (the
+    bytes: rows in and out, a code, a sector a probe); then create_accounts
+    requests of 8190 new accounts through StateMachine.commit, their wall
+    time, and under torch.profiler one wrapper call and one request, the
+    device kernels, memsets and copies of each. Prints one JSON line."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tigerbeetle_tpu_torch import constants, types
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch import state_machine as SM
+    from tigerbeetle_tpu_torch.models import ledger as L
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+    from tigerbeetle_tpu_torch.parallel import mesh as M
+
+    dev = torch.device("cuda")
+    Op = types.Operation
+    B = 8190
+    out = {"card": torch.cuda.get_device_name(0)}
+    for key, wrapper, S in ACCOUNT_KINDS:
+        sm, ledger = lookup_ledger(torch, SM, L, M, types, constants, S, log2, dev)
+        st = ledger.state
+        kept = {k: st[k].clone() for k in ACCOUNT_LEAVES}
+
+        def reset():
+            for k in ACCOUNT_LEAVES:
+                st[k].copy_(kept[k])
+
+        arr = accounts(types, np.arange(30_000_001, 30_000_001 + B))
+        rows = (torch.from_numpy(M.batch_rows(arr)).to(dev) if S
+                else L.accounts_to_batch(arr, dev)["rows"])
+        ts = 10**13
+        fn = lambda: getattr(K, wrapper)(st, rows, B, ts, log2)  # noqa: E731
+        plain = M.commit_accounts_fast_plain if S else L.commit_accounts_fast_plain
+        sk, sp = clone_state(st), clone_state(st)
+        got = getattr(K, wrapper)(sk, rows, B, ts, log2)
+        want = plain(sp, rows, B, ts, log2)
+        torch.cuda.synchronize()
+        if max_abs_diff(got, want) or compare_states(sk, sp) or int(sp["fault"]) \
+                or bool(want.any()):
+            fail(f"{key} differs from its plain version, or a new account failed")
+        del sk, sp
+        probes = (mesh_probe_counts(torch, M, ht, rows[:B, :4].contiguous(), st["acct_rows"],
+                                    log2, 32) if S else
+                  probe_counts(torch, ht, rows[:, :4].contiguous(), st["acct_rows"], log2, 32))
+        nbytes = B * (128 + 4 + 128) + probes * 32
+
+        def reset_timed(on_card):
+            times = []
+            for _ in range(reps):
+                reset()
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                if on_card:
+                    torch.cuda._sleep(1 << 20)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            return tuple(float(x) for x in np.percentile(times, [50, 25, 75]))
+
+        host = []
+        for _ in range(reps):
+            reset()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1 << 24)
+            t0 = time.perf_counter()
+            fn()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        out[key] = {"ms": reset_timed(False), "card_ms": reset_timed(True),
+                    "host_ms": float(np.median(host)),
+                    "bound_ms": nbytes / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        reset()
+        next_id = [40_000_001]
+
+        def request():
+            body = accounts(types, np.arange(next_id[0], next_id[0] + B)).tobytes()
+            next_id[0] += B
+            sm.prepare(Op.create_accounts, body)
+            return body, sm.prepare_timestamp + 10**12
+
+        req = []
+        for _ in range(reps):
+            body, ts_req = request()
+            before = K.LAUNCHES[wrapper]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if sm.commit(Op.create_accounts, ts_req, body) != b"":
+                fail(f"{key}: a create_accounts request failed")
+            req.append((time.perf_counter() - t0) * 1e3)
+            if K.LAUNCHES[wrapper] != before + 1:
+                fail(f"{key}: a create_accounts request of {B} did not take the fast kernel")
+        out[key]["request_ms"] = tuple(float(x) for x in np.percentile(req, [50, 25, 75]))
+        body, ts_req = request()
+        reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with record_function(f"{key}_call"):
+                fn()
+                torch.cuda.synchronize()
+            with record_function(f"{key}_request"):
+                sm.commit(Op.create_accounts, ts_req, body)
+                torch.cuda.synchronize()
+        out_dir = os.path.join(os.getcwd(), "build", "trace")
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"accounts_{key}.json")
+        prof.export_chrome_trace(path)
+        out[key]["split"] = {name: _device_split(ev) for name, ev in _trace_device(path).items()}
+        ledger.check_fault()
+        del sm, ledger, st, kept, rows
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
 
 
 # the K10 calls of a cycle whose host time cycle_child takes (t_scan: the
@@ -4156,6 +4425,7 @@ def mesh_gates(torch, L, M, ht, types, constants, dev):
     xfer("K11 mesh_commit_transfers serial (shard 3 exhausted)",
          mesh_serial_batch(M, types, rng, 128), 128, True, full)
     serial_hazards(torch, M, types, process, rng, dev, errs)
+    account_case_kernels(torch, MESH_SHARDS, dev, errs)
     return errs
 
 
@@ -4304,6 +4574,13 @@ def mesh_fast_trace(card):
     if got["calls"] != {"mesh_commit_transfers_fast": got["requests"]} or got["memsets"] \
             or got["kernels"] != {"mesh_xfer_commit(MeshXferFast)": got["requests"]}:
         fail("a sharded fast request must be one K11tf launch and no memset")
+    log(f"  its first create_accounts request (8190, the fast tier) under the profiler: wrapper "
+        f"calls {got['account_calls']}, kernels on the card {got['account_kernels']}, memsets "
+        f"{got['account_memsets']}")
+    k11af = sum(v for k, v in got["account_kernels"].items() if "acct_commit_fast" in k)
+    if got["account_calls"] != {"mesh_commit_accounts_fast": 1} or got["account_memsets"] \
+            or k11af != 1:
+        fail("a sharded fast create_accounts request must be one K11af launch and no memset")
 
 
 def mesh_fast_trace_child(n_requests=4):
@@ -4325,8 +4602,16 @@ def mesh_fast_trace_child(n_requests=4):
             fail("a sharded request failed")
 
     acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
-    for chunk in (acc[:8190], acc[8190:]):
-        commit(Op.create_accounts, chunk.tobytes())
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    before = dict(K.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        commit(Op.create_accounts, acc[:8190].tobytes())  # the fast tier: K11af
+        torch.cuda.synchronize()
+    account_calls = {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]}
+    account_kernels, account_memsets = traced_kernels(prof, os.path.join(out_dir,
+                                                                         "mesh_accounts.json"))
+    commit(Op.create_accounts, acc[8190:].tobytes())
     bodies = benchmark_bodies(types, np.random.default_rng(SEED + 15), 2 + n_requests,
                               5_000_000_000)
     for body in bodies[:2]:  # warm
@@ -4342,23 +4627,18 @@ def mesh_fast_trace_child(n_requests=4):
             if sm.commit(Op.create_transfers, ts, body) != b"":
                 fail("a traced sharded request failed")
         torch.cuda.synchronize()
-    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "trace")
-    os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "mesh_fast.json")
-    prof.export_chrome_trace(path)
+    kernels, memsets = traced_kernels(prof, path)
     with open(path) as f:
         events = json.load(f)
     events = events["traceEvents"] if isinstance(events, dict) else events
-    kernels, kernel_us = {}, []
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
-            kernel_us.append(float(e["dur"]))
+    kernel_us = [float(e["dur"]) for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"]
     print(json.dumps({
         "requests": n_requests,
         "calls": {k: v - before[k] for k, v in K.LAUNCHES.items() if v != before[k]},
-        "kernels": kernels, "kernel_us": kernel_us,
-        "memsets": sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset"),
+        "kernels": kernels, "kernel_us": kernel_us, "memsets": memsets,
+        "account_calls": account_calls, "account_kernels": account_kernels,
+        "account_memsets": account_memsets,
     }))
 
 
@@ -4500,7 +4780,7 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
         return pad(a)
 
     for key, n, serial in (("K11af", B, False), ("K11as", NA, True)):
-        batches = [fresh_accounts(n, serial) for _ in range(10 if serial else 13)]
+        batches = [fresh_accounts(n, serial) for _ in range(10 if serial else 23)]
         probes = mesh_probe_counts(torch, M, ht, batches[0][:n, :4].contiguous(),
                                   st["acct_rows"], a_log2, 64 if serial else 32)
         nbytes = n * (128 + 4 + 128) + probes * SECTOR
@@ -4510,6 +4790,9 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
         if not serial:
             out[key] = (kt, timed(torch, lambda: M.commit_accounts_fast_plain(
                 st, next(it), n, 10**13, a_log2), 3), *bound(nbytes))
+            kc = timed(torch, lambda: kern(st, next(it), n, 10**13, a_log2), 10, on_card=True)
+            log(f"  {key} ({n} new accounts): {kt[0]:.4f} ms through its wrapper, {kc[0]:.4f} "
+                f"[p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] on the card alone")
             continue
         # the last timed call's re-probes and the request's chain
         dependent = chain_events(walk_request(types, 1, n)["flags"]) + K.walk_reprobes(
@@ -4964,7 +5247,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    log("== phase 1: environment")
+
+    def stage(title):  # a phase's header, with the seconds since the start
+        log(f"== {title} [{time.perf_counter() - t_start:.1f} s]")
+
+    stage("phase 1: environment")
     log(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4987,6 +5274,9 @@ def main() -> int:
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log("   ", line.strip())
+    for entry, regs, stack, spills in kernel_resources(lib, "acct_commit_fast"):
+        log(f"  K2 fast / K11af kernel {entry}: {regs} registers, {stack} bytes stack frame, "
+            f"{spills} bytes spilled (stores, loads)")
 
     from tigerbeetle_tpu_torch import kernels as K
 
@@ -4997,7 +5287,7 @@ def main() -> int:
         f"{smem_ns:.2f} ns in shared memory [{card}]")
     sector_ms = sector_rates(torch, K, dev, card)
 
-    log("== phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
+    stage("phase 2: kernels against their plain versions, fault gates (2^14 / 2^16 slots)")
     phase_kernels(torch, L, types, constants, dev)
     phase_seam_kernels(torch, L, types, constants, dev)
     k5_cases(torch, L, constants, dev)
@@ -5007,7 +5297,7 @@ def main() -> int:
     lookup_case_kernels(torch, L, K, dev)
     phase_ledgers(torch, L, types, constants, dev)
 
-    log("== phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
+    stage("phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
     sm, tps, g_tps, reqs = phase_main_path(torch, L, SM, types, constants, dev, card)
     snapshot_bodies = phase_snapshot(torch, L, SM, types, constants, dev, sm)
     torch.cuda.synchronize()
@@ -5018,7 +5308,7 @@ def main() -> int:
         fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
 
-    log("== phase 8: queries on phase 3's ledger (2^20 / 2^24 slots; run here, before "
+    stage("phase 8: queries on phase 3's ledger (2^20 / 2^24 slots; run here, before "
         "phases 5 and 6 commit transfers that the query record does not hold)")
     bodies = [b for _k, op, b in reqs if op == types.Operation.create_transfers]
     query_launches, query_errs, k8_row = phase_queries(
@@ -5029,26 +5319,26 @@ def main() -> int:
     digest_trace(card)
     lookup_trace(card)
 
-    log("== phase 4: kernels against their plain versions at the main path's shapes "
+    stage("phase 4: kernels against their plain versions at the main path's shapes "
         "(2^20 / 2^24 slots)")
     errs = phase_main_shapes(torch, L, types, ledger, dev)
 
-    log("== phase 5: trace of main-path requests")
+    stage("phase 5: trace of main-path requests")
     phase_trace(torch, SM, types, sm, dev)
 
-    log("== phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
+    stage("phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
     times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, l2_ns, smem_ns, sector_ms)
 
-    log("== phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
+    stage("phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)
 
-    log(f"== phase 9: the bounded-memory ledger, DeviceLedger(ConfigProcess(20, {SPILL_LOG2}), "
+    stage(f"phase 9: the bounded-memory ledger, DeviceLedger(ConfigProcess(20, {SPILL_LOG2}), "
         "forest=...) on cuda against NativeLedger(20, 24)")
     spill_launches, spill_errs, spill_rows = phase_spill(
         torch, L, SM, types, constants, dev, card, ledger.state, ledger.process, sector_ms)
     cycle_trace(card)
 
-    log("== phase 10: the sharded ledger on one card, ShardedLedger(8, ConfigProcess()) on cuda "
+    stage("phase 10: the sharded ledger on one card, ShardedLedger(8, ConfigProcess()) on cuda "
         "against NativeLedger(20, 24)")
     del sm, ledger
     torch.cuda.empty_cache()
@@ -5057,7 +5347,7 @@ def main() -> int:
     mesh_launches, mesh_errs, mesh_times = phase_mesh(
         torch, L, M, SM, ht, types, constants, dev, card, hbm_ns, l2_ns, smem_ns, tps)
 
-    log("== phase 11: the serial account walk (K2 serial, K11as) on its hazard requests at "
+    stage("phase 11: the serial account walk (K2 serial, K11as) on its hazard requests at "
         "2^14 and 2^20, its device launches, re-probes and times, in a process of its own")
     errs.update(phase_account_walk(card, smem_ns)["errs"])
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K5 (the group commit), K10 in the spill cycle, the digests K6 and K7 and
-the lookups K1 and K11l, for two checkouts on one card, in alternating
-processes.
+"""K5 (the group commit), K10 in the spill cycle, the digests K6 and K7, the
+lookups K1 and K11l and the fast account commits K2 fast and K11af, for two
+checkouts on one card, in alternating processes.
 
 Each round runs, for the `tigerbeetle_tpu_torch` package of one checkout,
 two processes of `chip_smoke.py` (of this checkout):
@@ -35,6 +35,15 @@ two processes of `chip_smoke.py` (of this checkout):
   events), the wrapper's host time, the bound, the wall time of a lookup
   request of those ids through StateMachine, and the device kernels,
   memsets and copies of a traced wrapper call and of traced requests;
+- `accounts_child` (only when named in `--children`): K2 fast on a
+  DeviceLedger and K11af on a ShardedLedger of 8 shards, 2^20 account slots
+  a table holding phase 3's 10,000 accounts, a batch of 8190 new accounts
+  (the account leaves put back before each call): the times through the
+  `commit_accounts_fast` and `mesh_commit_accounts_fast` wrappers and on
+  the card alone (CUDA events), the wrapper's host time, the bound, the
+  wall time of a create_accounts request of 8190 through StateMachine, and
+  the device kernels, memsets and copies of a traced wrapper call and of a
+  traced request;
 - `spill_rate_child` (only when named in `--children`): phase 9's 128
   requests through StateMachine over the spilling ledger, its rate in
   transfers/s. Phase 9 is mostly host work, so the spread of this rate
@@ -43,7 +52,8 @@ two processes of `chip_smoke.py` (of this checkout):
 The order is parent, this checkout, this checkout, parent, repeated
 `--rounds` times; `--children cycle` runs the spill cycle alone.
 
-    python3 group_gather_split.py --parent DIR [--rounds 1] [--children k5,cycle,spill,digest,lookup]
+    python3 group_gather_split.py --parent DIR [--rounds 1] \
+        [--children k5,cycle,spill,digest,lookup,accounts]
 
 DIR is a `git archive` of another commit in a git-ignored directory (such
 as `build/parent`). Needs one card and nvcc; each checkout builds its own
@@ -76,6 +86,9 @@ DIGEST_KEYS = tuple(f"{k}_{t}" for k in ("k6", "k7", "k7s")
                     for t in ("ms", "card_ms", "host_ms", "loop_ms"))
 LOOKUP_KINDS = ("K1", "K11l")
 LOOKUP_KEYS = ("ms", "card_ms", "host_ms", "loop_ms", "request_ms", "bound_ms")
+ACCOUNT_KINDS = ("K2f", "K11af")
+ACCOUNT_KEYS = ("ms", "card_ms", "host_ms", "request_ms", "bound_ms")
+CHILDREN = ("k5", "cycle", "spill", "digest", "lookup", "accounts")
 
 
 def child(label: str, repo: Path, fn: str) -> dict:
@@ -127,6 +140,14 @@ def run(label: str, repo: Path, children) -> dict:
             for name, sp in sorted(lk[kind]["split"].items()):
                 print(f"{label}: traced {name} {sp['counts']} device us "
                       + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items()), flush=True)
+    if "accounts" in children:
+        ac = out["accounts"] = child(label, repo, "accounts_child")
+        for kind in ACCOUNT_KINDS:
+            print(f"{label}: {kind} " + ", ".join(f"{k} {np.ravel(ac[kind][k])[0]:.4f}"
+                                                  for k in ACCOUNT_KEYS), flush=True)
+            for name, sp in sorted(ac[kind]["split"].items()):
+                print(f"{label}: traced {name} {sp['counts']} device us "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in sp["us"].items()), flush=True)
     if "spill" in children:
         out["spill"] = child(label, repo, "spill_rate_child")
         print(f"{label}: phase 9 {out['spill']['rate']:.0f} transfers/s", flush=True)
@@ -138,11 +159,10 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--children", default="k5,cycle",
-                    help="which children to run, of k5, cycle, spill, digest and lookup "
-                         "(comma-separated)")
+                    help=f"which children to run, of {', '.join(CHILDREN)} (comma-separated)")
     args = ap.parse_args()
     children = set(args.children.split(","))
-    if not children or children - {"k5", "cycle", "spill", "digest", "lookup"}:
+    if not children or children - set(CHILDREN):
         ap.error(f"--children: {args.children!r}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -178,6 +198,12 @@ def main() -> int:
             s["lookup_trace"] = {kind: {name: sp["counts"] for name, sp in
                                         got[0]["lookup"][kind]["split"].items()}
                                  for kind in LOOKUP_KINDS}
+        if "accounts" in children:
+            s["accounts"] = {kind: {k: [float(np.ravel(g["accounts"][kind][k])[0]) for g in got]
+                                    for k in ACCOUNT_KEYS} for kind in ACCOUNT_KINDS}
+            s["accounts_trace"] = {kind: {name: sp["counts"] for name, sp in
+                                          got[0]["accounts"][kind]["split"].items()}
+                                   for kind in ACCOUNT_KINDS}
     print(json.dumps(summary))
     return 0
 

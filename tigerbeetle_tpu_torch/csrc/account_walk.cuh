@@ -61,8 +61,9 @@
 //
 // Two launches a call in stream order and no host sync: the plan (which also
 // zeroes the results) and the walk. Both are templates over the lookup
-// policy P: the owner shard of a key, the first row of a shard's table, and
-// the shard count for the entry gate and the per-shard insert counts:
+// policy P (owner.cuh's AcctOneTable or AcctShards): the owner shard of a
+// key, the first row of a shard's table, and the shard count for the entry
+// gate and the per-shard insert counts:
 //   int n_shards; int owner(Key4); int64_t base(int shard, int log2).
 #pragma once
 #include <cuda_runtime.h>
@@ -125,20 +126,6 @@ struct AcctWalkArgs {
   ull timestamp;
   int32_t* results;
   AcctWalkScratch sc;
-};
-
-// One table at row 0.
-struct AcctOneTable {
-  int n_shards;  // 1
-  __device__ int owner(const Key4&) const { return 0; }
-  __device__ int64_t base(int, int) const { return 0; }
-};
-
-// The key's owner among n_shards tables laid one after another (owner.cuh).
-struct AcctShards {
-  int n_shards;
-  __device__ int owner(const Key4& k) const { return owner_of(k, n_shards); }
-  __device__ int64_t base(int shard, int log2) const { return (int64_t)shard_base(shard, log2); }
 };
 
 // One warp an event: results zeroed for every lane of the batch, a plan

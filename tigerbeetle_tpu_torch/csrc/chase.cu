@@ -12,6 +12,12 @@
 // half: K8 on code) and 3 (two in one half) against 15 (the whole row) says
 // whether the card fetches 32 bytes for a sector or more.
 //
+// The cluster floor (tb_cluster_floor) is the yardstick of the one-cluster
+// commits (K2 fast, K11af, K3, K11tf): one launch of one cluster of
+// CLUSTER_BLOCKS blocks of CLUSTER_THREADS threads that passes a given
+// number of cluster barriers and does nothing else, the least such a kernel
+// can take for its phases and claim rounds.
+//
 // Not a port of a JAX program and not on the ledger's path. One thread
 // follows `next` from `start` for `steps` loads, each load's address being
 // the previous load's value, so no two loads overlap; the time per step is
@@ -20,9 +26,12 @@
 // `next` (at most CHASE_SHARED_WORDS words) into the block's shared memory;
 // its caller takes the difference of two step counts, which cancels the
 // copy and the launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "cluster.cuh"
 
 #define CHASE_SHARED_WORDS 8192
 
@@ -103,5 +112,20 @@ extern "C" int tb_sector_probe(const uint32_t* rows, long long n_rows, unsigned 
   if (mask == 3u) sector_probe_kernel<3u><<<(int)blocks, 256, 0, stream>>>(r, n_rows, out);
   if (mask == 5u) sector_probe_kernel<5u><<<(int)blocks, 256, 0, stream>>>(r, n_rows, out);
   if (mask == 15u) sector_probe_kernel<15u><<<(int)blocks, 256, 0, stream>>>(r, n_rows, out);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(CLUSTER_THREADS, 1) cluster_floor_kernel(int barriers) {
+  cooperative_groups::cluster_group cluster = cooperative_groups::this_cluster();
+  for (int b = 0; b < barriers; b++) cluster.sync();
+}
+
+extern "C" int tb_cluster_floor(int barriers, cudaStream_t stream) {
+  if (barriers < 0) return (int)cudaErrorInvalidValue;
+  static const bool allowed = cudaFuncSetAttribute(cluster_floor_kernel,
+                                                   cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                                   1) == cudaSuccess;
+  (void)allowed;
+  launch_cluster(cluster_floor_kernel, barriers, stream);
   return (int)cudaGetLastError();
 }

@@ -13,19 +13,26 @@
 // round. `claim_finish_lane` settles the final round, reports an active lane
 // that lost every round and releases its claim.
 //
-// The round bodies below are the one statement of the rule. claim.cu runs
-// them as launches (a kernel boundary for each barrier); K3
-// (commit_transfers.cu) runs them inside one thread-block cluster with a
-// cluster barrier for each, and round 0's select in its validation phase:
-// the claim column is all free between calls (every claimant releases
-// before it returns), so that select is the first free slot of the window.
-// Either way a lane index is always handled by the same thread in every
-// step, so the per-lane scratch needs no barrier; the claim column, which
-// other lanes' atomics change, is read past L1. K9 (install.cu) and K10's
-// reload (spill_reload.cu) run the rounds chunk after chunk in one cluster
-// launch (cluster.cuh `cluster_claims`): there the table's key words, which
-// an earlier chunk wrote, are read past L1 too (kPastL1), as in K5's later
+// The round bodies below are the one statement of the rule. Every claimant
+// runs them inside one thread-block cluster with a cluster barrier for each
+// barrier of the rule (cluster.cuh `cluster_claims`): the fast account
+// commits (acct_commit.cuh), K3 and K5 (xfer_commit.cuh), K11tf
+// (mesh_commit_transfers.cu), K9 (install.cu) and K10's reload
+// (spill_reload.cu). The commits run round 0's select in their validation
+// phase: the claim column is all free between calls (every claimant
+// releases before it returns), so that select is the first free slot of the
+// window. A lane index is always handled by the same thread in every step,
+// so the per-lane scratch needs no barrier; the claim column, which other
+// lanes' atomics change, is read past L1. K9 and K10's reload run the rounds
+// chunk after chunk in one launch: there the table's key words, which an
+// earlier chunk wrote, are read past L1 too (kPastL1), as in K5's later
 // slots (group_commit.cu).
+//
+// With a per-lane `shard` (the sharded ledger), `rows` and `claim` hold one
+// table of (1 << cap_log2) + 1 rows per shard and lane i claims in table
+// shard[i]: its slot is then the row index into the whole allocation, and
+// contention is per (shard, slot), as every shard of the JAX mesh runs its
+// own claim rounds over the lanes it owns.
 //
 // `active` is an int32 array (lane i is active where it is nonzero) or a
 // callable `bool(int i)`.
@@ -112,19 +119,3 @@ __device__ __forceinline__ bool claim_finish_lane(int i, const Active& active, u
   if (sc.won[i]) claim[slot[i]] = CLAIM_FREE;
   return lost;
 }
-
-// Claim one distinct free slot of `rows` for every lane with active[i] != 0;
-// the key of lane i is keys[i * key_stride .. + 4]. Writes slot[i] (the dump
-// slot, 1 << cap_log2, for lanes that are inactive or lost every round),
-// ORs FAULT_CLAIM into *bad if an active lane found no slot, and releases
-// every claim before the last launch returns. Launches on `stream`.
-//
-// With `shard` (the sharded ledger, mesh_*.cu), `rows` and `claim` hold one
-// table of (1 << cap_log2) + 1 rows per shard and lane i claims in table
-// shard[i]: its slot is then the row index into the whole allocation, and
-// contention is per (shard, slot), as every shard of the JAX mesh runs its
-// own claim rounds over the lanes it owns.
-void claim_slots(const uint32_t* keys, int key_stride, const int32_t* active, int B,
-                 const uint32_t* rows, uint32_t* claim, int cap_log2, int64_t* slot,
-                 ClaimScratch sc, uint32_t* bad, cudaStream_t stream,
-                 const int32_t* shard = nullptr);

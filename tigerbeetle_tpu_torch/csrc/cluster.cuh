@@ -10,9 +10,10 @@
 // 128-byte account rows with eight lanes a row, CLUSTER_IN_FLIGHT rows in
 // flight: the carry fold (c) and the apply (e).
 //
-// The claim rounds (claim.cuh) over one cluster are here too, for K3,
-// K11tf, K9 (install.cu) and K10's reload (spill_reload.cu), the last two
-// chunk after chunk.
+// The claim rounds (claim.cuh) over one cluster are here too, for every
+// claimant: K3 and K5, K11tf, the fast account commits K2 fast and K11af
+// (acct_commit.cuh), and K9 (install.cu) and K10's reload (spill_reload.cu),
+// the last two chunk after chunk.
 //
 // fold_rows and apply_rows take the kernel's argument struct `A`, which
 // holds acct_rows, bal_acc, new_rows ([2B, 32] folded rows), slot2 ([2B]
@@ -224,9 +225,9 @@ __device__ __forceinline__ bool cluster_select(cooperative_groups::cluster_group
 // the rounds from the launch's earlier ones (1 for a one-pass kernel; K9
 // and K10's reload pass chunk + 1), so no word needs clearing between
 // passes. With `select0` the rounds start at round 0; else the caller ran
-// round 0 (select and atomicMin: K3 and K11tf do in validation, K10's
-// reload in its probes, where the column is all free), raised want[0] to
-// `epoch` and passed the cluster barrier after it.
+// round 0 (select and atomicMin: K3, K11tf and the account commits do in
+// validation, K10's reload in its probes, where the column is all free),
+// raised want[0] to `epoch` and passed the cluster barrier after it.
 // Then every lane settles and releases; returns FAULT_CLAIM if one of this
 // thread's active lanes won no slot.
 template <bool kPastL1, class Active>

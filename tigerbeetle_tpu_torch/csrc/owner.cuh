@@ -51,3 +51,19 @@ __device__ __forceinline__ Row found_row(const uint32_t* rows, const Found& f) {
   if (f.found) r = load_row(rows + (size_t)f.slot * ROW_WORDS);
   return r;
 }
+
+// The lookup policies of the account commits (acct_commit.cuh,
+// account_walk.cuh): the owner shard of a key and the first row of a
+// shard's table. One table at row 0 (K2):
+struct AcctOneTable {
+  int n_shards;  // 1
+  __device__ int owner(const Key4&) const { return 0; }
+  __device__ int64_t base(int, int) const { return 0; }
+};
+
+// The key's owner among n_shards tables laid one after another (K11):
+struct AcctShards {
+  int n_shards;
+  __device__ int owner(const Key4& k) const { return owner_of(k, n_shards); }
+  __device__ int64_t base(int shard, int log2) const { return (int64_t)shard_base(shard, log2); }
+};

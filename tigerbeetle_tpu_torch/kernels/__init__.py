@@ -42,7 +42,8 @@ serial, K11as) resolved again on the table as it stood.
 that measure the card's dependent-load latency, from device memory and from
 shared memory, for the serial kernels' bounds; nor is `sector_probe`, which
 measures the rate at which the card reads chosen sectors of 128-byte rows,
-for the scans' bounds.
+for the scans' bounds, nor `cluster_floor`, one cluster launch that only
+passes barriers, the yardstick of the one-cluster commits.
 """
 
 from __future__ import annotations
@@ -112,6 +113,7 @@ _SIGNATURES = {
                                         _U64, _P, _P, _P],
     "tb_chase_shared": [_P, _I, ctypes.c_uint32, _I, _P, _P],
     "tb_sector_probe": [_P, _I64, _U32, _P, _P],
+    "tb_cluster_floor": [_I, _P],
 }
 _SCRATCH = (
     "tb_commit_accounts_fast_scratch",
@@ -818,3 +820,10 @@ def sector_probe(rows, mask: int) -> None:
         raise ValueError(f"sector_probe: rows {tuple(rows.shape)}, mask {mask}")
     out = torch.empty(1, dtype=torch.int32, device=rows.device)
     _chase_launch("tb_sector_probe", _ptr(rows), rows.shape[0], mask, _ptr(out), _stream())
+
+
+def cluster_floor(barriers: int) -> None:
+    """One launch of one 16-block cluster of 512 threads that passes
+    `barriers` cluster barriers and does nothing else (time it). Not counted
+    in LAUNCHES."""
+    _chase_launch("tb_cluster_floor", barriers, _stream())
