@@ -209,7 +209,27 @@ Phases (each failure exits non-zero):
    each at 1810 and at 8190 events must each be one or two kernels and no
    memset; the re-probes of four more calls; both timed at 1810 events (one
    linked pair) and 8190 (a linked pair every 50) through the wrapper and
-   on the card alone.
+   on the card alone;
+12. the replicated ledger: Cluster(3, ConfigCluster(journal_slot_count=64,
+   lsm_batch_multiple=4), ConfigProcess()) of the port's replicas (the
+   cluster harness: Client, the in-process network, MemoryStorage of two
+   snapshot areas a replica, about 13.4 GiB of host memory), each over
+   DeviceLedger on cuda with its results copied at dispatch
+   (prefetch_results): phase 3's traffic, the 64 benchmark requests four at a
+   time from four clients so that the primary fuses each four into one group
+   (the backups' acks delivered latest op first); every replica checkpoints
+   at the WAL wrap (op 60 of the cut journal); backup 2 goes down for four
+   more requests and is crash-restarted (its blobs restored, its WAL
+   replayed, the missed ops fetched from the primary). The three state
+   fingerprints must be equal, every reply and every replica's reply
+   checksums equal NativeLedger(20, 24) fed the primary's committed op
+   stream, the primary's live table rows (what extract() reads) the native
+   engine's rows of every id sent, and lookups of 8190 accounts and 8190
+   transfers on the restarted backup the primary's; K1, K2 fast and serial,
+   K3, K4, K5 and K6 must launch. It prints the committed transfers/s and the
+   request latency, a checkpoint's device-to-host copy and storage writes, the
+   restart's read, upload and the rest, the peak device memory, the launches
+   and a cProfile of the requests sent while backup 2 is down.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -5179,6 +5199,285 @@ def phase_account_walk(card, smem_ns) -> dict:
     return got
 
 
+# ----------------------------------------------------------------------
+# phase 12: the replicated ledger
+# ----------------------------------------------------------------------
+
+REPL_REPLICAS = 3
+REPL_CLIENTS = 4  # one request from each at a time: the primary fuses them into one group
+REPL_SLOTS = 64  # the journal's depth, cut from 1024 so that the checkpoint comes at op 60
+REPL_AFTER = 4  # requests committed while backup 2 is down
+# the kernels of this phase's path: every one must launch in it
+REPL_KERNELS = ("lookup", "commit_accounts_fast", "commit_accounts_serial",
+                "commit_transfers_fast", "commit_transfers_serial", "group_commit",
+                "fingerprint")
+
+
+def replica_grid_size(process) -> int:
+    """Two snapshot areas of a device checkpoint's three leaves, each blob
+    4 KiB aligned, as `vsr/durable.py` lays them out."""
+    a = (1 << process.account_slots_log2) + 1
+    t = (1 << process.transfer_slots_log2) + 1
+    return 2 * sum((n + 4095) // 4096 * 4096 for n in (a * 128, t * 128, t * 4))
+
+
+def fused_round(cluster, clients, bodies, Op, Header, Command):
+    """One request from each client at once. The backups' acks to the
+    primary are held and then delivered latest op first, so that the
+    first quorum the primary sees finds the whole run ready and commits
+    it as one group (the same requests on a slow link to the primary)."""
+    held = []
+
+    def hold(src, dst, data):
+        if dst == 0:
+            h = Header.from_bytes(data[:128])
+            if h.command == int(Command.prepare_ok):
+                held.append((h.op, src, dst, data))
+                return False
+        return True
+
+    cluster.network.filters.append(hold)
+    for c, body in zip(clients, bodies):
+        c.request(int(Op.create_transfers), body)
+    cluster.network.run()
+    cluster.network.filters.remove(hold)
+    for _op, src, dst, data in sorted(held, key=lambda x: -x[0]):
+        cluster.network.send(src, dst, data)
+    cluster.network.run()
+    cluster.replicas[0].flush_commits()
+    cluster.network.run()
+    return [c.take_reply() for c in clients]
+
+
+def by_id(rows: np.ndarray) -> np.ndarray:
+    """Table rows ([n, 32] u32 words) in the order of their 128-bit ids."""
+    return rows[np.lexsort(rows[:, :4].T)]
+
+
+def phase_replicated(torch, L, types, constants, dev, card) -> dict:
+    """Three replicas of the device ledger at ConfigProcess() on the card,
+    driven through the cluster harness (Cluster, Client, the in-process
+    network): phase 3's traffic, the benchmark requests four at a time so
+    that the primary's group commit fuses them; a checkpoint of every
+    replica; backup 2 down for four more requests, then crash-restarted
+    from its blobs and its WAL, catching up from the primary. Checks: the
+    three fingerprints, every reply against NativeLedger(20, 24) fed the
+    primary's committed op stream (and each replica's reply checksums),
+    the primary's live table rows (what extract() reads) against the
+    native engine's rows of every id sent, and lookups
+    on the restarted backup against the primary's."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch import native
+    from tigerbeetle_tpu_torch.metrics import Metrics
+    from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+    from tigerbeetle_tpu_torch.state_machine import StateMachine
+    from tigerbeetle_tpu_torch.testing.cluster import Cluster
+    from tigerbeetle_tpu_torch.vsr.header import Command, Header
+
+    Op = types.Operation
+    cfg = constants.ConfigCluster(journal_slot_count=REPL_SLOTS, lsm_batch_multiple=4)
+    process = constants.ConfigProcess()
+    rng = np.random.default_rng(SEED + 12)
+    reqs = main_path_requests(types, rng)
+    after = benchmark_bodies(types, rng, REPL_AFTER, 5_000_000_000)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    grid = replica_grid_size(process)
+    metrics = Metrics()
+    t0 = time.perf_counter()
+    cluster = Cluster(REPL_REPLICAS, cluster=cfg, process=process, grid_size=grid,
+                      metrics=metrics)
+    setup_s = time.perf_counter() - t0
+    replicas = cluster.replicas
+    host_gib = sum(len(s.data) for s in cluster.storages) / 2**30
+    log(f"  {REPL_REPLICAS} replicas, each DeviceLedger(ConfigProcess()) on "
+        f"{replicas[0].ledger.device}: the storages hold {host_gib:.2f} GiB of host memory "
+        f"(MemoryStorage; a grid of {grid / 2**30:.3f} GiB a replica, two snapshot areas); "
+        f"journal {REPL_SLOTS} slots (cut from 1024), checkpoint interval "
+        f"{cfg.checkpoint_interval} ops; built in {setup_s:.2f} s")
+    if not all(r.ledger.device.type == "cuda" and r.ledger.prefetch_results for r in replicas):
+        fail("a replica's ledger is not on the card or does not prefetch its results")
+    stream = {}  # op -> (operation, timestamp, body): the primary's committed op stream
+    replicas[0].commit_hook = lambda h, b: stream.__setitem__(h.op, (h.operation, h.timestamp, b))
+    reply_sums = [{} for _ in replicas]  # op -> the reply body's checksum, on each replica
+    for i, r in enumerate(replicas):
+        r.reply_hook = lambda h, ck, i=i: reply_sums[i].__setitem__(h.op, ck)
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    clients = [cluster.add_client() for _ in range(REPL_CLIENTS)]
+    replies = []  # (kind, reply header, reply body)
+    single_s = []
+
+    def one(kind, op, body):
+        t = time.perf_counter()
+        h, rep = cluster.execute(clients[0], int(op), body)
+        single_s.append(time.perf_counter() - t)
+        replies.append((kind, h, rep))
+
+    kinds = [k for k, _o, _b in reqs]
+    bench = [b for k, _o, b in reqs if k == "transfers"]
+    for k, op, body in reqs:
+        if k == "accounts":
+            one(k, op, body)
+    replicas[0].commit_window = 2 * REPL_CLIENTS
+    round_s, ck_rounds = [], []
+    ck = metrics.histogram("replica.checkpoint_us")
+    for i in range(0, len(bench), REPL_CLIENTS):
+        t, n_ck = time.perf_counter(), ck.count
+        got = fused_round(cluster, clients, bench[i:i + REPL_CLIENTS], Op, Header, Command)
+        round_s.append(time.perf_counter() - t)
+        if ck.count != n_ck:
+            ck_rounds.append(len(round_s) - 1)  # a round in which the replicas checkpointed
+        replies += [("transfers", h, b) for h, b in got]
+    replicas[0].commit_window = 0
+    fused = (replicas[0].group_stats["fused_ops"], replicas[0].group_stats["fused_groups"])
+    for k, op, body in reqs:
+        if k in ("pending", "resolve", "linked"):
+            one(k, op, body)
+    checkpoints = [r.checkpoint_op for r in replicas]
+    cluster.detach_replica(2)
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for body in after:
+        one("after", Op.create_transfers, body)
+    prof.disable()
+    t = time.perf_counter()
+    r2 = cluster.restart_replica(2)
+    restart_s = time.perf_counter() - t
+    r0 = cluster.replicas[0]
+    if (r2.status, r2.commit_min) != ("normal", r0.commit_min):
+        fail(f"the restarted backup is {r2.status} at op {r2.commit_min}, the primary at "
+             f"{r0.commit_min}")
+    fps = [r.ledger.fingerprint() for r in cluster.replicas]
+    acct_ids = np.arange(1, 8191, dtype=np.uint64)
+    xfer_ids = np.concatenate([
+        np.frombuffer(bench[7], dtype=types.TRANSFER_DTYPE)["id_lo"][:4000],
+        np.frombuffer(reqs[kinds.index("pending")][2], dtype=types.TRANSFER_DTYPE)["id_lo"][:2000],
+        np.frombuffer(after[-1], dtype=types.TRANSFER_DTYPE)["id_lo"][:2190]])
+    looked = []
+    for r in (r0, r2):
+        looked.append([r.sm.commit(op, 0, np.stack([ids, np.zeros_like(ids)], 1).tobytes())
+                       for op, ids in ((Op.lookup_accounts, acct_ids),
+                                       (Op.lookup_transfers, xfer_ids))])
+    torch.cuda.synchronize()
+    launches = {k: K.LAUNCHES[k] for k in REPL_KERNELS}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  launches in this phase: {launches} [{card}]")
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        fail(f"kernels of the replicated path were not launched: {missing}")
+
+    if fused[0] < len(bench):
+        fail(f"the primary fused {fused[0]} of {len(bench)} benchmark requests")
+    if min(checkpoints) <= 0 or len(set(checkpoints)) != 1:
+        fail(f"the replicas checkpointed at ops {checkpoints}")
+    if r2.checkpoint_op != checkpoints[0]:
+        fail(f"backup 2 restored the checkpoint of op {r2.checkpoint_op}, not {checkpoints[0]}")
+    if len({tuple(sorted(fp.items())) for fp in fps}) != 1:
+        fail(f"the replicas' state fingerprints differ: {fps}")
+    log(f"  all three replicas' state fingerprints (K6) are equal: {fps[0]}")
+    if looked[0] != looked[1]:
+        fail("lookups on the restarted backup differ from the primary's")
+    n_acc = len(looked[0][0]) // 128
+    n_xfer = len(looked[0][1]) // 128
+    if (n_acc, n_xfer) != (len(acct_ids), len(xfer_ids)):
+        fail(f"the lookups found {n_acc} accounts and {n_xfer} transfers")
+    log(f"  lookups of {n_acc} accounts and {n_xfer} transfers on the restarted backup are "
+        "byte-identical to the primary's")
+
+    # the primary's committed op stream through the native engine
+    nat = NativeLedger(20, 24)
+    sm_n = StateMachine(nat)
+    by_op = {h.commit: rep for _k, h, rep in replies}
+    ops = [op for op in sorted(stream) if stream[op][0] >= int(Op.create_accounts)]
+    if ops != sorted(by_op):
+        fail(f"the primary committed ops {ops[:4]}... for replies to {sorted(by_op)[:4]}...")
+    for op in ops:
+        operation, ts, body = stream[op]
+        sm_n.prepare(Op(operation), body)
+        want = sm_n.commit(Op(operation), ts, body)
+        if want != by_op[op]:
+            fail(f"op {op}: the cluster's reply differs from NativeLedger's")
+        for i, sums in enumerate(reply_sums):
+            if op in sums and sums[op] != native.checksum(want):
+                fail(f"op {op}: replica {i}'s reply checksum differs from NativeLedger's")
+    failing = sum(1 for op in ops if by_op[op])
+    log(f"  every reply of the {len(ops)} ops ({failing} with failed events) equals "
+        f"NativeLedger(20, 24) fed the primary's committed op stream; so do the reply "
+        f"checksums of every replica ({[len(x) for x in reply_sums]} ops)")
+    t = time.perf_counter()
+    sent = np.concatenate([np.frombuffer(b, dtype=types.TRANSFER_DTYPE)["id_lo"]
+                           for k, _o, b in reqs if k != "accounts"] +
+                          [np.frombuffer(b, dtype=types.TRANSFER_DTYPE)["id_lo"] for b in after])
+    for table, op, ids in (("acct_rows", Op.lookup_accounts, np.arange(1, N_ACCOUNTS + 2)),
+                           ("xfer_rows", Op.lookup_transfers, sent)):
+        rows = r0.ledger.state[table][:-1].cpu().numpy().view(np.uint32)
+        rows = by_id(rows[L._occupied_rows(rows)])  # the rows extract() reads
+        want = by_id(np.frombuffer(b"".join(
+            nat.lookup_rows(op, ids[i:i + 8190].tolist()) for i in range(0, len(ids), 8190)),
+            dtype=np.uint32).reshape(-1, 32))
+        if not np.array_equal(rows, want):
+            fail(f"the primary's {table} ({len(rows)} live rows) differ from NativeLedger's "
+                 f"rows of every id sent ({len(want)})")
+        log(f"  the primary's {len(rows)} live {table} (the rows extract() reads) equal "
+            "NativeLedger's rows of every id sent")
+    from tigerbeetle_tpu_torch.models.dual_ledger import FP_FIELDS
+
+    fp_nat = nat.fingerprint()
+    if any(fp_nat[k] != fps[0][k] for k in FP_FIELDS):
+        fail(f"the native engine's state fingerprint {fp_nat} differs from the replicas'")
+    log(f"  and so does NativeLedger's state fingerprint ({time.perf_counter() - t:.2f} s)")
+
+    # figures
+    h = {k: metrics.histogram(k) for k in ("durable.checkpoint_d2h_us",
+                                           "durable.checkpoint_write_us", "replica.checkpoint_us")}
+    rh = {k: r2.metrics.histogram(k) for k in ("durable.restore_read_us",
+                                               "durable.restore_upload_us")}
+
+    def mean_s(hist):
+        return hist.total / hist.count / 1e6 if hist.count else float("nan")
+
+    restore_s = sum(x.total for x in rh.values()) / 1e6
+    tps = len(bench) * 8190 / sum(round_s)
+    plain = [x for i, x in enumerate(round_s) if i not in ck_rounds]
+    tps_plain = len(plain) * REPL_CLIENTS * 8190 / sum(plain)
+    lat_ms = np.repeat(np.array(round_s) * 1e3, REPL_CLIENTS)
+    log(f"  {len(bench)} x 8190 create_transfers through the cluster in {sum(round_s):.4f} s: "
+        f"{tps:.0f} committed transfers/s, {tps_plain:.0f} without the round in which the "
+        f"replicas checkpointed (round {ck_rounds}: {sum(round_s[i] for i in ck_rounds):.4f} s); "
+        f"request latency median {np.median(lat_ms):.4f} ms, p84 {np.percentile(lat_ms, 84):.4f} "
+        f"ms, max {lat_ms.max():.4f} ms (rounds of {REPL_CLIENTS} concurrent requests, each fused "
+        f"into one group: {fused[0]} ops in {fused[1]} groups); the other requests one at a "
+        f"time, median {np.median(single_s) * 1e3:.4f} ms [{card}]")
+    log(f"  checkpoint (at op {checkpoints[0]}, {h['replica.checkpoint_us'].count} replicas): "
+        f"{mean_s(h['replica.checkpoint_us']):.4f} s each, of which the device-to-host copy "
+        f"{mean_s(h['durable.checkpoint_d2h_us']):.4f} s and the storage writes "
+        f"{mean_s(h['durable.checkpoint_write_us']):.4f} s [{card}]")
+    log(f"  restart of backup 2: {restart_s:.4f} s, of which the blobs' read "
+        f"{rh['durable.restore_read_us'].total / 1e6:.4f} s and upload "
+        f"{rh['durable.restore_upload_us'].total / 1e6:.4f} s; the rest, "
+        f"{restart_s - restore_s:.4f} s, is the ledger's allocation, the journal's recovery, "
+        f"the replay of ops {checkpoints[0] + 1}-{r0.commit_min - REPL_AFTER} from its WAL and "
+        f"the {REPL_AFTER} ops it missed, fetched from the primary [{card}]")
+    log(f"  peak device memory {peak_gib:.2f} GiB [{card}]")
+    buf = io.StringIO()
+    pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(12)
+    log(f"  cProfile of the {REPL_AFTER} requests sent while backup 2 was down "
+        f"({np.mean(single_s[-REPL_AFTER:]) * 1e3:.4f} ms a request under the profiler):")
+    for line in buf.getvalue().splitlines():
+        if line.strip() and not line.startswith(("   Ordered", "   List")):
+            log("   ", line.rstrip())
+    del cluster, r0, r2, replicas, nat, sm_n
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -5350,6 +5649,10 @@ def main() -> int:
     stage("phase 11: the serial account walk (K2 serial, K11as) on its hazard requests at "
         "2^14 and 2^20, its device launches, re-probes and times, in a process of its own")
     errs.update(phase_account_walk(card, smem_ns)["errs"])
+
+    stage("phase 12: the replicated ledger, Cluster(3) of DeviceLedger(ConfigProcess()) on cuda: "
+          "commit, checkpoint and a backup's crash-restart, against NativeLedger(20, 24)")
+    phase_replicated(torch, L, types, constants, dev, card)
 
     errs.update(query_errs)
     errs.update(spill_errs)

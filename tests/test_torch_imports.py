@@ -48,6 +48,12 @@ def test_import_loads_no_jax():
         "import tigerbeetle_tpu_torch.lsm.cache, tigerbeetle_tpu_torch.lsm.grid\n"
         "import tigerbeetle_tpu_torch.lsm.tree, tigerbeetle_tpu_torch.lsm.manifest_log\n"
         "import tigerbeetle_tpu_torch.lsm.groove, tigerbeetle_tpu_torch.parallel.mesh\n"
+        "import tigerbeetle_tpu_torch.io.time, tigerbeetle_tpu_torch.io.network\n"
+        "import tigerbeetle_tpu_torch.vsr.header, tigerbeetle_tpu_torch.vsr.superblock\n"
+        "import tigerbeetle_tpu_torch.vsr.journal, tigerbeetle_tpu_torch.vsr.clock\n"
+        "import tigerbeetle_tpu_torch.vsr.client_replies, tigerbeetle_tpu_torch.vsr.client\n"
+        "import tigerbeetle_tpu_torch.vsr.durable, tigerbeetle_tpu_torch.constants\n"
+        "import tigerbeetle_tpu_torch.testing.cluster_cases\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -56,6 +62,46 @@ def test_import_loads_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", ["tigerbeetle_tpu_torch.vsr.replica",
+                                    "tigerbeetle_tpu_torch.testing.cluster"])
+def test_replica_and_cluster_load_no_jax(module):
+    code = (
+        f"import sys, {module}\n"
+        "roots = ('jax', 'jaxlib', 'tigerbeetle_tpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_cluster_and_durable_ledger_default_to_cuda():
+    """A replica built with no device or backend builds its ledger on the
+    card: without CUDA the cluster and the durable ledger raise, with no
+    fallback to the CPU."""
+    import torch
+
+    from tigerbeetle_tpu_torch.constants import TEST_CLUSTER, TEST_PROCESS
+    from tigerbeetle_tpu_torch.io.storage import MemoryStorage, ZoneLayout
+    from tigerbeetle_tpu_torch.testing.cluster import Cluster
+    from tigerbeetle_tpu_torch.vsr.durable import DurableLedger, format_data_file
+
+    storage = MemoryStorage(ZoneLayout(TEST_CLUSTER, grid_size=8 * 1024 * 1024))
+    format_data_file(storage, TEST_CLUSTER)
+    if torch.cuda.is_available():
+        assert Cluster(replica_count=1).replicas[0].ledger.device.type == "cuda"
+        assert DurableLedger(storage, TEST_CLUSTER, TEST_PROCESS).ledger.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Cluster(replica_count=1)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DurableLedger(storage, TEST_CLUSTER, TEST_PROCESS)
+    assert Cluster(replica_count=1, device="cpu").replicas[0].ledger.device.type == "cpu"
 
 
 def test_device_ledger_defaults_to_cuda():

@@ -1,7 +1,11 @@
-"""Device-applier latency anatomy (the counterpart of the device half of
-`tigerbeetle_tpu/latency.py`).
+"""Latency anatomy (the counterpart of `tigerbeetle_tpu/latency.py`, cut to
+what the replica and the dual-commit follower use).
 
-The dual-commit follower's apply loop (models/dual_ledger.py) stamps each
+The replica stamps each sampled request as it crosses the consecutive legs
+of its pipeline (`LatencyAnatomy`, `LEG_*`), from admission to reply egress,
+and folds the intervals into one `latency.<leg>_us` histogram per leg plus
+`latency.e2e_us`; the clock is the replica's Time seam, so simulated runs
+stamp virtual ticks. The dual-commit follower's apply loop (models/dual_ledger.py) stamps each
 sampled apply item as it crosses consecutive sub-legs, from the commit
 path's enqueue to the moment the applied op is visible, and folds the
 intervals into one `device.<leg>_us` histogram per sub-leg plus
@@ -13,6 +17,202 @@ from __future__ import annotations
 from time import perf_counter_ns
 
 from tigerbeetle_tpu_torch.metrics import NULL_METRICS
+
+# Leg ids (stamp order on the primary's durable path; a leg a request
+# never crosses — e.g. fuse_hold with the window off — folds as 0us and
+# is dropped from its breakdown record).
+LEG_INGRESS = 0  # arrival (gateway admit) -> admission/dedup done
+LEG_WAL = 1  # prepare built + WAL write issued (sync path: completed)
+LEG_QUORUM = 2  # broadcast -> replication quorum reached
+LEG_FUSE = 3  # quorum-ready -> commit dispatch entry (group-fuse hold)
+LEG_DISPATCH = 4  # commit dispatch (stage + launch)
+LEG_WAIT = 5  # dispatch -> finalize entry (async window / device compute)
+LEG_FINALIZE = 6  # finalize (WAL ack wait + drain + reply build)
+LEG_EGRESS = 7  # reply built -> reply leaves (bus flush / send)
+
+LEGS = (
+    "ingress_admission", "wal_write", "quorum_wait", "fuse_hold",
+    "commit_dispatch", "commit_wait", "commit_finalize", "reply_egress",
+)
+
+# A gateway arrival stamp older than this is stale evidence (the frame
+# it timed was dropped before the replica opened a record — a dup, a
+# shed, a non-primary pass-through) and must not inflate the NEXT
+# sampled request's ingress_admission leg.
+_ARRIVAL_STALE_NS = 100_000_000
+
+
+class LatencyAnatomy:
+    """Per-request stamp collector + per-leg histogram folder + top-K
+    slowest ring. One per replica; the gateway and bus hold references.
+
+    Protocol (the replica drives it):
+      if anatomy.want():                  # sampling countdown
+          tok = anatomy.open(trace_id)    # begin the record
+      ...
+      if tok: anatomy.stamp(tok, LEG_X)   # consecutive leg boundaries
+      ...
+      anatomy.egress(tok, client, ctx)    # finish (or hand to the bus)
+    """
+
+    def __init__(self, metrics=None, clock=None, sample_every: int = 16,
+                 capacity: int = 512, top_k: int = 32):
+        m = metrics if metrics is not None else NULL_METRICS
+        self.metrics = m
+        self._clock = clock if clock is not None else perf_counter_ns
+        self.sample_every = sample_every
+        self.capacity = capacity
+        self.top_k = top_k
+        # leg-indexed histogram handles, bound once (a registry lookup
+        # per stamp would dwarf the stamp)
+        self._h = [m.histogram(f"latency.{leg}_us") for leg in LEGS]
+        self._h_e2e = m.histogram("latency.e2e_us")
+        self._c_samples = m.counter("latency.samples")
+        self._c_dropped = m.counter("latency.dropped")
+        # open records: trace id -> [t0, leg, t1, leg, t2, ...]
+        self._recs: dict[int, list] = {}
+        # deferred-egress handoff to the TCP bus: (client, context) ->
+        # token; the bus pops the match when the reply frame is queued
+        # and finishes the record at the flush that writes it
+        self.defer_egress = False
+        self.pending_egress: dict[tuple, int] = {}
+        # sampling state: _take flags the NEXT request as sampled; the
+        # countdown advances in want() on the unsampled path
+        self._take = sample_every > 0
+        self._since = 0
+        self._arrival = 0  # gateway arrival stamp for the sampled-next req
+        # top-K slowest sampled requests, ascending by e2e; _slow_min is
+        # the current cutoff so the common case is ONE compare
+        self._slow: list[tuple[int, dict]] = []
+        self._slow_min = -1
+
+    # -- the hot path ---------------------------------------------------
+
+    def arrive(self) -> None:
+        """Gateway admission stamp (ingress/gateway.py): records the
+        arrival time IF the next request is the sampled one — one attr
+        test per admitted frame otherwise."""
+        if self._take:
+            self._arrival = self._clock()
+
+    def want(self) -> bool:
+        """Advance the sampling countdown; True when the caller should
+        open() a record for this request. The unsampled path is this one
+        call: a compare or two, an increment, done. sample_every <= 0
+        disables outright — checked first, because the knob can be
+        turned off at runtime while `_take` is still armed from
+        construction."""
+        if self.sample_every <= 0:
+            return False
+        if self._take:
+            return True
+        self._since += 1
+        if self._since + 1 >= self.sample_every:
+            self._since = 0
+            self._take = True
+        return False
+
+    def open(self, tid: int) -> int:
+        """Begin the sampled record for trace id `tid`; returns the
+        token (the tid) the caller guards later stamps with, or 0 when
+        the record cannot open (duplicate id, sampling raced off)."""
+        if not self._take:
+            return 0
+        self._take = self.sample_every <= 1
+        now = self._clock()
+        a = self._arrival
+        self._arrival = 0
+        t0 = a if (a and now - a < _ARRIVAL_STALE_NS) else now
+        recs = self._recs
+        if tid in recs:
+            return 0
+        if len(recs) >= self.capacity:
+            # evict the oldest open record (its reply was shed/lost)
+            recs.pop(next(iter(recs)))
+            self._c_dropped.add()
+        recs[tid] = [t0, LEG_INGRESS, now]
+        return tid
+
+    def stamp(self, tok: int, leg: int) -> None:
+        r = self._recs.get(tok)
+        if r is not None:
+            r.append(leg)
+            r.append(self._clock())
+
+    def egress(self, tok: int, client: int, context: int) -> None:
+        """Close the record at reply egress. With `defer_egress` (TCP
+        bus installed) the record is parked for the bus, keyed by the
+        reply frame's (client, context) pair; otherwise it finishes
+        now (in-process transports deliver synchronously)."""
+        if self.defer_egress:
+            pe = self.pending_egress
+            if len(pe) >= 128:  # replies that never flushed (conn died)
+                self.discard(pe.pop(next(iter(pe))))
+            pe[(client, context)] = tok
+        else:
+            self.finish(tok)
+
+    def finish(self, tok: int) -> None:
+        """Final stamp (reply_egress) + fold into the histograms and the
+        top-K ring. Idempotent: a second finish for the same token is a
+        dict miss."""
+        r = self._recs.pop(tok, None)
+        if r is None:
+            return
+        r.append(LEG_EGRESS)
+        r.append(self._clock())
+        t0 = r[0]
+        e2e = r[-1] - t0
+        hs = self._h
+        prev = t0
+        for i in range(1, len(r), 2):
+            t = r[i + 1]
+            hs[r[i]].observe((t - prev) / 1000.0)
+            prev = t
+        self._h_e2e.observe(e2e / 1000.0)
+        self._c_samples.add()
+        if e2e > self._slow_min or len(self._slow) < self.top_k:
+            self._slow_insert(tok, t0, e2e, r)
+
+    # -- cold paths -----------------------------------------------------
+
+    def discard(self, tok) -> None:
+        """Drop an open record without folding (view change abandoned
+        the op; capacity eviction)."""
+        if tok is not None:
+            self._recs.pop(tok, None)
+
+    def _slow_insert(self, tok: int, t0: int, e2e: int, r: list) -> None:
+        legs: dict[str, float] = {}
+        prev = t0
+        for i in range(1, len(r), 2):
+            t = r[i + 1]
+            d = (t - prev) / 1000.0
+            prev = t
+            if d or r[i] == LEG_EGRESS:
+                name = LEGS[r[i]]
+                legs[name] = round(legs.get(name, 0.0) + d, 3)
+        rec = {
+            "trace": f"{tok:016x}",
+            "t0_ns": t0,
+            "e2e_us": round(e2e / 1000.0, 3),
+            "legs": legs,
+            "dominant": max(legs, key=legs.get) if legs else None,
+        }
+        slow = self._slow
+        slow.append((e2e, rec))
+        slow.sort(key=lambda x: x[0])
+        if len(slow) > self.top_k:
+            slow.pop(0)
+        self._slow_min = slow[0][0]
+
+    def slowest(self, limit: int = 0) -> list[dict]:
+        """The slowest sampled requests, worst first (the SIGQUIT dump,
+        the [stats] wire snapshot and `tigerbeetle inspect live` all
+        read this)."""
+        out = [rec for _e2e, rec in reversed(self._slow)]
+        return out[:limit] if limit else out
+
 
 # -- device applier anatomy (models/dual_ledger.py apply loop) ---------
 #

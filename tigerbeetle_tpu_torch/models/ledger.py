@@ -1755,7 +1755,8 @@ class PendingGroup:
     summary (the reply of an all-ok batch is empty; reference:
     src/tigerbeetle.zig:231-249 sparse results)."""
 
-    __slots__ = ("results", "n_pad", "k", "host", "summary", "host_summary")
+    __slots__ = ("results", "n_pad", "k", "host", "summary", "host_summary",
+                 "prefetched")
 
     def __init__(self, results, n_pad: int, k: int, summary):
         self.results = results
@@ -1764,6 +1765,7 @@ class PendingGroup:
         self.host = None
         self.summary = summary
         self.host_summary = None
+        self.prefetched = None  # the summary's copy started at dispatch
 
     def fetch(self) -> np.ndarray:
         if self.host is None:
@@ -1772,8 +1774,31 @@ class PendingGroup:
 
     def fetch_summary(self) -> np.ndarray:
         if self.host_summary is None:
-            self.host_summary = self.summary.cpu().numpy().view(np.uint32)
+            self.host_summary = _host_words(self.summary, self.prefetched)
         return self.host_summary
+
+
+def _copy_at_dispatch(t):
+    """Start the copy of the device tensor `t` into pinned host memory now,
+    behind the kernels that write it: (host tensor, CUDA event), or None on
+    the CPU, where `t` is already on the host."""
+    if t.device.type != "cuda":
+        return None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _host_words(t, prefetched) -> np.ndarray:
+    """`t`'s words as uint32 on the host: from the copy `_copy_at_dispatch`
+    started, once its event has passed, else by a copy now."""
+    if prefetched is None:
+        return t.cpu().numpy().view(np.uint32)
+    host, done = prefetched
+    done.synchronize()
+    return host.numpy().view(np.uint32)
 
 
 class PendingBatch:
@@ -1786,7 +1811,8 @@ class PendingBatch:
     spill cycle since then has recounted the occupancy)."""
 
     __slots__ = ("operation", "n", "results", "flags", "dense", "summary",
-                 "failures", "codes_np", "group", "group_idx", "plan", "epoch")
+                 "failures", "codes_np", "group", "group_idx", "plan", "epoch",
+                 "prefetched")
 
     def __init__(self, operation, n, results, flags, summary=None, group=None,
                  group_idx=0, plan=None, epoch=0):
@@ -1802,6 +1828,14 @@ class PendingBatch:
         self.group = group  # PendingGroup when part of a fused dispatch
         self.group_idx = group_idx  # this batch's slot within the group
         self.plan = plan
+        self.prefetched = None  # the summary's copy started at dispatch
+
+    def is_ready(self) -> bool:
+        """False while a copy started at dispatch is still in flight: the
+        replica's non-blocking flush then leaves this batch for later. A
+        batch with no such copy reads as ready (its drain waits)."""
+        pre = self.prefetched if self.group is None else self.group.prefetched
+        return pre is None or pre[1].query()
 
 
 def _summarize(results, fault):
@@ -1943,6 +1977,11 @@ class DeviceLedger(HostLedgerBase):
             from tigerbeetle_tpu_torch.models.spill import SpillManager
 
             self.spill = SpillManager(self, forest, io=spill_io)
+        # Start each batch's summary copy to the host at dispatch, so that a
+        # driver serving replies (the replica) drains a landed pinned buffer
+        # instead of waiting on a copy it starts at drain. Off by default: a
+        # driver that never reads results needs no copies.
+        self.prefetch_results = False
 
     # ------------------------------------------------------------------
     # execution
@@ -2014,8 +2053,11 @@ class DeviceLedger(HostLedgerBase):
             raise ValueError(operation)
         self._c_h2d.add(arr.nbytes)
         packed, summary = _summarize(results, self.state["fault"])
-        return PendingBatch(operation, n, packed, arr["flags"].copy(), summary, plan=plan_info,
-                            epoch=self._occupancy_epoch)
+        pending = PendingBatch(operation, n, packed, arr["flags"].copy(), summary,
+                               plan=plan_info, epoch=self._occupancy_epoch)
+        if self.prefetch_results:
+            pending.prefetched = _copy_at_dispatch(summary)
+        return pending
 
     def _execute_waves(self, arr, n: int, timestamp: int, plan):
         """Conflict-scheduled wave execution (the HazardTracker.plan layout):
@@ -2129,6 +2171,8 @@ class DeviceLedger(HostLedgerBase):
             self.hazards.note_pending(arr)
         self._xfer_used += total
         group = PendingGroup(flat, n_pad, k, summary)
+        if self.prefetch_results:
+            group.prefetched = _copy_at_dispatch(summary)
         return [
             PendingBatch(Operation.create_transfers, len(arr), flat, arr["flags"].copy(),
                          group=group, group_idx=i, epoch=self._occupancy_epoch)
@@ -2249,7 +2293,7 @@ class DeviceLedger(HostLedgerBase):
             arr = g.fetch()  # one read for the whole group (cached)
             off = pending.group_idx * g.n_pad
             return self._drain_from_host(pending, arr[off:off + pending.n], int(arr[-1]))
-        s = pending.summary.cpu().numpy().view(np.uint32)  # [count, fault]
+        s = _host_words(pending.summary, pending.prefetched)  # [count, fault]
         if int(s[0]) == 0:
             return self._drain_all_ok(pending, int(s[1]))
         arr = pending.results.cpu().numpy().view(np.uint32)
