@@ -229,7 +229,30 @@ Phases (each failure exits non-zero):
    K3, K4, K5 and K6 must launch. It prints the committed transfers/s and the
    request latency, a checkpoint's device-to-host copy and storage writes, the
    restart's read, upload and the rest, the peak device memory, the launches
-   and a cProfile of the requests sent while backup 2 is down.
+   and a cProfile of the requests sent while backup 2 is down;
+13. the simulator (tigerbeetle_tpu_torch/testing/simulator.py), in a process
+   of its own (`chip_smoke.vopr_child`). Run A: Simulator(9) with three
+   replicas, each DeviceLedger(ConfigProcess()) on cuda (TEST_CLUSTER's
+   64-slot journal, MemoryStorage of two snapshot areas a replica), four
+   clients of 256-event batches (the workload without linked events,
+   conflicts or invalid ids, so that account batches take K2 fast), 900
+   ticks, crash probability 0.008, restarts within 40 ticks and a WAL fault
+   on every restart, the other faults at their defaults (torn writes,
+   client-reply and superblock faults, packet loss, replay, partitions).
+   The simulator's checkers decide: one linear history, no holes,
+   convergence, and each replica's extract() equal to the scalar oracle's
+   replay of the committed history; it must crash a replica, commit more
+   than 60 ops so that every replica checkpoints, and launch K2 fast and
+   K3. Run B: the device slice of the fleet, random_options(s,
+   device_fraction=1.0) for s = 1-4 (tiny spill-heavy tables, a forest,
+   grid faults), and the seed-7 spill settings of the JAX simulator's
+   tests, each on cuda and again on the CPU: run() dicts and a digest of
+   every replica's history equal; seed 7 once more on cuda with a trace,
+   whose history must be unchanged and whose stitched dump must parse; the
+   K10 kernels must launch. It prints each run's wall seconds, the
+   committed ops, replies, crashes and faults, the checkpoints per replica
+   and the seconds in checkpoints and restarts, the host seconds per
+   committed op, the peak device memory and the launches.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -5478,6 +5501,250 @@ def phase_replicated(torch, L, types, constants, dev, card) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------------
+# phase 13: the simulator
+# ----------------------------------------------------------------------
+
+VOPR_SEED = 9
+# 600 ticks commit 56 ops and no checkpoint on this seed (the protocol run
+# does not depend on the backend: the oracle backend's run gives the same
+# stats); 900 commit 99, past the checkpoint at op 59, with 7 crashes
+VOPR_TICKS = 900
+# the default workload puts a linked event or a repeated id (a conflict or
+# an invalid id of 0) in every 256-event account batch, which sends each to
+# the serial tier; without them the account batches take K2 fast, and the
+# transfers' two-phase, balancing and limit-account events still plan into
+# waves (K3) with serial residues (K4)
+VOPR_KNOBS = dict(chain_rate=0.0, conflict_rate=0.0, invalid_rate=0.0)
+VOPR_FLEET = (1, 2, 3, 4)  # random_options(s, device_fraction=1.0)
+VOPR_A_KERNELS = ("commit_accounts_fast", "commit_transfers_fast")
+
+
+def _history_digest(sim) -> str:
+    """sha256 over every replica's history: op -> (checksum, operation,
+    timestamp, body)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for hist in sim.histories:
+        for op in sorted(hist):
+            ck, operation, ts, body = hist[op]
+            h.update(f"{op}:{ck:x}:{operation}:{ts}:".encode())
+            h.update(bytes(body))
+        h.update(b"|")
+    return h.hexdigest()
+
+
+def vopr_child(device="cuda", process=None, ticks=VOPR_TICKS, fleet=VOPR_FLEET):
+    """Phase 13 in a process of its own (its host storages and device tables
+    go with it). Run A: the simulator's three replicas, each
+    DeviceLedger(ConfigProcess()) on the card, under the fault mix of seed
+    VOPR_SEED (crashes, WAL faults on every restart, torn writes,
+    client-reply and superblock faults, packet loss, replay and
+    partitions); the simulator's own checkers decide (one linear history,
+    no holes, convergence, each replica's extract() equal to the oracle's
+    replay). Run B: the device slice of the fleet seeds and the seed-7
+    spill settings, each on the card and again on the CPU, run() dicts and
+    history digests equal; seed 7 once more on the card with a trace.
+    Prints its figures and one JSON line."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.constants import TEST_CLUSTER, ConfigProcess
+    from tigerbeetle_tpu_torch.testing import sim_cases
+    from tigerbeetle_tpu_torch.testing.packet_simulator import PacketSimulatorOptions
+    from tigerbeetle_tpu_torch.testing.simulator import Simulator, random_options
+    from tigerbeetle_tpu_torch.vsr.replica import Replica
+
+    dev = torch.device(device)
+    process = process or ConfigProcess()
+    ck_s: dict = {}  # replica index -> seconds of each checkpoint
+    real_checkpoint = Replica.checkpoint
+
+    def timed_checkpoint(self):
+        t = time.perf_counter()
+        real_checkpoint(self)
+        ck_s.setdefault(self.replica, []).append(time.perf_counter() - t)
+
+    Replica.checkpoint = timed_checkpoint
+
+    class TimedSimulator(Simulator):
+        """Times each replica build after the first three (the restarts),
+        the heal and the checks."""
+
+        def __init__(self, *a, **kw):
+            self.builds = []
+            self.legs = {}
+            super().__init__(*a, **kw)
+
+        def _make_replica(self, i):
+            t = time.perf_counter()
+            r = super()._make_replica(i)
+            self.builds.append((i, time.perf_counter() - t))
+            if r.ledger.device.type != dev.type:
+                fail(f"replica {i}'s ledger is on {r.ledger.device}, not {dev}")
+            return r
+
+        def _heal_and_converge(self):
+            t = time.perf_counter()
+            super()._heal_and_converge()
+            self.legs["heal_s"] = time.perf_counter() - t
+
+        def _check(self):
+            t = time.perf_counter()
+            super()._check()
+            self.legs["check_s"] = time.perf_counter() - t
+
+    out = {}
+    # -- run A: the replicas at full size --
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    grid = replica_grid_size(process)
+    t0, c0 = time.perf_counter(), time.process_time()
+    sim = TimedSimulator(
+        VOPR_SEED, replica_count=3, n_clients=4, client_batch=256, ticks=ticks,
+        backend_factory=None, device=device, process=process, cluster=TEST_CLUSTER,
+        grid_size=grid, crash_probability=0.008, restart_ticks_max=40,
+        wal_fault_probability=1.0, workload_knobs=VOPR_KNOBS)
+    setup_s = time.perf_counter() - t0
+    try:
+        stats = sim.run()
+    except AssertionError as e:
+        fail(f"run A (seed {VOPR_SEED}): a checker failed: {e}")
+    wall_s, cpu_s = time.perf_counter() - t0, time.process_time() - c0
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else 0.0
+    host_gib = sum(len(s.data) for s in sim.storages) / 2**30
+    restarts = sim.builds[3:]
+    ckpts = {i: len(ck_s.get(i, [])) for i in range(3)}
+    log(f"  run A: Simulator({VOPR_SEED}, 3 replicas, 4 clients x 256 events, {ticks} ticks, "
+        f"crash 0.008, restart <= 40 ticks, WAL fault on every restart), each replica "
+        f"DeviceLedger({process.account_slots_log2}, {process.transfer_slots_log2}) on "
+        f"{sim.replicas[0].ledger.device}; storages {host_gib:.2f} GiB of host memory "
+        f"(MemoryStorage, a grid of {grid / 2**30:.3f} GiB a replica); built in {setup_s:.2f} s")
+    log(f"  run A: {stats['committed_ops']} committed ops, {stats['replies']} replies, "
+        f"{stats['crashes']} crashes, {stats['wal_faults']} WAL faults, {stats['torn_writes']} "
+        f"torn writes, {stats['replies_faults']} client-reply faults, "
+        f"{stats['superblock_faults']} superblock faults, {stats['grid_faults']} grid faults, "
+        f"view {stats['view']}, net {stats['net']}")
+    log(f"  run A: every checker passed (one linear history, no holes, convergence at op "
+        f"{stats['committed_ops']}, each replica's extract() equal to the oracle's replay); "
+        f"wall {wall_s:.4f} s, of which the heal {sim.legs['heal_s']:.4f} s and the checks "
+        f"{sim.legs['check_s']:.4f} s; host CPU {cpu_s:.4f} s; "
+        f"{wall_s / stats['committed_ops']:.4f} s wall and {cpu_s / stats['committed_ops']:.4f} s "
+        f"host CPU a committed op")
+    log(f"  run A: checkpoints per replica {ckpts} at ops "
+        f"{[r.checkpoint_op for r in sim.replicas]}, {sum(map(sum, ck_s.values())):.4f} s in all "
+        f"({[round(x, 4) for v in ck_s.values() for x in v]}); {len(restarts)} restarts, "
+        f"{sum(s for _i, s in restarts):.4f} s in all ({[(i, round(s, 4)) for i, s in restarts]}); "
+        f"peak device memory {peak_gib:.2f} GiB")
+    rest_s = (wall_s - setup_s - sum(map(sum, ck_s.values())) - sum(s for _i, s in restarts)
+              - sim.legs["heal_s"] - sim.legs["check_s"])
+    log(f"  run A: the ticks outside checkpoints and restarts took {rest_s:.4f} s, "
+        f"{rest_s / stats['committed_ops']:.4f} s a committed op (the replicas' and clients' "
+        "host work and the device commits)")
+    log(f"  run A launches: {launches}")
+    if stats["crashes"] < 1:
+        fail(f"run A crashed no replica: {stats}")
+    if stats["committed_ops"] <= 60:
+        fail(f"run A committed {stats['committed_ops']} ops, not past the checkpoint at op 60")
+    if min(ckpts.values()) < 1 or min(r.checkpoint_op for r in sim.replicas) <= 0:
+        fail(f"a replica never checkpointed: {ckpts}")
+    if device == "cuda" and not all(launches[k] for k in VOPR_A_KERNELS):
+        fail(f"run A launched no {[k for k in VOPR_A_KERNELS if not launches[k]]}")
+    out["A"] = {"stats": stats, "wall_s": wall_s, "cpu_s": cpu_s, "setup_s": setup_s,
+                "rest_s": rest_s,
+                **sim.legs, "checkpoints": ckpts, "checkpoint_s": ck_s,
+                "restart_s": restarts, "peak_gib": peak_gib, "launches": launches}
+    del sim
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- run B: the spill slice as the fleet draws it, on the card and on the CPU --
+    cases = [(s, f"fleet seed {s}", lambda s=s: random_options(s, device_fraction=1.0))
+             for s in fleet]
+    cases.append((sim_cases.SPILL_SEED, f"spill seed {sim_cases.SPILL_SEED}",
+                  lambda: sim_cases.spill(PacketSimulatorOptions, ConfigProcess)))
+    K.reset_launches()
+    t_b = time.perf_counter()
+    rows = []
+    for seed, name, kwargs in cases:
+        got = {}
+        for where in (device, "cpu"):
+            t = time.perf_counter()
+            s = Simulator(seed, device=where, **kwargs())
+            if any(r.ledger.device.type != torch.device(where).type for r in s.replicas):
+                fail(f"run B, {name}: a replica's ledger is not on {where}")
+            try:
+                r = s.run()
+            except AssertionError as e:
+                fail(f"run B, {name} on {where}: a checker failed: {e}")
+            got[where] = (r, _history_digest(s), time.perf_counter() - t)
+        (rd, hd, td), (rc, hc, tc) = got[device], got["cpu"]
+        if rd != rc or hd != hc:
+            fail(f"run B, {name}: the {device} run differs from the CPU run: {rd} / {rc}")
+        rows.append((name, rd, td, tc))
+        digest = hd
+        log(f"  run B, {name}: {device} {td:.4f} s, cpu {tc:.4f} s, equal run() and history "
+            f"digest {hd[:16]}; committed {rd['committed_ops']}, replies {rd['replies']}, "
+            f"crashes {rd['crashes']}, WAL faults {rd['wal_faults']}, torn {rd['torn_writes']}, "
+            f"grid faults {rd['grid_faults']}, grid reads {rd['grid_reads']}")
+    b_launches = dict(K.LAUNCHES)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "spill7.json")
+        t = time.perf_counter()
+        s = Simulator(sim_cases.SPILL_SEED, device=device, trace_path=path,
+                      **sim_cases.spill(PacketSimulatorOptions, ConfigProcess))
+        r = s.run()
+        traced_s = time.perf_counter() - t
+        if r != rows[-1][1] or _history_digest(s) != digest:
+            fail("run B: the traced spill seed's run differs from the untraced one")
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n_bytes = os.path.getsize(path)
+    spans = sum(1 for e in events if e["ph"] in ("X", "B"))
+    flows = sum(1 for e in events if e["ph"] in ("s", "t", "f"))
+    pids = len({e["pid"] for e in events if e["ph"] in ("X", "B")})
+    if not spans:
+        fail("run B: the traced spill seed dumped no span")
+    log(f"  run B, spill seed {sim_cases.SPILL_SEED} traced: {traced_s:.4f} s, history "
+        f"unchanged; the stitched dump ({n_bytes} bytes) parses: {spans} spans on {pids} "
+        f"replica pids, {flows} flow events")
+    log(f"  run B: {time.perf_counter() - t_b:.4f} s in all; launches of its {device} runs: "
+        f"{b_launches}")
+    spill = ("spill_head", "spill_split", "spill_gather", "spill_reload")
+    if device == "cuda" and not all(b_launches[k] for k in spill):
+        fail(f"run B launched no {[k for k in spill if not b_launches[k]]}")
+    out["B"] = {"rows": rows, "traced_s": traced_s,
+                "spans": spans, "flows": flows, "launches": b_launches}
+    print(json.dumps(out, default=str))
+
+
+def phase_vopr(card) -> dict:
+    """vopr_child in a process of its own; relays its lines. Returns its
+    JSON."""
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.vopr_child()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:], proc.stderr[-4000:])
+        fail("the simulator's phase failed")
+    lines = proc.stdout.rstrip().splitlines()
+    for line in lines[:-1]:
+        log(line + (f" [{card}]" if line.startswith("  run") else ""))
+    log(f"  phase 13 took {time.perf_counter() - t:.1f} s [{card}]")
+    return json.loads(lines[-1])
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -5653,6 +5920,11 @@ def main() -> int:
     stage("phase 12: the replicated ledger, Cluster(3) of DeviceLedger(ConfigProcess()) on cuda: "
           "commit, checkpoint and a backup's crash-restart, against NativeLedger(20, 24)")
     phase_replicated(torch, L, types, constants, dev, card)
+
+    stage("phase 13: the simulator, three DeviceLedger(ConfigProcess()) replicas on cuda under "
+          "seed 9's faults, and the device slice of the fleet on cuda against the CPU, in a "
+          "process of its own")
+    phase_vopr(card)
 
     errs.update(query_errs)
     errs.update(spill_errs)

@@ -65,7 +65,17 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("module", ["tigerbeetle_tpu_torch.vsr.replica",
-                                    "tigerbeetle_tpu_torch.testing.cluster"])
+                                    "tigerbeetle_tpu_torch.testing.cluster",
+                                    "tigerbeetle_tpu_torch.tracer",
+                                    "tigerbeetle_tpu_torch.testing.hash_log",
+                                    "tigerbeetle_tpu_torch.models.oracle",
+                                    "tigerbeetle_tpu_torch.testing.workload",
+                                    "tigerbeetle_tpu_torch.testing.packet_simulator",
+                                    "tigerbeetle_tpu_torch.testing.state_checker",
+                                    "tigerbeetle_tpu_torch.testing.simulator",
+                                    "tigerbeetle_tpu_torch.testing.sim_cases",
+                                    "tigerbeetle_tpu_torch.testing.fuzz",
+                                    "tigerbeetle_tpu_torch.testing.vopr"])
 def test_replica_and_cluster_load_no_jax(module):
     code = (
         f"import sys, {module}\n"
@@ -102,6 +112,33 @@ def test_cluster_and_durable_ledger_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             DurableLedger(storage, TEST_CLUSTER, TEST_PROCESS)
     assert Cluster(replica_count=1, device="cpu").replicas[0].ledger.device.type == "cpu"
+
+
+def test_simulator_and_vopr_runner_default_to_cuda():
+    """The simulator's device slice (backend_factory=None) and the VOPR
+    runner build their ledgers on the card: without CUDA the simulator
+    raises and the runner refuses to start, with no fallback to the CPU;
+    the oracle backend touches no device."""
+    import torch
+
+    from tigerbeetle_tpu_torch.testing import vopr
+    from tigerbeetle_tpu_torch.testing.simulator import Simulator
+
+    assert vopr.parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        sim = Simulator(1, ticks=5, backend_factory=None, replica_count=1, n_clients=1)
+        assert sim.replicas[0].ledger.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            Simulator(1, ticks=5, backend_factory=None, replica_count=1, n_clients=1)
+        out = subprocess.run(
+            [sys.executable, "-m", "tigerbeetle_tpu_torch.testing.vopr", "--seeds", "1"],
+            cwd=REPO, capture_output=True, text=True, timeout=120)
+        assert out.returncode == 2 and "CUDA is not available" in out.stderr
+        assert "seed" not in out.stdout
+    sim = Simulator(1, ticks=5, backend_factory=None, replica_count=1, n_clients=1, device="cpu")
+    assert sim.replicas[0].ledger.device.type == "cpu"
+    assert not hasattr(Simulator(1, ticks=5).replicas[0].ledger, "device")
 
 
 def test_device_ledger_defaults_to_cuda():
