@@ -252,7 +252,35 @@ Phases (each failure exits non-zero):
    K10 kernels must launch. It prints each run's wall seconds, the
    committed ops, replies, crashes and faults, the checkpoints per replica
    and the seconds in checkpoints and restarts, the host seconds per
-   committed op, the peak device memory and the launches.
+   committed op, the peak device memory and the launches;
+14. the server process: real servers spawned with `python -m
+   tigerbeetle_tpu_torch start` (tigerbeetle_tpu_torch/testing/process.py),
+   each data file formatted by the CLI's `format` in a temporary directory
+   (the disk's free space checked first), driven over 127.0.0.1 by the
+   port's NativeClient, every reply against NativeLedger(20, 24) in this
+   process (the same result codes; lookups equal but for their
+   timestamps). Run A: one replica at the defaults (--backend device, cuda,
+   2^20 / 2^24, a grid of two snapshot areas); its first output line must
+   be "listening"; the 10,000 accounts, phase 3's two-phase and linked
+   requests, then its 64 benchmark requests from four client threads (the
+   commit window fuses them: K5); lookups of every account; K1, K2 fast and
+   serial, K3, K4 and K5 must have launched (the [stats] wire command);
+   kill -9, a restart replaying the WAL, lookups byte-identical. Run B:
+   small requests until the checkpoint at op 960 is written through the
+   data file; kill -9, a restart from the checkpoint's blobs and the WAL
+   after it, lookups byte-identical. Run C: three replicas on the card; 16
+   benchmark requests; backup 1 killed for 4 requests, restarted, caught
+   up; after the primary's SIGTERM, backup 1 leads view 1 and answers
+   lookups byte-identical to the old primary's. Run D: --backend dual (the
+   follower must verify; K7 must launch) and --backend sharded --shards 8
+   (K11's lookup, fast and serial account and fast transfer commits must
+   launch), each with the accounts, 4 benchmark requests and the lookups.
+   Each server's SIGTERM [stats] line is parsed: its kernel_launches,
+   group and split counters, loop.us_per_batch and latency anatomy are
+   printed. It prints the seconds to "listening" of every spawn, run A's
+   transfers/s over TCP and the client-side request latency, run B's
+   checkpoint and restore legs through the file, run C's rate and device
+   memory, and the phase's seconds.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -4685,6 +4713,13 @@ def mesh_fast_trace_child(n_requests=4):
     }))
 
 
+# K11ts's check against its plain version and its row in the kernel line:
+# serial_request at 2048 events (600 chained, then 1448 posts and voids), cut
+# from the path's 8190 because the plain version takes 12-29 ms an event
+# (PERF.md section 4); the kernel's 8190-event time is printed beside it.
+MESH_SERIAL_EVENTS = 2048
+
+
 def serial_request(types, rng, ids, pend):
     """A request of the sharded path's serial tier at its size: the linked
     request's chains of three over its first 600 events (every tenth
@@ -4750,17 +4785,18 @@ def mesh_main_shapes(torch, L, M, types, ledger, dev):
         check(f"K11 mesh_commit_transfers fast ({B} {what})",
               lambda s: K.mesh_commit_transfers_fast(s, rows, B, ts, a_log2, t_log2),
               lambda s: M.commit_transfers_fast_plain(s, rows, B, ts, a_log2, t_log2))
-    arr, _ = serial_request(types, rng, np.arange(7_300_000_001, 7_300_000_001 + B), arr)
+    n = MESH_SERIAL_EVENTS
+    arr, _ = serial_request(types, rng, np.arange(7_300_000_001, 7_300_000_001 + n), arr)
     rows = pad(arr)
     ts += B
-    ts_name = (f"K11 mesh_commit_transfers serial ({B}: 200 linked chains, every tenth broken, "
-               f"then {B - 600} posts and voids)")
+    ts_name = (f"K11 mesh_commit_transfers serial ({n}: 200 linked chains, every tenth broken, "
+               f"then {n - 600} posts and voids)")
     codes = check(ts_name,
-                  lambda s: K.mesh_commit_transfers_serial(s, rows, B, ts, a_log2, t_log2),
-                  lambda s: M.commit_transfers_serial_plain(s, rows, B, ts, a_log2, t_log2))
+                  lambda s: K.mesh_commit_transfers_serial(s, rows, n, ts, a_log2, t_log2),
+                  lambda s: M.commit_transfers_serial_plain(s, rows, n, ts, a_log2, t_log2))
     if int(sk["fault"]) != 0:
         fail(f"the sharded main-shape checks faulted: {int(sk['fault'])}")
-    if int((codes[600:B] == 0).sum()) != B - 600:
+    if int((codes[600:n] == 0).sum()) != n - 600:
         fail("a post or void of an open pending did not commit")
     del sk, sp
     torch.cuda.empty_cache()
@@ -4886,21 +4922,22 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
     log(f"  K11tf on the card alone: {kc[0]:.4f} ms [p25 {kc[1]:.4f}, p75 {kc[2]:.4f}] "
         f"(through its wrapper {kt[0]:.4f} ms)")
 
-    # K11ts on serial_request, each over pendings the fast kernel commits
-    # first (untimed)
+    # K11ts on serial_request of MESH_SERIAL_EVENTS (the shape of its plain
+    # run), each over pendings the fast kernel commits first (untimed)
+    n = MESH_SERIAL_EVENTS
     reqs = []
     for _ in range(10):
         pend = fresh_transfers(flags=2)
         K.mesh_commit_transfers_fast(st, pad(pend), B, 10**13, a_log2, t_log2)
-        ids = np.arange(next_xfer[0], next_xfer[0] + B)
+        ids = np.arange(next_xfer[0], next_xfer[0] + n)
         next_xfer[0] += B
         reqs.append(serial_request(types, rng, ids, pend))
     nbytes, n_pv = xfer_bytes(*reqs[0], 64)
     it = iter([pad(r) for r, _ in reqs])
-    kt = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), B, 10**13, a_log2,
+    kt = timed(torch, lambda: K.mesh_commit_transfers_serial(st, next(it), n, 10**13, a_log2,
                                                              t_log2), 10)
 
-    out["K11ts"] = (kt, once("K11ts"), *walk_bound(nbytes, B))
+    out["K11ts"] = (kt, once("K11ts"), *walk_bound(nbytes, n))
     # and on the path's own linked request
     lk_arrs = [linked_request(types, rng, np.arange(9_000_000_000 + i * B,
                                                     9_000_000_000 + (i + 1) * B), 600)
@@ -4913,10 +4950,10 @@ def mesh_timing(torch, L, M, ht, types, ledger, dev, latency_ns, l2_ns, smem_ns,
     for k, (kt, pt, b, by) in out.items():
         log(f"  {k}: kernel {kt[0]:.4f} ms [p25 {kt[1]:.4f}, p75 {kt[2]:.4f}], "
             f"plain {pt[0]:.4f} ms, bound {b:.6f} ms ({by})")
-    log(f"  K11ts's old bound, a device-memory load an event and one more a post/void: "
-        f"{(B + n_pv) * latency_ns * 1e-6:.6f} ms; its bytes alone "
-        f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms; {B} shared-memory round trips "
-        f"{B * smem_ns * 1e-6:.6f} ms")
+    log(f"  K11ts ({n} events)'s old bound, a device-memory load an event and one more a "
+        f"post/void: {(n + n_pv) * latency_ns * 1e-6:.6f} ms; its bytes alone "
+        f"{nbytes / H100_BYTES_PER_S * 1e3:.6f} ms; {n} shared-memory round trips "
+        f"{n * smem_ns * 1e-6:.6f} ms")
     lb, lby = walk_bound(lk_bytes, B)
     log(f"  K11ts on a whole linked request of {B} events: {full[0]:.4f} ms [p25 {full[1]:.4f}, "
         f"p75 {full[2]:.4f}], bound {lb:.6f} ms ({lby}; old bound "
@@ -5745,6 +5782,418 @@ def phase_vopr(card) -> dict:
     return json.loads(lines[-1])
 
 
+# ----------------------------------------------------------------------
+# phase 14: the server process (python -m tigerbeetle_tpu_torch) over TCP
+# ----------------------------------------------------------------------
+
+SERVER_THREADS = 4  # client threads of the benchmark requests: the commit window fuses them
+SERVER_C_REQUESTS = 16  # run C: benchmark requests before a backup's kill -9
+SERVER_C_AFTER = 4  # run C: requests while the backup is down
+SERVER_D_REQUESTS = 4  # run D: benchmark requests for each backend
+SERVER_SMALL = 8  # transfers in each small request of run B
+SERVER_A_KERNELS = ("lookup", "commit_accounts_fast", "commit_accounts_serial",
+                    "commit_transfers_fast", "commit_transfers_serial", "group_commit")
+SERVER_SHARDED_KERNELS = ("mesh_lookup", "mesh_commit_accounts_fast",
+                          "mesh_commit_accounts_serial", "mesh_commit_transfers_fast")
+
+
+class NativeReference:
+    """NativeLedger(20, 24) behind StateMachine, fed the requests a server
+    was sent, in the order it committed them where the order matters."""
+
+    def __init__(self):
+        from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+        from tigerbeetle_tpu_torch.state_machine import StateMachine
+
+        self.sm = StateMachine(NativeLedger(20, 24))
+
+    def request(self, op, body: bytes) -> bytes:
+        self.sm.prepare(op, body)
+        return self.sm.commit(op, self.sm.prepare_timestamp, body)
+
+
+def id_bodies(ids) -> list:
+    """Lookup bodies of at most 8190 ids each."""
+    ids = np.asarray(ids, dtype=np.uint64)
+    return [np.stack([ids[i:i + 8190], np.zeros_like(ids[i:i + 8190])], 1).tobytes()
+            for i in range(0, len(ids), 8190)]
+
+
+def without_timestamps(types, op, reply: bytes) -> bytes:
+    """A reply as it is held against the reference: a lookup's rows with
+    their timestamps zeroed (the server stamps from RealTime); a create's
+    results as they are."""
+    if op not in (types.Operation.lookup_accounts, types.Operation.lookup_transfers):
+        return reply
+    dtype = types.ACCOUNT_DTYPE if op == types.Operation.lookup_accounts else types.TRANSFER_DTYPE
+    rows = np.frombuffer(reply, dtype=dtype).copy()
+    rows["timestamp"] = 0
+    return rows.tobytes()
+
+
+def checked(types, client, ref, op, body, what) -> bytes:
+    """One request through the server and through the reference: the same
+    result codes, or the same rows but for their timestamps."""
+    got = client._request(op, body)
+    want = ref.request(op, body)
+    if without_timestamps(types, op, got) != without_timestamps(types, op, want):
+        fail(f"{what}: the server's reply differs from NativeLedger(20, 24)'s "
+             f"({len(got)} and {len(want)} bytes)")
+    return got
+
+
+def lookup_all(types, client, ref, what, n_accounts=N_ACCOUNTS) -> list:
+    """Lookups of every account, checked; returns the server's raw replies."""
+    Op = types.Operation
+    out = [checked(types, client, ref, Op.lookup_accounts, b, what)
+           for b in id_bodies(np.arange(1, n_accounts + 1))]
+    if sum(len(r) for r in out) != n_accounts * 128:
+        fail(f"{what}: the lookups found {sum(len(r) for r in out) // 128} of {n_accounts} accounts")
+    return out
+
+
+def threaded_requests(client_cls, address, bodies, op, threads):
+    """`bodies` from `threads` clients at once, a share each in order;
+    returns (the replies by body, each request's seconds, the wall
+    seconds)."""
+    import threading
+
+    replies = [None] * len(bodies)
+    seconds = [0.0] * len(bodies)
+    clients = [client_cls(address) for _ in range(threads)]
+    errors = []
+
+    def work(k):
+        try:
+            for i in range(k, len(bodies), threads):
+                t = time.perf_counter()
+                replies[i] = clients[k]._request(op, bodies[i])
+                seconds[i] = time.perf_counter() - t
+        except Exception as e:  # noqa: BLE001  (raised again in the caller's thread)
+            errors.append(e)
+
+    workers = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+    t = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    wall = time.perf_counter() - t
+    for c in clients:
+        c.close()
+    if errors:
+        raise errors[0]
+    return replies, seconds, wall
+
+
+def device_memory_used_mib() -> int:
+    """The card's used memory, by nvidia-smi."""
+    return int(subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+def server_stats_line(stats, card, what, required=()) -> None:
+    """Print a server's SIGTERM [stats]: the launches, the group commit, the
+    planner, the loop's cost and the latency anatomy; fail when a kernel in
+    `required` was not launched."""
+    launches = stats["kernel_launches"]
+    log(f"  {what} [stats]: kernel_launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+    log(f"    group {stats['group']}; split {stats['split']}; loop.us_per_batch "
+        f"{stats['loop']['us_per_batch']} ({stats['loop']['turns']} busy turns) [{card}]")
+    hists = stats["metrics"]["histograms"]
+    anatomy = {k[len("latency."):]: (v["p50"], v["p99"]) for k, v in sorted(hists.items())
+               if k.startswith("latency.") and v.get("count")}
+    log(f"    latency anatomy (p50, p99 us): {anatomy}")
+    missing = [k for k in required if not launches.get(k)]
+    if missing:
+        fail(f"{what}: kernels of its path were not launched: {missing} ({launches})")
+
+
+def durable_legs(hists, prefix) -> dict:
+    return {k: (v["count"], v["p50"], v["max"]) for k, v in sorted(hists.items())
+            if k.startswith(prefix) and v.get("count")}
+
+
+def phase_server(card) -> None:
+    """Real server processes (`python -m tigerbeetle_tpu_torch start`) on
+    the card, driven over 127.0.0.1 with the port's NativeClient, every
+    reply held against NativeLedger(20, 24) in this process. Run A: one
+    replica at the defaults (--backend device, cuda, 2^20 / 2^24 slots):
+    the accounts, phase 3's two-phase and linked requests, 64 benchmark
+    requests from four client threads, lookups; kill -9 and a restart from
+    the WAL, lookups byte-identical. Run B: small requests on it until the
+    checkpoint at op 960 is written through the data file; kill -9 and a
+    restart from the checkpoint and the WAL, lookups byte-identical. Run C:
+    three replicas on the card; a backup killed and restarted catches up,
+    and after the primary's SIGTERM it answers the lookups as the primary
+    did. Run D: --backend dual and --backend sharded --shards 8."""
+    import shutil
+    import tempfile
+
+    from tigerbeetle_tpu_torch import cli, types
+    from tigerbeetle_tpu_torch.client_ffi import NativeClient
+    from tigerbeetle_tpu_torch.constants import ConfigCluster, ConfigProcess
+    from tigerbeetle_tpu_torch.inspect import inspect_live
+    from tigerbeetle_tpu_torch.io.storage import ZoneLayout
+    from tigerbeetle_tpu_torch.testing import process as P
+
+    t_phase = time.perf_counter()
+    Op = types.Operation
+    rng = np.random.default_rng(SEED + 14)
+    reqs = main_path_requests(types, rng)
+    setup = [(k, op, b) for k, op, b in reqs if k != "transfers"]
+    accounts_only = [(k, op, b) for k, op, b in reqs if k == "accounts"]
+    bench = [b for k, _o, b in reqs if k == "transfers"]
+    grid_mb = -(-replica_grid_size(ConfigProcess()) // (1 << 20)) + 64
+    size = ZoneLayout(ConfigCluster(), grid_size=grid_mb << 20).total_size
+    tmp = tempfile.mkdtemp(prefix="tb_server_")
+    free = shutil.disk_usage(tmp).free
+    log(f"  data file of runs A and B: --grid-mb {grid_mb} (two snapshot areas of a 20/24 "
+        f"checkpoint), {size / 2**30:.3f} GiB with the WAL; {free / 2**30:.1f} GiB free in {tmp}")
+    if free < size + (4 << 30):
+        fail(f"the disk is short: {free / 2**30:.1f} GiB free in {tmp}, runs A-D need "
+             f"{(size + (4 << 30)) / 2**30:.1f} GiB (the data file, then three small ones)")
+    procs = []
+
+    def start(path, addr, args, replica=0, what="server"):
+        t = time.perf_counter()
+        proc, _line = P.spawn(path, addr, replica=replica, args=args)
+        seconds = time.perf_counter() - t
+        procs.append(proc)
+        if proc.boot_lines:
+            fail(f"{what} printed before it listened: {''.join(proc.boot_lines)[-2000:]}")
+        return proc, seconds
+
+    def fmt(path, grid, replica=0, count=1):
+        """`format` through the CLI's entry point, in this process."""
+        if cli.main(["format", "--replica", str(replica), "--replica-count", str(count),
+                     "--grid-mb", str(grid), path]) != 0:
+            fail(f"format {path} failed")
+
+    def kill9(proc):
+        P.kill_group(proc)
+        if proc.returncode is None:
+            fail("a server outlived its kill -9")
+
+    try:
+        # -- run A: one replica, the main path -------------------------
+        path = os.path.join(tmp, "a.tb")
+        t = time.perf_counter()
+        fmt(path, grid_mb)
+        log(f"  run A: formatted in {time.perf_counter() - t:.2f} s, "
+            f"{os.path.getsize(path) / 2**30:.3f} GiB (sparse until written)")
+        port = P.free_port()
+        addr = f"127.0.0.1:{port}"
+        a_args = ("--grid-mb", str(grid_mb))
+        proc, s_listen = start(path, addr, a_args, what="run A's server")
+        log(f"  run A: spawn to \"listening\" {s_listen:.2f} s (import, kernel build from the "
+            f"cache, warm launches, 2.4 GiB of tables) [{card}]")
+        ref = NativeReference()
+        client = NativeClient(addr)
+        for kind, op, body in setup:
+            checked(types, client, ref, op, body, f"run A {kind}")
+        replies, seconds, wall = threaded_requests(
+            NativeClient, addr, bench, Op.create_transfers, SERVER_THREADS)
+        for i, body in enumerate(bench):
+            want = ref.request(Op.create_transfers, body)
+            if replies[i] != want:
+                fail(f"run A: benchmark request {i}: the server's results differ from the reference")
+        tps = len(bench) * 8190 / wall
+        p50, p99 = np.percentile(seconds, 50) * 1e3, np.percentile(seconds, 99) * 1e3
+        log(f"  run A: {len(bench)} requests of 8190 from {SERVER_THREADS} client threads in "
+            f"{wall:.3f} s: {tps:.0f} transfers/s over TCP; request latency p50 {p50:.2f} ms, "
+            f"p99 {p99:.2f} ms (client side) [{card}]")
+        before = lookup_all(types, client, ref, "run A")
+        client.close()
+        live = inspect_live("127.0.0.1", port)
+        launches = live["kernel_launches"]
+        log(f"  run A's server, over the [stats] wire command before its kill -9: op "
+            f"{live['op']}, kernel_launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}")
+        missing = [k for k in SERVER_A_KERNELS if not launches.get(k)]
+        if missing:
+            fail(f"run A: kernels of the server's path were not launched: {missing}")
+        groups = live["metrics"]["counters"].get("commit.group.fused_groups", 0)
+        kill9(proc)
+        proc, s_restart = start(path, addr, a_args, what="run A's restarted server")
+        log(f"  run A: kill -9, restart to \"listening\" {s_restart:.2f} s (WAL replay of "
+            f"{live['op']} ops) [{card}]")
+        client = NativeClient(addr)
+        if lookup_all(types, client, ref, "run A after the restart") != before:
+            fail("run A: lookups after the kill -9 and restart differ from those before")
+        log(f"  run A: lookups of all {N_ACCOUNTS} accounts byte-identical after the restart "
+            f"({groups} fused groups before the kill)")
+
+        # -- run B: a checkpoint through the data file ------------------
+        nxt = 6_000_000_001
+        n_small = 0
+        t = time.perf_counter()
+        while True:
+            for _ in range(50):
+                dr, cr = random_pairs(rng, SERVER_SMALL, N_ACCOUNTS)
+                body = transfers(types, np.arange(nxt, nxt + SERVER_SMALL), dr, cr, 1).tobytes()
+                nxt += SERVER_SMALL
+                got = client._request(Op.create_transfers, body)
+                if got != ref.request(Op.create_transfers, body):
+                    fail("run B: a small request's results differ from the reference")
+                n_small += 1
+            live = inspect_live("127.0.0.1", port)
+            if live["checkpoint_op"] > 0:
+                break
+            if n_small > 2000:
+                fail(f"run B: no checkpoint after {n_small} requests (op {live['op']})")
+        hists = live["metrics"]["histograms"]
+        log(f"  run B: {n_small} small requests in {time.perf_counter() - t:.2f} s; checkpoint at "
+            f"op {live['checkpoint_op']} (commit {live['commit_min']}); its legs (count, p50, max "
+            f"us): {durable_legs(hists, 'durable.checkpoint')} [{card}]")
+        before = lookup_all(types, client, ref, "run B")
+        client.close()
+        kill9(proc)
+        log(f"  run B: data file {os.path.getsize(path) / 2**30:.3f} GiB, "
+            f"{os.stat(path).st_blocks * 512 / 2**30:.3f} GiB written")
+        proc, s_restart = start(path, addr, a_args, what="run B's restarted server")
+        log(f"  run B: kill -9, restart to \"listening\" {s_restart:.2f} s (the checkpoint's blobs "
+            f"from the file, then the WAL after op {live['checkpoint_op']}) [{card}]")
+        client = NativeClient(addr)
+        if lookup_all(types, client, ref, "run B after the restart") != before:
+            fail("run B: lookups after the restart from the checkpoint differ from those before")
+        client.close()
+        log(f"  run B: lookups of all {N_ACCOUNTS} accounts byte-identical after the restart")
+        stats, _ = P.terminate(proc)
+        hists = stats["metrics"]["histograms"]
+        log(f"  run B: the restore's legs (count, p50, max us): "
+            f"{durable_legs(hists, 'durable.restore')} [{card}]")
+        server_stats_line(stats, card, "run B's restarted server")
+        os.remove(path)
+        del ref
+
+        # -- run C: three replicas over TCP -----------------------------
+        ports = [P.free_port() for _ in range(3)]
+        addresses = ",".join(f"127.0.0.1:{p}" for p in ports)
+        paths = [os.path.join(tmp, f"c{i}.tb") for i in range(3)]
+        for i, p in enumerate(paths):
+            fmt(p, 64, replica=i, count=3)
+        c_args = ("--grid-mb", "64")
+        cprocs, totals = [], []
+        base = device_memory_used_mib()
+
+        def sample():
+            totals.append(device_memory_used_mib())
+
+        t = time.perf_counter()
+        cprocs = P.spawn_cluster(paths, addresses, args=c_args)  # the three boot at once
+        procs.extend(cprocs)
+        log(f"  run C: three replicas spawned at once, all \"listening\" in "
+            f"{time.perf_counter() - t:.2f} s")
+        if any(p.boot_lines for p in cprocs):
+            fail(f"run C: a replica printed before it listened: {[p.boot_lines for p in cprocs]}")
+        ref = NativeReference()
+        client = NativeClient(addresses)
+        for kind, op, body in accounts_only:
+            checked(types, client, ref, op, body, f"run C {kind}")
+        sample()
+        replies, seconds, wall = threaded_requests(
+            NativeClient, addresses, bench[:SERVER_C_REQUESTS], Op.create_transfers, SERVER_THREADS)
+        for body, got in zip(bench[:SERVER_C_REQUESTS], replies):
+            if got != ref.request(Op.create_transfers, body):
+                fail("run C: a benchmark request's results differ from the reference")
+        sample()
+        log(f"  run C: {SERVER_C_REQUESTS} requests of 8190 in {wall:.3f} s: "
+            f"{SERVER_C_REQUESTS * 8190 / wall:.0f} transfers/s over TCP through three replicas "
+            f"[{card}]")
+        kill9(cprocs[1])
+        for body in bench[SERVER_C_REQUESTS:SERVER_C_REQUESTS + SERVER_C_AFTER]:
+            checked(types, client, ref, Op.create_transfers, body, "run C, backup 1 down")
+        proc, s = start(paths[1], addresses, c_args, replica=1, what="run C's restarted backup")
+        cprocs[1] = proc
+        t = time.perf_counter()
+        while True:
+            lives = [inspect_live("127.0.0.1", p) for p in ports]
+            if len({(x["commit_min"], x["op"]) for x in lives}) == 1 and lives[1]["status"] == "normal":
+                break
+            if time.perf_counter() - t > 120:
+                fail(f"run C: the restarted backup did not catch up: "
+                     f"{[(x['status'], x['op'], x['commit_min']) for x in lives]}")
+            time.sleep(0.2)
+        log(f"  run C: backup 1 killed, {SERVER_C_AFTER} requests, restarted in {s:.2f} s and "
+            f"caught up to op {lives[1]['commit_min']} in {time.perf_counter() - t:.2f} s")
+        sample()
+        first = lookup_all(types, client, ref, "run C at the primary")
+        client.close()
+        sample()
+        stats0, _ = P.terminate(cprocs[0])
+        t = time.perf_counter()
+        while True:  # the view change: the two left elect view 1, primary 1
+            lives = [inspect_live("127.0.0.1", ports[i]) for i in (1, 2)]
+            views = {(x["status"], x["view"]) for x in lives}
+            if len(views) == 1 and lives[0]["status"] == "normal" and lives[0]["view"] >= 1:
+                break
+            if time.perf_counter() - t > 60:
+                fail(f"run C: no view change after the primary's SIGTERM: {views}")
+            time.sleep(0.05)
+        view = lives[0]["view"]
+        if view % 3 != 1:
+            fail(f"run C: view {view} after the primary's SIGTERM, not one led by replica 1")
+        s_view = time.perf_counter() - t
+        client = NativeClient(f"127.0.0.1:{ports[1]},127.0.0.1:{ports[2]}")
+        second = lookup_all(types, client, ref, "run C after the primary's SIGTERM")
+        client.close()
+        if second != first:
+            fail("run C: the restarted backup, now primary, answers other lookups than the primary")
+        log(f"  run C: after the primary's SIGTERM, view {view} in {s_view:.2f} s; the restarted "
+            "backup, its primary, answers lookups byte-identical to the old primary's")
+        # the card's used memory over the baseline: in a container
+        # nvidia-smi may list no process
+        mem = (max(totals) - base) / 3
+        log(f"  run C: device memory, the most of four nvidia-smi samples: {mem:.0f} MiB a "
+            f"replica ({max(totals) - base} MiB for the three over the {base} MiB in use "
+            f"before them) [{card}]")
+        server_stats_line(stats0, card, "run C's primary", ("commit_transfers_fast",))
+        for i in (1, 2):
+            stats, _ = P.terminate(cprocs[i])
+            server_stats_line(stats, card, f"run C's replica {i}")
+        for p in paths:
+            os.remove(p)
+        del ref
+
+        # -- run D: the other backends ----------------------------------
+        for backend, extra, required in (("dual", (), ("fold",)),
+                                         ("sharded", ("--shards", "8"), SERVER_SHARDED_KERNELS)):
+            path = os.path.join(tmp, f"d_{backend}.tb")
+            fmt(path, 64)
+            port = P.free_port()
+            addr = f"127.0.0.1:{port}"
+            proc, s = start(path, addr, ("--grid-mb", "64", "--backend", backend, *extra),
+                            what=f"run D's {backend} server")
+            ref = NativeReference()
+            client = NativeClient(addr)
+            for kind, op, body in accounts_only:
+                checked(types, client, ref, op, body, f"run D {backend} {kind}")
+            t = time.perf_counter()
+            for body in bench[:SERVER_D_REQUESTS]:
+                checked(types, client, ref, Op.create_transfers, body, f"run D {backend}")
+            wall = time.perf_counter() - t
+            lookup_all(types, client, ref, f"run D {backend}")
+            client.close()
+            stats, _ = P.terminate(proc)
+            log(f"  run D --backend {backend} {' '.join(extra)}: spawn to \"listening\" {s:.2f} s; "
+                f"{SERVER_D_REQUESTS} requests of 8190 one at a time in {wall:.3f} s "
+                f"({SERVER_D_REQUESTS * 8190 / wall:.0f} transfers/s) [{card}]")
+            if backend == "dual":
+                shadow = stats.get("device_shadow") or {}
+                if shadow.get("verified") is not True:
+                    fail(f"run D: the dual follower did not verify: {shadow}")
+                log(f"  run D: the dual follower verified {shadow.get('shadow_batches')} batches")
+            server_stats_line(stats, card, f"run D's {backend} server", required)
+            os.remove(path)
+            del ref
+    finally:
+        for p in procs:
+            P.kill_group(p)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -5925,6 +6374,12 @@ def main() -> int:
           "seed 9's faults, and the device slice of the fleet on cuda against the CPU, in a "
           "process of its own")
     phase_vopr(card)
+
+    stage("phase 14: the server process, python -m tigerbeetle_tpu_torch start on cuda, over "
+          "TCP: one replica killed and restarted before and after a checkpoint, three replicas, "
+          "the dual and sharded backends, against NativeLedger(20, 24)")
+    torch.cuda.empty_cache()
+    phase_server(card)
 
     errs.update(query_errs)
     errs.update(spill_errs)

@@ -54,6 +54,11 @@ def test_import_loads_no_jax():
         "import tigerbeetle_tpu_torch.vsr.client_replies, tigerbeetle_tpu_torch.vsr.client\n"
         "import tigerbeetle_tpu_torch.vsr.durable, tigerbeetle_tpu_torch.constants\n"
         "import tigerbeetle_tpu_torch.testing.cluster_cases\n"
+        "import tigerbeetle_tpu_torch.cli, tigerbeetle_tpu_torch.io.message_bus\n"
+        "import tigerbeetle_tpu_torch.client_ffi, tigerbeetle_tpu_torch.repl\n"
+        "import tigerbeetle_tpu_torch.inspect, tigerbeetle_tpu_torch.flags\n"
+        "import tigerbeetle_tpu_torch.statsd, tigerbeetle_tpu_torch.aof\n"
+        "import tigerbeetle_tpu_torch.testing.process\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'tigerbeetle_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -1,6 +1,6 @@
 """Metric registry: counters, gauges, timing histograms (the counterpart
 of `tigerbeetle_tpu/metrics.py`, cut to what the port's dual-commit
-follower and device ledger use).
+follower, device ledger and server process use).
 
 - one `Metrics` registry per process, so the follower's `shadow.*`
   counters, its lag and overlap gauges and the device ledger's staging and
@@ -11,6 +11,9 @@ follower and device ledger use).
   histogram with p50/p95/p99/max snapshots;
 - `StatGroup` is a dict-compatible view over a prefix of registry
   counters (`shadow_stats["groups"]`, `dict(stats)`);
+- `FlightRecorder` is a ring of periodic registry snapshots (counter
+  deltas, windowed histogram percentiles), the history the server's
+  `[stats]` wire command and `inspect live --watch` read;
 - `NULL_METRICS` is the no-op backend: every handle is a shared singleton
   whose methods do nothing.
 """
@@ -233,6 +236,156 @@ class Metrics:
             "gauges": {n: g.value for n, g in gauges},
             "histograms": {n: h.snapshot() for n, h in histograms},
         }
+
+
+# -- time-series flight recorder ---------------------------------------
+
+
+def _rank_percentile(counts, count: int, q: float, vmax: float) -> float:
+    """Percentile over a (delta) bucket-count vector: upper bound of the
+    bucket holding the q-quantile, clamped to `vmax` (the registry's
+    cumulative max — a window has no exact max of its own)."""
+    if count <= 0:
+        return 0.0
+    rank = q * count
+    seen = 0
+    for i, c in enumerate(counts):
+        seen += c
+        if seen >= rank:
+            return round(min(float(1 << i), vmax), 3)
+    return round(vmax, 3)
+
+
+class FlightRecorder:
+    """Fixed-capacity ring of periodic registry snapshots — the metric
+    HISTORY a cumulative snapshot cannot give: a 2-second stall inside a
+    60-second run is invisible in end-of-run totals, but jumps out of a
+    per-interval series ("commit_dispatch_us p99 jumped 40x for 3s
+    starting at t=41s").
+
+    Each record() call (the server loop drives it ~1/s) appends one
+    compact entry:
+      - counters as DELTAS since the previous entry (zero deltas
+        dropped — an idle counter costs no history bytes),
+      - gauges raw,
+      - histograms as WINDOWED percentiles computed from the bucket-
+        count deltas (only histograms that observed in the interval),
+    so an entry is a few KB and the default 180-entry ring holds ~3
+    minutes. The ring rides the `[stats]` wire command as `history`
+    (`inspect live --watch` renders it as per-second rates) and the
+    SIGQUIT hang dump.
+
+    The caller supplies the timestamp (the server loop's monotonic
+    seconds) — the recorder itself reads no clock, so it stays inert in
+    the determinism closure."""
+
+    def __init__(self, metrics: Metrics, capacity: int = 180):
+        assert capacity > 0
+        self.metrics = metrics
+        self.capacity = capacity
+        self.entries: list[dict] = []  # ring, oldest-first after unwrap
+        self._head = 0
+        self._prev_t: float | None = None
+        self._prev_counters: dict[str, float] = {}
+        # histogram window state: name -> (count, total, counts[:])
+        self._prev_hist: dict[str, tuple] = {}
+        # Scenario phase (the prodday harness's `mark` wire command):
+        # every entry recorded while a phase is set carries it, so the
+        # SLO scorer slices the ring per phase. Only ever written from
+        # the event loop that drives record() (replica._on_mark and the
+        # server loop run on the same thread).
+        # vet: owner=event-loop
+        self.phase: str | None = None
+        self.phase_log: list[tuple[float, str]] = []  # (t, name)
+
+    def set_phase(self, name: str, now_s: float | None = None) -> float:
+        """Stamp a phase transition: subsequent entries carry `name`.
+        With no timestamp the transition is stamped at the last record's
+        time base — within one interval of the truth and clock-free, so
+        the sim twin's recorder stays inside the determinism closure."""
+        t = now_s if now_s is not None else (self._prev_t or 0.0)
+        self.phase = name
+        self.phase_log.append((round(t, 3), name))
+        self.metrics.counter("flight.marks").add()
+        return t
+
+    def record(self, now_s: float) -> dict:
+        m = self.metrics
+        with m._lock:
+            counters = list(m._counters.items())
+            gauges = list(m._gauges.items())
+            histograms = list(m._histograms.items())
+        dt = (now_s - self._prev_t) if self._prev_t is not None else None
+        self._prev_t = now_s
+        c_delta: dict[str, float] = {}
+        for name, c in sorted(counters):
+            if name == "flight.records":
+                continue  # the recorder's own heartbeat: a constant
+                # `+1` in every entry is payload noise, not signal
+            v = c.value
+            d = v - self._prev_counters.get(name, 0)
+            if d < 0:
+                # the attached registry was swapped for a fresh one (the
+                # prodday sim twin re-attaches across a replica restart):
+                # count the new registry's value as this interval's delta
+                d = v
+            if d:
+                self._prev_counters[name] = v
+                c_delta[name] = round(d, 6) if isinstance(d, float) else d
+        h_win: dict[str, dict] = {}
+        for name, h in sorted(histograms):
+            # lock-free reads (the Histogram contract): a smeared
+            # in-flight observation only staleness-skews one interval
+            count, total, vmax = h.count, h.total, h.max
+            cs = list(h.counts)
+            p_count, p_total, p_cs = self._prev_hist.get(
+                name, (0, 0.0, None)
+            )
+            if count < p_count or (
+                p_cs is not None
+                and any(a < b for a, b in zip(cs, p_cs))
+            ):
+                # registry swap (see the counter clamp above): total
+                # count or any bucket went BACKWARDS, impossible for a
+                # monotone histogram — the window restarts from zero
+                # against the fresh histogram
+                p_count, p_total, p_cs = 0, 0.0, None
+            dc = count - p_count
+            if dc > 0:
+                dcs = (
+                    [a - b for a, b in zip(cs, p_cs)]
+                    if p_cs is not None else cs
+                )
+                h_win[name] = {
+                    "count": dc,
+                    "mean": round((total - p_total) / dc, 3),
+                    "p50": _rank_percentile(dcs, dc, 0.50, vmax),
+                    "p95": _rank_percentile(dcs, dc, 0.95, vmax),
+                    "p99": _rank_percentile(dcs, dc, 0.99, vmax),
+                }
+                self._prev_hist[name] = (count, total, cs)
+        entry = {
+            "t": round(now_s, 3),
+            "dt": round(dt, 3) if dt is not None else None,
+            "counters": c_delta,
+            "gauges": {n: g.value for n, g in sorted(gauges)},
+            "histograms": h_win,
+        }
+        if self.phase is not None:
+            entry["phase"] = self.phase
+        if len(self.entries) < self.capacity:
+            self.entries.append(entry)
+        else:
+            self.entries[self._head] = entry
+            self._head = (self._head + 1) % self.capacity
+        m.counter("flight.records").add()
+        return entry
+
+    def history(self, last: int = 0) -> list[dict]:
+        """Entries oldest-first (unwrapping the ring); `last` trims to
+        the newest N (the wire snapshot bounds its payload with it)."""
+        out = self.entries[self._head:] + self.entries[: self._head]
+        return out[-last:] if last else out
 
 
 # -- the zero-allocation no-op backend ---------------------------------

@@ -114,6 +114,97 @@ def raise_on_parity_divergence(report: dict) -> None:
     raise AssertionError(f"dual-commit parity failed: {report}")
 
 
+def warm_device_kernels(process: ConfigProcess, device) -> None:
+    """Build the kernel library and launch every launcher once against a
+    SCRATCH ledger of the same geometry: account commit fast and
+    serial, transfer commit fast and fast_pv, the waves with a serial
+    residue, the group commit at both capacities, every form of the
+    fold, a lookup, the fingerprint and the install. A failed build or
+    launch raises here, in the caller's thread (the follower's constructor,
+    or the server before it listens)."""
+    scratch = DeviceLedger(process=process, mode="auto", device=device)
+    # ~10n transfer rows and n accounts land in the scratch tables; the
+    # warm batch shrinks for small geometries
+    n = min(BENCH_BATCH, scratch._xfer_limit // 12, scratch._acct_limit // 2)
+    if n < 4:
+        raise ValueError(f"geometry {process} too small to warm the kernels")
+    ts = 1 << 40
+
+    acct = np.zeros(n, dtype=types.ACCOUNT_DTYPE)
+    acct["id_lo"] = np.arange(1, n + 1, dtype=np.uint64)
+    acct["ledger"] = 1
+    acct["code"] = 1
+    ts += n
+    scratch.execute_async(Operation.create_accounts, ts, acct)
+    linked = acct[:2].copy()  # a linked pair: the serial account commit
+    linked["id_lo"] = [n + 1, n + 2]
+    linked["flags"] = [1, 0]
+    ts += 2
+    scratch.execute_async(Operation.create_accounts, ts, linked)
+
+    def simple(base):
+        x = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+        x["id_lo"] = np.arange(base, base + n, dtype=np.uint64)
+        x["debit_account_id_lo"] = 1 + np.arange(n) % (n - 1)
+        x["credit_account_id_lo"] = 1 + (np.arange(n) + 1) % (n - 1)
+        x["amount_lo"] = 1
+        x["ledger"] = 1
+        x["code"] = 1
+        return x
+
+    ts += n
+    scratch.execute_async(Operation.create_transfers, ts, simple(1_000_000))
+    pend = simple(2_000_000)
+    pend["flags"] = 2
+    ts += n
+    scratch.execute_async(Operation.create_transfers, ts, pend)
+    post = np.zeros(n, dtype=types.TRANSFER_DTYPE)
+    post["id_lo"] = np.arange(3_000_000, 3_000_000 + n, dtype=np.uint64)
+    post["pending_id_lo"] = pend["id_lo"]
+    post["flags"] = 4
+    ts += n
+    scratch.execute_async(Operation.create_transfers, ts, post)
+    # pendings and their posts in one batch: the waves, and a linked
+    # pair at the end for the serial residue
+    half = n // 2
+    wav = simple(5_000_000)
+    wav["flags"][:half] = 2
+    wav["pending_id_lo"][half:2 * half] = wav["id_lo"][:half]
+    for f in ("debit_account_id_lo", "credit_account_id_lo", "amount_lo"):
+        wav[f][half:2 * half] = 0
+    wav["flags"][half:2 * half] = 4
+    wav["flags"][2 * half - 2] |= 1
+    ts += n
+    scratch.execute_async(Operation.create_transfers, ts, wav)
+    # both group capacities and the fold over each, then the solo folds
+    chk = torch.zeros((), dtype=torch.int64, device=device)
+    ring = torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=device)
+    for k in (5, 2):  # 5 -> the 16-slot group, 2 -> the 4-slot group
+        items = []
+        for j in range(k):
+            ts += n
+            items.append((ts, simple(4_000_000 + j * n)))
+        pendings = scratch.try_execute_group_async(items)
+        if pendings is None:
+            raise RuntimeError("warm-up: the group commit declined plain transfers")
+        g = pendings[0].group
+        ns = [n] * k + [0] * (g.k - k)
+        active = [True] * k + [False] * (g.k - k)
+        fold_codes(chk, g.results, g.n_pad, ns, active)
+        fold_codes(chk, g.results, g.n_pad, ns, active, ring, _ring_indices(range(k), g.k))
+    results = torch.zeros(n + 1, dtype=torch.int32, device=device)
+    fold_codes(chk, results, n, [n], [True])
+    fold_codes(chk, results, n, [n], [True], ring, [0])
+    scratch.lookup_rows(Operation.lookup_accounts, [1, 2])
+    scratch.fingerprint()
+    scratch.check_fault()
+    scratch.reset_state()
+    scratch.install_snapshot_rows(acct[:2], post[:2], np.zeros(2, dtype=np.uint32), ts)
+    scratch.check_fault()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class DualLedger:
     """Replica backend: NativeLedger semantics plus an asynchronous device
     apply loop. Every reply-serving call delegates to the native engine;
@@ -180,7 +271,7 @@ class DualLedger:
         # tables freed before the real ones are allocated: a failed build
         # or launch raises here, not in the apply thread
         if warm_kernels:
-            self._warm_device_kernels(process, device)
+            warm_device_kernels(process, device)
         self.device = DeviceLedger(process=process, mode="auto", device=device)
         self.process = None  # replica duck-typing (native backend shape)
         self.spill = None
@@ -249,95 +340,6 @@ class DualLedger:
             daemon=True,
         )
         self._thread.start()
-
-    def _warm_device_kernels(self, process: ConfigProcess, device) -> None:
-        """Build the kernel library and launch every launcher once against a
-        SCRATCH ledger of the same geometry: account commit fast and
-        serial, transfer commit fast and fast_pv, the waves with a serial
-        residue, the group commit at both capacities, every form of the
-        fold, a lookup, the fingerprint and the install. A failed build or
-        launch raises here, in the constructor's thread."""
-        scratch = DeviceLedger(process=process, mode="auto", device=device)
-        # ~10n transfer rows and n accounts land in the scratch tables; the
-        # warm batch shrinks for small geometries
-        n = min(BENCH_BATCH, scratch._xfer_limit // 12, scratch._acct_limit // 2)
-        if n < 4:
-            raise ValueError(f"geometry {process} too small to warm the kernels")
-        ts = 1 << 40
-
-        acct = np.zeros(n, dtype=types.ACCOUNT_DTYPE)
-        acct["id_lo"] = np.arange(1, n + 1, dtype=np.uint64)
-        acct["ledger"] = 1
-        acct["code"] = 1
-        ts += n
-        scratch.execute_async(Operation.create_accounts, ts, acct)
-        linked = acct[:2].copy()  # a linked pair: the serial account commit
-        linked["id_lo"] = [n + 1, n + 2]
-        linked["flags"] = [1, 0]
-        ts += 2
-        scratch.execute_async(Operation.create_accounts, ts, linked)
-
-        def simple(base):
-            x = np.zeros(n, dtype=types.TRANSFER_DTYPE)
-            x["id_lo"] = np.arange(base, base + n, dtype=np.uint64)
-            x["debit_account_id_lo"] = 1 + np.arange(n) % (n - 1)
-            x["credit_account_id_lo"] = 1 + (np.arange(n) + 1) % (n - 1)
-            x["amount_lo"] = 1
-            x["ledger"] = 1
-            x["code"] = 1
-            return x
-
-        ts += n
-        scratch.execute_async(Operation.create_transfers, ts, simple(1_000_000))
-        pend = simple(2_000_000)
-        pend["flags"] = 2
-        ts += n
-        scratch.execute_async(Operation.create_transfers, ts, pend)
-        post = np.zeros(n, dtype=types.TRANSFER_DTYPE)
-        post["id_lo"] = np.arange(3_000_000, 3_000_000 + n, dtype=np.uint64)
-        post["pending_id_lo"] = pend["id_lo"]
-        post["flags"] = 4
-        ts += n
-        scratch.execute_async(Operation.create_transfers, ts, post)
-        # pendings and their posts in one batch: the waves, and a linked
-        # pair at the end for the serial residue
-        half = n // 2
-        wav = simple(5_000_000)
-        wav["flags"][:half] = 2
-        wav["pending_id_lo"][half:2 * half] = wav["id_lo"][:half]
-        for f in ("debit_account_id_lo", "credit_account_id_lo", "amount_lo"):
-            wav[f][half:2 * half] = 0
-        wav["flags"][half:2 * half] = 4
-        wav["flags"][2 * half - 2] |= 1
-        ts += n
-        scratch.execute_async(Operation.create_transfers, ts, wav)
-        # both group capacities and the fold over each, then the solo folds
-        chk = torch.zeros((), dtype=torch.int64, device=device)
-        ring = torch.zeros(APPLY_RING + 1, dtype=torch.int64, device=device)
-        for k in (5, 2):  # 5 -> the 16-slot group, 2 -> the 4-slot group
-            items = []
-            for j in range(k):
-                ts += n
-                items.append((ts, simple(4_000_000 + j * n)))
-            pendings = scratch.try_execute_group_async(items)
-            if pendings is None:
-                raise RuntimeError("warm-up: the group commit declined plain transfers")
-            g = pendings[0].group
-            ns = [n] * k + [0] * (g.k - k)
-            active = [True] * k + [False] * (g.k - k)
-            fold_codes(chk, g.results, g.n_pad, ns, active)
-            fold_codes(chk, g.results, g.n_pad, ns, active, ring, _ring_indices(range(k), g.k))
-        results = torch.zeros(n + 1, dtype=torch.int32, device=device)
-        fold_codes(chk, results, n, [n], [True])
-        fold_codes(chk, results, n, [n], [True], ring, [0])
-        scratch.lookup_rows(Operation.lookup_accounts, [1, 2])
-        scratch.fingerprint()
-        scratch.check_fault()
-        scratch.reset_state()
-        scratch.install_snapshot_rows(acct[:2], post[:2], np.zeros(2, dtype=np.uint32), ts)
-        scratch.check_fault()
-        if self._cuda:
-            torch.cuda.synchronize(device)
 
     def _record_done(self):
         """A CUDA event after the work enqueued so far on this thread's

@@ -1325,6 +1325,12 @@ class HazardTracker:
             "split": 0, "split_pv": 0,
         }
 
+    @property
+    def split_stats(self) -> dict:
+        """The JAX tracker's compat view, read by the server's `[stats]`
+        line: the same dict as plan_stats."""
+        return self.plan_stats
+
     @staticmethod
     def has_dup_ids(arr: np.ndarray) -> bool:
         # Fast path: sort a 64-bit hash-fold of the u128 ids; if no two

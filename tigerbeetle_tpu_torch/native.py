@@ -1,6 +1,7 @@
 """ctypes binding of the repo's native C++ runtime: the ledger engine
-(`native/ledger.cc`), the AEGIS-128L checksum (`native/aegis.cc`) and the
-durable sector IO (`native/storage.cc`).
+(`native/ledger.cc`), the AEGIS-128L checksum (`native/aegis.cc`), the
+durable sector IO (`native/storage.cc`) and the C client
+(`native/tb_client.cc`, bound by `client_ffi.py`).
 
 The counterpart of `tigerbeetle_tpu/native.py`. The dual-commit follower
 answers every request with the engine; the grid under the spill store's LSM
@@ -27,10 +28,13 @@ import threading
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
-SOURCES = [REPO_ROOT / "native" / name for name in ("aegis.cc", "storage.cc", "ledger.cc")]
+NATIVE_DIR = REPO_ROOT / "native"
+SOURCES = [NATIVE_DIR / name
+           for name in ("aegis.cc", "storage.cc", "tb_client.cc", "ledger.cc")]
+HEADERS = [NATIVE_DIR / "tb_client.h"]
 BUILD_ROOT = REPO_ROOT / "build" / "tb_native"
 LIB_NAME = "libtb_native.so"
-CXXFLAGS = ["-O3", "-Wall", "-fPIC", "-maes", "-std=c++17", "-shared"]
+CXXFLAGS = ["-O3", "-Wall", "-fPIC", "-maes", "-std=c++17", "-shared", "-pthread"]
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -64,7 +68,7 @@ _lib: ctypes.CDLL | None = None
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16] / LIB_NAME
@@ -80,7 +84,7 @@ def build() -> Path:
     os.close(fd)
     try:
         out = subprocess.run(
-            ["g++", *CXXFLAGS, "-o", tmp, *map(str, SOURCES)],
+            ["g++", *CXXFLAGS, f"-I{NATIVE_DIR}", "-o", tmp, *map(str, SOURCES)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if out.returncode != 0:

@@ -51,6 +51,7 @@ from tigerbeetle_tpu_torch.constants import ConfigCluster, ConfigProcess
 from tigerbeetle_tpu_torch.io.network import Network
 from tigerbeetle_tpu_torch.io.storage import Storage
 from tigerbeetle_tpu_torch.io.time import Time
+from tigerbeetle_tpu_torch.kernels import LAUNCHES
 from tigerbeetle_tpu_torch.latency import (
     LEG_DISPATCH,
     LEG_FINALIZE,
@@ -1158,6 +1159,9 @@ class Replica:
             # per-request breakdowns of the slowest sampled requests
             # (latency.py top-K ring) — `inspect live` renders them
             "latency_slowest": self.latency.slowest(limit=16),
+            # this process's kernel launches by counter (the counts the
+            # server's SIGTERM [stats] line carries as kernel_launches)
+            "kernel_launches": dict(LAUNCHES),
         }
         if self.commitment_log is not None:
             snap["commitments"] = self.commitment_log.stats_snapshot()
