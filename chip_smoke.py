@@ -6,10 +6,12 @@
 Phases (each failure exits non-zero):
 1. environment: torch, CUDA, the card's name and power limit, the host's
    machine type; build the kernels from `tigerbeetle_tpu_torch/csrc/` and
-   the native engine from `native/ledger.cc`; in the group commit's (K5)
-   and the reload's (K10r) SASS, every cluster barrier's wait must be
-   followed by an L1 invalidation before any load (their later slots and
-   chunks read what earlier ones wrote); the card's dependent-load
+   the native engine from `native/ledger.cc`; in the group commit's (K5),
+   the reload's (K10r) and the wave commit's (K12) SASS, every cluster
+   barrier's wait must be followed by an L1 invalidation before any load
+   (their later slots, chunks and waves read what earlier ones wrote; the
+   library is disassembled once, beside phase 2, and checked after it); K3's,
+   K5's and K12's registers and spills; the card's dependent-load
    latency from device memory and from shared memory (pointer chases), the
    units of the serial kernels' bounds, and the rate at which it reads
    chosen 32-byte sectors of 2^24 rows of 128 bytes (the sector probe), the
@@ -35,7 +37,13 @@ Phases (each failure exits non-zero):
    padding slots, a slot in which every lane fails, the capacity gate
    tripped by slot 2, a fault word set before the group) at 4 and 16
    slots of 64 and of 8192 lanes, each giving the codes and fault word it
-   is built for; the reply-code fold (K7) on padding
+   is built for; the one-launch wave commit (K12) on the cases of
+   tigerbeetle_tpu_torch/testing/wave_cases.py (pendings posted and voided
+   in the next wave, a limit account's chain as deep as the waves and one
+   touch in no wave, the capacity gate tripped by wave 1, a fault word set
+   before the call, a wave with no live lane, a pending posted in one wave
+   and voided in the next) at 2, 3, 8 and 24 waves of 64 and of 8192 lanes,
+   likewise; the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot, and on every case of tigerbeetle_tpu_torch/testing/fold_cases.py
    (k of 1, 2, 5 and 16, n_pad of 1 to 8192, empty and inactive slots
@@ -79,7 +87,9 @@ Phases (each failure exits non-zero):
    state, on batches of the shapes the main path gives it (codes and every
    state leaf equal); the kernel table's max_abs_err comes from here;
    the fold (K7) on the results of a real group (16 x 8192) and of a real
-   request (8190); K9 also on three chunks of 8192 in one call;
+   request (8190); K9 also on three chunks of 8192 in one call; the wave
+   commit (K12) at 2, 6 and 24 waves over 8190 transfers (pendings, a post
+   or void of each in the wave after its pending's, plain transfers);
 5. a torch.profiler trace of more main-path requests (the card's busy and
    idle share; one K3 kernel and no memset a request), of one K2 fast call
    of 8190 new accounts on a copy of the account table (one kernel, no
@@ -204,8 +214,8 @@ Phases (each failure exits non-zero):
    n) at 2^14 slots a quarter full and at
    the path's 2^20 (8 shards for K11as), each with the fault it is built
    for and the events it re-probed; both at 1810 events (one linked pair)
-   and 8190 (a linked pair every 50) on the 2^20 tables against the plain
-   version on a host copy of the state; under torch.profiler two calls of
+   on the 2^20 tables against the plain version on a host copy of the
+   state; under torch.profiler two calls of
    each at 1810 and at 8190 events must each be one or two kernels and no
    memset; the re-probes of four more calls; both timed at 1810 events (one
    linked pair) and 8190 (a linked pair every 50) through the wrapper and
@@ -243,7 +253,7 @@ Phases (each failure exits non-zero):
    convergence, and each replica's extract() equal to the scalar oracle's
    replay of the committed history; it must crash a replica, commit more
    than 60 ops so that every replica checkpoints, and launch K2 fast and
-   K3. Run B: the device slice of the fleet, random_options(s,
+   K12 (its transfer batches plan two waves or more). Run B: the device slice of the fleet, random_options(s,
    device_fraction=1.0) for s = 1-4 (tiny spill-heavy tables, a forest,
    grid faults), and the seed-7 spill settings of the JAX simulator's
    tests, each on cuda and again on the CPU: run() dicts and a digest of
@@ -275,13 +285,34 @@ Phases (each failure exits non-zero):
    follower must verify; K7 must launch) and --backend sharded --shards 8
    (K11's lookup, fast and serial account and fast transfer commits must
    launch), each with the accounts, 4 benchmark requests and the lookups.
+   Run C's replicas run with their change stream (--cdc-jsonl), an AOF and
+   the ingress gateway (--ingress), and take three requests of phase 15's
+   kinds (b) and (c) before the backup's kill -9 and one after; the
+   restarted backup's JSONL, its redeliveries after the kill dropped (each
+   equal to the first delivery), must equal what `python -m
+   tigerbeetle_tpu_torch cdc` replays from its AOF, and the primary's
+   gateway must have admitted requests.
    Each server's SIGTERM [stats] line is parsed: its kernel_launches,
    group and split counters, loop.us_per_batch and latency anatomy are
    printed. It prints the seconds to "listening" of every spawn, run A's
    transfers/s over TCP and the client-side request latency, run B's
    checkpoint and restore legs through the file, run C's rate and device
-   memory, and the phase's seconds.
-The last two lines are the kernel table and {"ok": true, "device": ...}.
+   memory, and the phase's seconds;
+15. (run after phase 6) the wave path at deployment size: StateMachine over
+   DeviceLedger(ConfigProcess()) on cuda with 10,000 accounts, 1,500 of them
+   limited (debits must not exceed credits) and funded, takes requests of
+   8190 events, uniform random accounts and reversed ids: (a) 16 of plain
+   transfers, (b) 4095 pendings and a post or void of each, (c) 16 of 20%
+   pendings, half of them resolved in their request and the rest in the
+   next, (d) 341 limited accounts debited 24 times each, (e) 273 debited 30
+   times each (a serial residue); every reply and all 10,000 accounts equal
+   NativeLedger(20, 24)'s, the fingerprint its plain version; each
+   request's plan is printed, some request must run K12 at W >= 6 and (e)
+   K4 after it; each kind's transfers/s; then K12 against its plain version
+   and timed against the parent's route (a masked K3 launch, a compare and
+   a max a wave) on fresh requests of two, about six and 24 waves.
+Each phase's seconds are printed on a line of their own. The last two
+lines are the kernel table and {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -899,6 +930,49 @@ def k5_cases(torch, L, constants, dev):
                 if int(flat[-1]) != c["fault_after"] or int(summary[-1]) != c["fault_after"]:
                     fail(f"K5 ({case}, {k} x {n_pad}): fault word {int(flat[-1])}, the case is "
                          f"built for {c['fault_after']}")
+
+
+WAVE_CASE_WAVES = (2, 3, 8, 24)
+
+
+def k12_cases(torch, L, constants, dev):
+    """K12's one launch against its plain version on every case of
+    tigerbeetle_tpu_torch/testing/wave_cases.py (pendings posted and voided
+    in the next wave, a limit account's chain as deep as the waves and one
+    touch in no wave, the capacity gate tripped by wave 1, a fault word set
+    before the call, a wave with no live lane, a pending posted in one wave
+    and voided in the next) at W = 2, 3, 8 and 24 waves of 64 and of 8192
+    lanes (where the case's lanes sit in one block of the cluster and other
+    blocks apply their rows), at 2^14 / 2^16 slots; codes and every state
+    tensor bit-identical, and each case must give the codes and fault word
+    it is built for."""
+    import zlib
+
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.testing import wave_cases as WC
+
+    process = constants.ConfigProcess(account_slots_log2=14, transfer_slots_log2=16)
+    a_log2, t_log2 = process.account_slots_log2, process.transfer_slots_log2
+    for n_pad in (64, 8192):
+        for W in WAVE_CASE_WAVES:
+            for case in WC.CASES:
+                rng = np.random.default_rng(SEED + zlib.crc32(f"{case}.{W}.{n_pad}".encode()))
+                c = WC.wave_case(case, W, n_pad, t_log2, rng)
+                start = WC.base_state(c, process, dev)
+                rows = torch.from_numpy(c["rows"]).to(dev)
+                wave_of = torch.from_numpy(WC.wave_bytes(c["wave_of"])).to(dev)
+                n, ts, pv = c["n"], c["timestamp"], c["pv"]
+                (codes,), sp = hold(
+                    torch, f"K12 wave_commit ({case}, {W} waves x {n_pad})", start,
+                    lambda s: K.wave_commit(s, rows, wave_of, W, n, ts, a_log2, t_log2, pv),
+                    lambda s: L.commit_transfers_waves_plain(s, rows, wave_of, W, n, ts, a_log2,
+                                                             t_log2, pv))
+                bad = WC.wave_codes_ok(c, codes.cpu().numpy())
+                if bad:
+                    fail(f"K12 ({case}, {W} waves x {n_pad}): (lane, built for, gave) {bad[:4]}")
+                if int(sp["fault"]) != c["fault_after"]:
+                    fail(f"K12 ({case}, {W} waves x {n_pad}): fault word {int(sp['fault'])}, the "
+                         f"case is built for {c['fault_after']}")
 
 
 def fold_compare(torch, L, K, name, flat, n_pad, ns, active, idxs, rng, start=None) -> int:
@@ -1590,6 +1664,31 @@ def phase_main_shapes(torch, L, types, ledger, dev):
     check(f"K4 commit_transfers serial (linked request's residue, {n} events)",
           lambda s: K.commit_transfers_serial(s, res_rows, tsv, n, a_log2, t_log2),
           lambda s: L.commit_transfers_serial_plain(s, res_rows, tsv, n, a_log2, t_log2))
+    # K12 at 2, 6 and 24 waves: pendings in waves 0 .. W - 2, a post or void
+    # of each in the wave after its pending's, plain transfers in any wave
+    for W in (2, 6, 24):
+        third = B // 3
+        dr, cr = random_pairs(rng, 2 * third, N_ACCOUNTS)
+        first = 7_350_000_001 + 10 * B * W
+        pend = transfers(types, np.arange(first, first + third), dr[:third], cr[:third],
+                         rng.integers(1, 1_000_000, third).astype(np.uint64), flags=2)
+        res = transfers(types, np.arange(first + B, first + B + third), 0, 0, 0, ledger=0,
+                        code=0, flags=np.where(np.arange(third) % 2, 4, 8),
+                        pending_id=pend["id_lo"])
+        rest = transfers(types, np.arange(first + 2 * B, first + 2 * B + B - 2 * third),
+                         dr[third:][:B - 2 * third], cr[third:][:B - 2 * third],
+                         rng.integers(1, 1_000_000, B - 2 * third).astype(np.uint64))
+        p_wave = rng.integers(0, W - 1, third)
+        wave_np = np.concatenate([p_wave, p_wave + 1, rng.integers(0, W, B - 2 * third)])
+        order = rng.permutation(B)
+        arr = np.concatenate([pend, res, rest])[order]
+        wave_of = torch.from_numpy(wave_np[order].astype(np.uint8)).to(dev)
+        rows = L.transfers_to_batch(arr, dev)["rows"]
+        ts += B
+        check(f"K12 wave_commit ({W} waves, {B} transfers: pendings, their posts and voids)",
+              lambda s: K.wave_commit(s, rows, wave_of, W, B, ts, a_log2, t_log2, True),
+              lambda s: L.commit_transfers_waves_plain(s, rows, wave_of, W, B, ts, a_log2,
+                                                       t_log2, True))
     # the commit seam: a group of 16 requests of 8190, the fingerprint of
     # both tables, one install chunk of 8192 stored rows
     batches = []
@@ -2563,17 +2662,28 @@ RESTORE_CHUNKS = 133  # phase 3's restore: about 1.09 M transfer rows in chunks 
 INSTALL_CHUNK = 8192
 
 
-def barriers_invalidate_l1(lib, kernel="group_commit_kernel") -> int:
-    """K5's later slots read through L1 what earlier slots wrote from other
-    SMs (and K10r's later chunks read what earlier ones wrote); that holds
-    because every cluster barrier's wait is followed by an L1 invalidation
-    before the next global load. Check it in the SASS of `kernel` in the
-    built library (cuobjdump); returns the barriers seen."""
+def start_sass(lib):
+    """The SASS of the built library (cuobjdump -sass, about 24 s on the
+    card's host), disassembled in a thread beside the phases that follow;
+    `.result()` gives its text."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from tigerbeetle_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    pool = ThreadPoolExecutor(1)
+    job = pool.submit(lambda: subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                                             text=True, check=True).stdout)
+    pool.shutdown(wait=False)
+    return job
+
+
+def barriers_invalidate_l1(sass: str, lib, kernel="group_commit_kernel") -> int:
+    """K5's later slots read through L1 what earlier slots wrote from other
+    SMs (and K10r's later chunks read what earlier ones wrote); that holds
+    because every cluster barrier's wait is followed by an L1 invalidation
+    before the next global load. Check it in `sass`, the SASS of the built
+    library `lib`, for `kernel`; returns the barriers seen."""
     body, inside = [], False
     for line in sass.splitlines():
         if "Function :" in line:
@@ -4714,10 +4824,10 @@ def mesh_fast_trace_child(n_requests=4):
 
 
 # K11ts's check against its plain version and its row in the kernel line:
-# serial_request at 2048 events (600 chained, then 1448 posts and voids), cut
+# serial_request at 1024 events (600 chained, then 424 posts and voids), cut
 # from the path's 8190 because the plain version takes 12-29 ms an event
 # (PERF.md section 4); the kernel's 8190-event time is printed beside it.
-MESH_SERIAL_EVENTS = 2048
+MESH_SERIAL_EVENTS = 1024
 
 
 def serial_request(types, rng, ids, pend):
@@ -5011,6 +5121,10 @@ def mesh_round_trip(torch, M, types, constants, dev):
 WALK_KINDS = (("K2s", "commit_accounts_serial", 1), ("K11as", "mesh_commit_accounts_serial",
                                                      MESH_SHARDS))
 WALK_SHAPES = (1810, 8190)  # the main path's second account request; a whole batch
+# the shapes held against the plain version on a host copy of the state: the
+# 8190-event check was cut for time (PERF.md section 4); 8190 is still traced
+# and timed
+WALK_PLAIN_SHAPES = (1810,)
 
 
 def walk_ledger(torch, L, M, types, constants, n_shards, log2, n_filler, dev):
@@ -5155,7 +5269,7 @@ def account_walk_child(reps=10, sizes=(14, 20)):
     for key, (st, batch, kern, log2) in walks.items():
         plain, label, where = plains[key]
         counter = [c for k, c, _s in WALK_KINDS if k == key][0]
-        for n in WALK_SHAPES:
+        for n in WALK_PLAIN_SHAPES:
             rows = batch(walk_request(types, first[0], n))
             first[0] += n
             sp = {k: v.to("cpu", copy=True) for k, v in st.items()}
@@ -5551,10 +5665,12 @@ VOPR_TICKS = 900
 # an invalid id of 0) in every 256-event account batch, which sends each to
 # the serial tier; without them the account batches take K2 fast, and the
 # transfers' two-phase, balancing and limit-account events still plan into
-# waves (K3) with serial residues (K4)
+# waves with serial residues (K4): since K12, every transfer batch of run A
+# plans two waves or more, so its waves are K12's (323 launches on the card),
+# not K3's
 VOPR_KNOBS = dict(chain_rate=0.0, conflict_rate=0.0, invalid_rate=0.0)
 VOPR_FLEET = (1, 2, 3, 4)  # random_options(s, device_fraction=1.0)
-VOPR_A_KERNELS = ("commit_accounts_fast", "commit_transfers_fast")
+VOPR_A_KERNELS = ("commit_accounts_fast", "wave_commit")
 
 
 def _history_digest(sim) -> str:
@@ -5915,6 +6031,54 @@ def durable_legs(hists, prefix) -> dict:
             if k.startswith(prefix) and v.get("count")}
 
 
+def cdc_stream_check(P, jsonl: str, aof: str, card) -> None:
+    """A server's change stream across its kill -9 and restart: the JSONL it
+    wrote, read op by op (a line torn by the kill is skipped), covers every
+    op once its redeliveries are dropped, each redelivered op's records equal
+    to its first delivery (or, where the kill cut it, that delivery a prefix
+    of them), and equals what `python -m tigerbeetle_tpu_torch
+    cdc` replays from the same server's AOF, line for line."""
+    with open(jsonl) as f:
+        raw = f.read().splitlines()
+    recs, torn = [], 0
+    for line in raw:
+        try:
+            recs.append((json.loads(line)["op"], line))
+        except (ValueError, KeyError):
+            torn += 1
+    groups = []  # (op, its lines) in the order written
+    for op, line in recs:
+        if not groups or groups[-1][0] != op:
+            groups.append((op, []))
+        groups[-1][1].append(line)
+    first, redelivered = {}, 0
+    for op, lines in groups:
+        if op not in first:
+            first[op] = lines
+            continue
+        redelivered += 1
+        # a delivery cut by the kill is a prefix of the one after the restart
+        if lines[:len(first[op])] != first[op]:
+            fail(f"phase 14: op {op} was delivered again with other records")
+        first[op] = lines
+    stream = [line for op in sorted(first) for line in first[op]]
+    out = jsonl + ".replay"
+    r = subprocess.run([sys.executable, "-m", "tigerbeetle_tpu_torch", "cdc", "--sink",
+                        f"jsonl:{out}", "--cursor", out + ".cursor", aof],
+                       cwd=P.REPO_ROOT, env=P._env(None), capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"phase 14: the cdc command failed: {r.stderr[-2000:]}")
+    with open(out) as f:
+        replay = f.read().splitlines()
+    if stream != replay:
+        fail(f"phase 14: the live change stream ({len(stream)} records) differs from the "
+             f"cdc command's replay of the AOF ({len(replay)})")
+    log(f"  run C's restarted backup: its change stream, {len(stream)} records over {len(first)} "
+        f"ops ({redelivered} ops delivered again after the kill -9 with the same records, "
+        f"{torn} torn lines), equals the cdc command's replay of its AOF [{card}]")
+
+
 def phase_server(card) -> None:
     """Real server processes (`python -m tigerbeetle_tpu_torch start`) on
     the card, driven over 127.0.0.1 with the port's NativeClient, every
@@ -6074,6 +6238,11 @@ def phase_server(card) -> None:
         for i, p in enumerate(paths):
             fmt(p, 64, replica=i, count=3)
         c_args = ("--grid-mb", "64")
+        # each replica with its change stream, its AOF and the ingress gateway
+        jsonl = [os.path.join(tmp, f"c{i}.jsonl") for i in range(3)]
+        aofs = [os.path.join(tmp, f"c{i}.aof") for i in range(3)]
+        cdc_args = [("--ingress", "--cdc-jsonl", jsonl[i], "--aof", aofs[i]) for i in range(3)]
+        waves = WaveTraffic(types, rng, np.zeros(0, dtype=np.uint64), 9_500_000_001)
         cprocs, totals = [], []
         base = device_memory_used_mib()
 
@@ -6081,7 +6250,8 @@ def phase_server(card) -> None:
             totals.append(device_memory_used_mib())
 
         t = time.perf_counter()
-        cprocs = P.spawn_cluster(paths, addresses, args=c_args)  # the three boot at once
+        cprocs = P.spawn_cluster(paths, addresses, args=c_args,  # the three boot at once
+                                 replica_args=cdc_args)
         procs.extend(cprocs)
         log(f"  run C: three replicas spawned at once, all \"listening\" in "
             f"{time.perf_counter() - t:.2f} s")
@@ -6101,10 +6271,18 @@ def phase_server(card) -> None:
         log(f"  run C: {SERVER_C_REQUESTS} requests of 8190 in {wall:.3f} s: "
             f"{SERVER_C_REQUESTS * 8190 / wall:.0f} transfers/s over TCP through three replicas "
             f"[{card}]")
+        # phase 15's kinds (b) and (c): pendings resolved in their request
+        t = time.perf_counter()
+        for arr in (waves.same_request_posts(), waves.pendings_20(), waves.pendings_20()):
+            checked(types, client, ref, Op.create_transfers, arr.tobytes(), "run C, waves")
+        log(f"  run C: 3 requests of 8190 that plan as waves (4095 pendings and their posts "
+            f"and voids; 20% pendings, half resolved in the request, twice) in "
+            f"{time.perf_counter() - t:.3f} s")
         kill9(cprocs[1])
         for body in bench[SERVER_C_REQUESTS:SERVER_C_REQUESTS + SERVER_C_AFTER]:
             checked(types, client, ref, Op.create_transfers, body, "run C, backup 1 down")
-        proc, s = start(paths[1], addresses, c_args, replica=1, what="run C's restarted backup")
+        proc, s = start(paths[1], addresses, c_args + cdc_args[1], replica=1,
+                        what="run C's restarted backup")
         cprocs[1] = proc
         t = time.perf_counter()
         while True:
@@ -6117,10 +6295,16 @@ def phase_server(card) -> None:
             time.sleep(0.2)
         log(f"  run C: backup 1 killed, {SERVER_C_AFTER} requests, restarted in {s:.2f} s and "
             f"caught up to op {lives[1]['commit_min']} in {time.perf_counter() - t:.2f} s")
+        checked(types, client, ref, Op.create_transfers, waves.pendings_20().tobytes(),
+                "run C, waves after the restart")
         sample()
         first = lookup_all(types, client, ref, "run C at the primary")
         client.close()
         sample()
+        lives = [inspect_live("127.0.0.1", p) for p in ports]
+        if any(x["view"] != 0 for x in lives):  # replica 0 must still lead
+            fail(f"run C: a view change before the primary's SIGTERM: "
+                 f"{[(x['status'], x['view']) for x in lives]}")
         stats0, _ = P.terminate(cprocs[0])
         t = time.perf_counter()
         while True:  # the view change: the two left elect view 1, primary 1
@@ -6149,9 +6333,16 @@ def phase_server(card) -> None:
             f"replica ({max(totals) - base} MiB for the three over the {base} MiB in use "
             f"before them) [{card}]")
         server_stats_line(stats0, card, "run C's primary", ("commit_transfers_fast",))
+        if not stats0["metrics"]["counters"].get("ingress.admitted"):
+            fail("run C: the primary's ingress gateway admitted no request")
+        pumps = [stats0["metrics"]["histograms"].get("cdc.pump_us", {})]
         for i in (1, 2):
             stats, _ = P.terminate(cprocs[i])
             server_stats_line(stats, card, f"run C's replica {i}")
+            pumps.append(stats["metrics"]["histograms"].get("cdc.pump_us", {}))
+        log(f"  run C: the change stream's turns on each replica's loop (count, p50, max us): "
+            f"{[(h.get('count'), h.get('p50'), h.get('max')) for h in pumps]} [{card}]")
+        cdc_stream_check(P, jsonl[1], aofs[1], card)
         for p in paths:
             os.remove(p)
         del ref
@@ -6194,6 +6385,276 @@ def phase_server(card) -> None:
     log(f"  phase 14 took {time.perf_counter() - t_phase:.1f} s [{card}]")
 
 
+# ----------------------------------------------------------------------
+# phase 15: the wave path at deployment size (K12)
+# ----------------------------------------------------------------------
+
+WAVE_LIMIT_SHARE = 0.15  # limited accounts, the workload generator's limit_account_rate
+WAVE_RUNS = 16  # requests of kinds (a) and (c)
+WAVE_KERNELS = ("wave_commit",)
+# the kinds timed against the parent's route, with the wave count each must
+# plan: "b2" is (b) over the accounts that are not limited (two waves), (a)
+# plans as its accounts fall (about six), (d) at WAVE_CAP
+WAVE_TIMED = (("b2", 2), ("a", None), ("d", 24))
+WAVE_REPS = 10
+
+
+def wave_accounts(types, rng):
+    """The 10,000 accounts, 15% of them limited (debits must not exceed
+    credits), and one request crediting each limited account from one that
+    is not: (accounts, limited ids, the funding transfers)."""
+    acc = accounts(types, np.arange(1, N_ACCOUNTS + 1))
+    limited = np.sort(rng.permutation(N_ACCOUNTS)[:int(N_ACCOUNTS * WAVE_LIMIT_SHARE)] + 1)
+    acc["flags"][limited - 1] = int(types.AccountFlags.debits_must_not_exceed_credits)
+    free = np.setdiff1d(np.arange(1, N_ACCOUNTS + 1), limited)
+    fund = transfers(types, np.arange(8_000_000_001, 8_000_000_001 + len(limited)),
+                     free[rng.integers(0, len(free), len(limited))].astype(np.uint64),
+                     limited.astype(np.uint64), 10**12)
+    return acc, limited, fund
+
+
+class WaveTraffic:
+    """The wave path's requests of 8190 events, uniform random accounts and
+    reversed ids from the seed (kinds (a)-(e) of phase 15): `uniform()`,
+    `same_request_posts(pool)` (4095 pendings, then a post or void of each;
+    with `pool`, between those accounts only),
+    `pendings_20()` (20% pendings, half of them posted or voided in the same
+    request, the rest in the next), `limit_chains(k, depth)` (k limited
+    accounts debited `depth` times each, in random order, each debit to an
+    account that is not limited)."""
+
+    def __init__(self, types, rng, limited, first_id):
+        self.types, self.rng, self.limited = types, rng, limited
+        self.free = np.setdiff1d(np.arange(1, N_ACCOUNTS + 1), limited).astype(np.uint64)
+        self.next_id = first_id
+        self.carry = np.zeros(0, dtype=np.uint64)
+
+    def ids(self, n):
+        first = self.next_id
+        self.next_id += n
+        return np.arange(first + n - 1, first - 1, -1, dtype=np.uint64)
+
+    def plain(self, n, flags=0, pool=None):
+        dr, cr = random_pairs(self.rng, n, N_ACCOUNTS if pool is None else len(pool))
+        if pool is not None:  # the pairs over these accounts only
+            dr, cr = pool[dr.astype(np.int64) - 1], pool[cr.astype(np.int64) - 1]
+        return transfers(self.types, self.ids(n), dr, cr,
+                         self.rng.integers(1, 1_000_000, n).astype(np.uint64), flags=flags)
+
+    def resolve(self, pending_ids):
+        n = len(pending_ids)
+        return transfers(self.types, self.ids(n), 0, 0, 0, ledger=0, code=0,
+                         flags=np.where(np.arange(n) % 2, 4, 8), pending_id=pending_ids)
+
+    def uniform(self):
+        return self.plain(8190)
+
+    def same_request_posts(self, pool=None):
+        pend = self.plain(4095, flags=2, pool=pool)
+        return np.concatenate([pend, self.resolve(pend["id_lo"])])
+
+    def pendings_20(self):
+        n_pend = 1638  # 20% of 8190
+        now = n_pend // 2
+        head = self.plain(8190 - now - len(self.carry))
+        head["flags"][:n_pend] = 2
+        head = head[self.rng.permutation(len(head))]
+        pend = head["id_lo"][head["flags"] == 2]
+        res = self.resolve(np.concatenate([pend[:now], self.carry]))
+        self.carry = pend[now:]
+        return np.concatenate([head, res[self.rng.permutation(len(res))]])
+
+    def limit_chains(self, k, depth):
+        dr = np.repeat(self.rng.choice(self.limited, k, replace=False), depth)
+        dr = dr[self.rng.permutation(len(dr))].astype(np.uint64)
+        cr = self.free[self.rng.integers(0, len(self.free), len(dr))]
+        return transfers(self.types, self.ids(len(dr)), dr, cr,
+                         self.rng.integers(1, 1000, len(dr)).astype(np.uint64))
+
+
+def wave_kinds(traffic):
+    """[(kind, description, [request arrays])] of phase 15: (a)-(e)."""
+    return [
+        ("a", f"{WAVE_RUNS} requests of uniform traffic", [traffic.uniform()
+                                                            for _ in range(WAVE_RUNS)]),
+        ("b", "4095 pendings and a post or void of each", [traffic.same_request_posts()]),
+        ("c", f"{WAVE_RUNS} requests of 20% pendings, half resolved in the request",
+         [traffic.pendings_20() for _ in range(WAVE_RUNS)]),
+        ("d", "341 limited accounts x 24 debits", [traffic.limit_chains(341, 24)]),
+        ("e", "273 limited accounts x 30 debits", [traffic.limit_chains(273, 30)]),
+    ]
+
+
+def parent_waves(torch, L, st, rows, wave_of, W, n, ts, a_log2, t_log2, pv):
+    """The parent's route for one request's waves: a masked K3 launch, a
+    compare and a max a wave (what DeviceLedger._execute_waves ran before
+    K12)."""
+    results = torch.zeros(n, dtype=torch.int32, device=rows.device)
+    wave_i64 = wave_of.to(torch.int64)
+    for w in range(W):
+        r = L.commit_transfers_fast(st, rows, n, ts, a_log2, t_log2, pv, wave_i64 == w)
+        results = torch.maximum(results, r)
+    return results
+
+
+def phase_waves(torch, L, SM, types, constants, dev, card):
+    """StateMachine over DeviceLedger(ConfigProcess()) on cuda with 10,000
+    accounts, 15% of them limited and funded, takes kinds (a)-(e) of
+    requests of 8190 events (`wave_kinds`) one at a time; every reply and
+    every account equal NativeLedger(20, 24)'s on the same requests, the
+    fingerprint its plain version. Prints each request's plan and each
+    kind's transfers/s; some request must run K12 at W >= 6 and (e) K4
+    after it. Then K12 and the parent's route (W masked K3 launches) on
+    fresh requests of kind (b) between accounts that are not limited (two
+    waves), (a) and (d), in turns, each also held against the plain version
+    on copies of the state. Returns (launches on the path, {check: max_abs_err},
+    K12's row: (kernel ms, plain ms, bound ms, bound_by))."""
+    from tigerbeetle_tpu_torch import kernels as K
+    from tigerbeetle_tpu_torch.metrics import Metrics
+    from tigerbeetle_tpu_torch.models.native_ledger import NativeLedger
+    from tigerbeetle_tpu_torch.ops import hashtable as ht
+
+    import copy
+
+    t_phase = time.perf_counter()
+    Op = types.Operation
+    rng = np.random.default_rng(SEED + 15)
+    acc, limited, fund = wave_accounts(types, rng)
+    traffic = WaveTraffic(types, rng, limited, 9_000_000_001)
+    kinds = wave_kinds(traffic)
+    ledger = L.DeviceLedger(constants.ConfigProcess(), device=dev)
+    sm = SM.StateMachine(ledger)
+    ref = SM.StateMachine(NativeLedger(20, 24))
+    ts = [10**12]
+
+    def both(op, body):
+        ts[0] += len(body) // 128
+        got = sm.commit(op, ts[0], body)
+        want = ref.commit(op, ts[0], body)
+        if got != want:
+            fail(f"phase 15: a reply differs from NativeLedger(20, 24)'s: {len(got)} bytes "
+                 f"against {len(want)}")
+        return got
+
+    for i in range(0, N_ACCOUNTS, 8190):
+        both(Op.create_accounts, acc[i:i + 8190].tobytes())
+    if both(Op.create_transfers, fund.tobytes()) != b"":
+        fail("phase 15: a funding transfer failed")
+    metrics = Metrics()
+    ledger.instrument(metrics, ledger.tracer)
+    residue = metrics.counter("waves.residue_events")
+    torch.cuda.synchronize()
+    K.reset_launches()
+    plans, k12_w, residue_after = {}, [], False
+    for kind, what, reqs in kinds:
+        seconds = 0.0
+        plans[kind] = []
+        for arr in reqs:
+            before = K.LAUNCHES["wave_commit"], K.LAUNCHES["commit_transfers_serial"], residue.value
+            body = arr.tobytes()
+            ts[0] += len(arr)
+            t = time.perf_counter()
+            h = sm.commit_async(Op.create_transfers, ts[0], body)
+            got = sm.commit_finish(h)
+            seconds += time.perf_counter() - t
+            if got != ref.commit(Op.create_transfers, ts[0], body):
+                fail(f"phase 15 ({kind}): a reply differs from NativeLedger(20, 24)'s")
+            decision, W = sm.handle_plan(h)
+            plans[kind].append((decision, W, residue.value - before[2]))
+            if K.LAUNCHES["wave_commit"] > before[0] and W >= 6:
+                k12_w.append(W)
+                if K.LAUNCHES["commit_transfers_serial"] > before[1]:
+                    residue_after = True
+        n = sum(len(a) for a in reqs)
+        log(f"  ({kind}) {what}: plans (decision, W, residue) {plans[kind]}; {n} transfers in "
+            f"{seconds:.3f} s: {n / seconds:.0f} transfers/s [{card}]")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    log(f"  launches on the wave path: { {k: v for k, v in launches.items() if v} }")
+    if not k12_w:
+        fail("phase 15: no request ran K12 at W >= 6")
+    if not residue_after or plans["e"][0][2] == 0:
+        fail(f"phase 15: (e) did not run K4 after K12: {plans['e']}")
+    if not launches["wave_commit"]:
+        fail("phase 15: K12 was not launched on the wave path")
+    ids = np.arange(1, N_ACCOUNTS + 1, dtype=np.uint64)
+    for body in id_bodies(ids):
+        if sm.commit(Op.lookup_accounts, 0, body) != ref.commit(Op.lookup_accounts, 0, body):
+            fail("phase 15: an account differs from NativeLedger(20, 24)'s")
+    ledger.check_fault()
+    fp = ledger.fingerprint()
+    plain = [v & ((1 << 64) - 1) for v in L.state_fingerprint_plain(ledger.state).cpu().tolist()]
+    if [fp[k] for k in L.FP_KEYS] != plain:
+        fail(f"phase 15: the fingerprint {fp} differs from its plain version {plain}")
+    log(f"  every reply and all {N_ACCOUNTS} accounts equal NativeLedger(20, 24)'s; the "
+        f"fingerprint equals its plain version ({fp['transfers']} transfers); K12 ran at W "
+        f"{sorted(set(k12_w))}")
+
+    # K12 against the parent's route on fresh requests of kinds (b), (a), (d)
+    st = ledger.state
+    a_log2, t_log2 = ledger.kernels.a_log2, ledger.kernels.t_log2
+    make = {"a": traffic.uniform, "b2": lambda: traffic.same_request_posts(traffic.free),
+            "d": lambda: traffic.limit_chains(341, 24)}
+    errs, row = {}, None
+    for kind, want_w in WAVE_TIMED:
+        tracker = copy.deepcopy(ledger.hazards)  # plans as the ledger would, apart
+        reqs = []
+        for _ in range(2 * WAVE_REPS + 2):
+            arr = make[kind]()
+            decision, plan = tracker.plan(arr)
+            if decision != "waves" or plan.residue_n:
+                fail(f"phase 15: a timed request of kind ({kind}) planned {decision}")
+            reqs.append((L.transfers_to_batch(arr, dev)["rows"],
+                         torch.from_numpy(plan.wave_of[:len(arr)].astype(np.uint8)).to(dev),
+                         plan.n_waves, plan.has_pv))
+        W = reqs[0][2]
+        if want_w is not None and W != want_w:
+            fail(f"phase 15: kind ({kind}) planned {W} waves, not {want_w}")
+        # the check at this shape: kernel and plain version on two copies
+        sk, sp = clone_state(st), clone_state(st)
+        rows, wave_of, Wc, pv = reqs[-1]
+        n = rows.shape[0]
+        plain = {}
+        name = f"K12 wave_commit ({kind}: {Wc} waves, {n} events, 2^20 / 2^24)"
+        hold_on(torch, errs, name, sk, sp,
+                lambda s: K.wave_commit(s, rows, wave_of, Wc, n, 10**14, a_log2, t_log2, pv),
+                lambda s: L.commit_transfers_waves_plain(s, rows, wave_of, Wc, n, 10**14,
+                                                         a_log2, t_log2, pv),
+                "phase 15's state", plain)
+        plain_ms = plain[name]
+        del sk, sp
+        torch.cuda.empty_cache()
+        nbytes = transfer_bytes(torch, ht, st, reqs[0][0], a_log2, t_log2, 32)
+        it = iter(reqs)
+
+        def k12():
+            rows, wave_of, Wr, pv = next(it)
+            K.wave_commit(st, rows, wave_of, Wr, rows.shape[0], 10**14, a_log2, t_log2, pv)
+
+        def parent():
+            rows, wave_of, Wr, pv = next(it)
+            parent_waves(torch, L, st, rows, wave_of, Wr, rows.shape[0], 10**14, a_log2,
+                         t_log2, pv)
+
+        half = WAVE_REPS // 2
+        p1 = timed(torch, parent, half, on_card=True)
+        k1 = timed(torch, k12, half, on_card=True)
+        k2 = timed(torch, k12, half, on_card=True)
+        p2 = timed(torch, parent, half, on_card=True)
+        kt = tuple(float(x) for x in np.percentile([k1[0], k2[0]], [50, 0, 100]))
+        b = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"  K12 ({kind}, W {W}, {reqs[0][0].shape[0]} events): {k1[0]:.4f} / {k2[0]:.4f} ms "
+            f"on the card (one launch); the parent's route, {W} masked K3 launches, a compare "
+            f"and a max a wave: {p1[0]:.4f} / {p2[0]:.4f} ms; plain version {plain_ms:.1f} ms; "
+            f"bound {b:.6f} ms (bytes) [{card}]")
+        if kind == "a":
+            row = (kt, (plain_ms, plain_ms, plain_ms), b, "bytes")
+    del ledger, sm, st
+    torch.cuda.empty_cache()
+    log(f"  phase 15 took {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, errs, row
+
+
 KERNELS = [
     # key, launch counter, name (the prefix of its checks), source, replaces
     ("K1", "lookup", "K1 lookup", "tigerbeetle_tpu_torch/csrc/lookup.cu",
@@ -6208,6 +6669,8 @@ KERNELS = [
      "tigerbeetle_tpu_torch/csrc/serial_transfers.cu", "tigerbeetle_tpu/models/ledger.py:1004"),
     ("K5", "group_commit", "K5 group_commit",
      "tigerbeetle_tpu_torch/csrc/group_commit.cu", "tigerbeetle_tpu/models/ledger.py:2384"),
+    ("K12", "wave_commit", "K12 wave_commit",
+     "tigerbeetle_tpu_torch/csrc/wave_commit.cu", "tigerbeetle_tpu/models/ledger.py:2261"),
     ("K6", "fingerprint", "K6 fingerprint",
      "tigerbeetle_tpu_torch/csrc/fingerprint.cu", "tigerbeetle_tpu/models/ledger.py:325"),
     ("K9", "install_rows", "K9 install_rows",
@@ -6237,7 +6700,8 @@ KERNELS = [
      "tigerbeetle_tpu_torch/csrc/mesh_serial_transfers.cu",
      "tigerbeetle_tpu/parallel/mesh.py:431"),
 ]
-# the kernels of the paths of phases 7, 8, 9 and 10 alone
+# the kernels of the paths of phases 7, 8, 9 and 10 alone (phase 15's:
+# WAVE_KERNELS)
 DUAL_KERNELS = ("fold",)
 QUERY_KERNELS = ("filter_scan",)
 SPILL_KERNELS = ("spill_head", "spill_split", "spill_gather", "spill_reload")
@@ -6263,8 +6727,14 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
+    last = [None, t_start]
+
     def stage(title):  # a phase's header, with the seconds since the start
-        log(f"== {title} [{time.perf_counter() - t_start:.1f} s]")
+        now = time.perf_counter()
+        if last[0] is not None:
+            log(f"== {last[0]} took {now - last[1]:.1f} s")
+        last[:] = title.split(":")[0], now
+        log(f"== {title} [{now - t_start:.1f} s]")
 
     stage("phase 1: environment")
     log(f"  python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
@@ -6277,10 +6747,7 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = build.build()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
-    log(f"  K5's SASS: each of its {barriers_invalidate_l1(lib)} cluster barrier waits is "
-        "followed by an L1 invalidation (CCTL.IVALL) before any load")
-    log(f"  K10r's SASS: each of its {barriers_invalidate_l1(lib, 'reload_chunks')} cluster "
-        "barrier waits is followed by an L1 invalidation (CCTL.IVALL) before any load")
+    sass = start_sass(lib)  # checked at the end of phase 2
     from tigerbeetle_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -6292,6 +6759,11 @@ def main() -> int:
     for entry, regs, stack, spills in kernel_resources(lib, "acct_commit_fast"):
         log(f"  K2 fast / K11af kernel {entry}: {regs} registers, {stack} bytes stack frame, "
             f"{spills} bytes spilled (stores, loads)")
+    for needle, what in (("xfer_commit", "K3"), ("group_commit_kernel", "K5"),
+                         ("wave_commit_kernel", "K12")):
+        for entry, regs, stack, spills in kernel_resources(lib, needle):
+            log(f"  {what} kernel {entry}: {regs} registers, {stack} bytes stack frame, "
+                f"{spills} bytes spilled (stores, loads)")
 
     from tigerbeetle_tpu_torch import kernels as K
 
@@ -6306,11 +6778,20 @@ def main() -> int:
     phase_kernels(torch, L, types, constants, dev)
     phase_seam_kernels(torch, L, types, constants, dev)
     k5_cases(torch, L, constants, dev)
+    k12_cases(torch, L, constants, dev)
     k9_cases(torch, L, K, constants, dev)
     phase_fold_kernels(torch, L, dev)
     fp_case_kernels(torch, L, K, dev)
     lookup_case_kernels(torch, L, K, dev)
     phase_ledgers(torch, L, types, constants, dev)
+    sass = sass.result()
+    log(f"  phase 1's SASS of {lib.name}, disassembled beside phase 2:")
+    log(f"  K5's SASS: each of its {barriers_invalidate_l1(sass, lib)} cluster barrier waits is "
+        "followed by an L1 invalidation (CCTL.IVALL) before any load")
+    log(f"  K10r's SASS: each of its {barriers_invalidate_l1(sass, lib, 'reload_chunks')} "
+        "cluster barrier waits is followed by an L1 invalidation (CCTL.IVALL) before any load")
+    log(f"  K12's SASS: each of its {barriers_invalidate_l1(sass, lib, 'wave_commit_kernel')} "
+        "cluster barrier waits is followed by an L1 invalidation (CCTL.IVALL) before any load")
 
     stage("phase 3: main path, StateMachine over DeviceLedger(ConfigProcess()) on cuda")
     sm, tps, g_tps, reqs = phase_main_path(torch, L, SM, types, constants, dev, card)
@@ -6319,7 +6800,8 @@ def main() -> int:
     launches = dict(K.LAUNCHES)
     log(f"  launches on the main path: {launches}")
     if not all(v for k, v in launches.items()
-               if k not in DUAL_KERNELS + QUERY_KERNELS + SPILL_KERNELS + MESH_KERNELS):
+               if k not in DUAL_KERNELS + QUERY_KERNELS + SPILL_KERNELS + MESH_KERNELS
+               + WAVE_KERNELS):
         fail(f"a kernel was not launched on the main path: {launches}")
     ledger = sm.backend
 
@@ -6343,6 +6825,11 @@ def main() -> int:
 
     stage("phase 6: kernel times at the main path's shapes (2^20 / 2^24 slots)")
     times = phase_timing(torch, L, ht, types, ledger, dev, hbm_ns, l2_ns, smem_ns, sector_ms)
+
+    stage("phase 15: the wave path at deployment size, StateMachine over "
+          "DeviceLedger(ConfigProcess()) on cuda, 15% limited accounts, against "
+          "NativeLedger(20, 24)")
+    wave_launches, wave_errs, k12_row = phase_waves(torch, L, SM, types, constants, dev, card)
 
     stage("phase 7: the dual-commit follower, DualLedger(20, 24) on cuda")
     dual_launches = phase_dual(torch, types, card)
@@ -6382,10 +6869,12 @@ def main() -> int:
     phase_server(card)
 
     errs.update(query_errs)
+    errs.update(wave_errs)
     errs.update(spill_errs)
     errs.update(mesh_errs)
     times.update(mesh_times)
     times["K8"] = k8_row
+    times["K12"] = k12_row
     library = {}
     for key, (kt, pt, b, by, lib) in spill_rows.items():
         times[key] = (kt, pt, b, by)
@@ -6393,6 +6882,7 @@ def main() -> int:
     path_launches = {c: dual_launches for c in DUAL_KERNELS}
     path_launches.update({c: query_launches for c in QUERY_KERNELS})
     path_launches.update({c: spill_launches for c in SPILL_KERNELS})
+    path_launches.update({c: wave_launches for c in WAVE_KERNELS})
     path_launches.update({c: mesh_launches for c in MESH_KERNELS})
     table = []
     for key, counter, name, source, replaces in KERNELS:
@@ -6405,6 +6895,7 @@ def main() -> int:
             "ms": kt, "plain_ms": pt, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library.get(key),
         })
+    stage("the kernel table")
     log(f"  main path: {tps:.0f} transfers/s one request at a time, {g_tps:.0f} transfers/s "
         f"in groups of {GROUP_K}; whole run {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -10,6 +10,7 @@ import os
 import socket
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -93,10 +94,10 @@ def test_start_differs_from_the_jax_cli_only_in_device_and_default_backend():
     assert tf.pop("device") == "cuda"
     assert (jf.pop("backend"), tf.pop("backend")) == ("native", "device")
     assert tf == jf
-    for cmd in ("format", "repl", "client", "inspect"):
+    for cmd in ("format", "repl", "client", "inspect", "cdc"):
         fields = [(f.name, f.default) for f in dataclasses.fields(t_cli.COMMANDS[cmd][0])]
         assert fields == [(f.name, f.default) for f in dataclasses.fields(j_cli.COMMANDS[cmd][0])]
-    assert set(t_cli.COMMANDS) == set(j_cli.COMMANDS) - {"cdc", "chaos"}
+    assert set(t_cli.COMMANDS) == set(j_cli.COMMANDS) - {"chaos"}
 
 
 def _flight_sequence(m, fr):
@@ -236,15 +237,13 @@ def test_version_and_usage(capsys):
     assert capsys.readouterr().out == f"tigerbeetle_tpu_torch {j_cli.VERSION}\n"
     assert t_cli.main([]) == 1
     usage = capsys.readouterr().out
-    assert "inspect" in usage and "A6" in usage and "A7" in usage
+    assert "inspect" in usage and "cdc" in usage and "A7" in usage and "A6" not in usage
     with pytest.raises(SystemExit):
         t_cli.main(["chaos"])
     assert "unknown command 'chaos'" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("flag", [
-    ["--cdc-jsonl", "s.jsonl"], ["--cdc-udp", ":9"], ["--cdc-window", "8"], ["--cdc-fanout"],
-    ["--ingress"], ["--ingress-sessions-max", "10"],
     ["--commitment-interval", "8"], ["--federation-regions", "2"],
     ["--federation-region", "0"],
 ])
@@ -255,6 +254,29 @@ def test_start_refuses_a_flag_of_a_module_not_ported(flag, capsys):
     assert e.value.code == 1
     err = capsys.readouterr().err
     assert flag[0] in err and f"queue {t_cli.UNPORTED_START_FLAGS[name]}" in err
+
+
+@pytest.mark.parametrize("flag", [
+    ["--cdc-jsonl", "s.jsonl"], ["--cdc-udp", ":9"], ["--cdc-window", "8"], ["--cdc-fanout"],
+    ["--ingress"], ["--ingress-sessions-max", "10"],
+])
+def test_start_takes_the_cdc_and_ingress_flags(flag):
+    """The change stream's and the gateway's flags parse as the JAX CLI's
+    and pass the check that refuses the flags of modules not ported."""
+    argv = ["--addresses", "127.0.0.1:1", "--device", "cpu", *flag, "nofile"]
+    args = t_flags.parse(t_cli.StartArgs, argv)
+    t_cli._refuse_unported(args)
+    got = dataclasses.asdict(args)
+    assert got.pop("device") == "cpu" and got.pop("backend") == "device"
+    want = dataclasses.asdict(j_flags.parse(j_cli.StartArgs, argv[:2] + argv[4:]))
+    want.pop("backend")
+    assert got == want
+
+
+def test_cdc_command_parses_as_the_jax_cli():
+    argv = ["--sink", "jsonl:o.jsonl", "--consumer", "c", "--cursor", "k", "--limit", "3", "a.aof"]
+    assert dataclasses.asdict(t_flags.parse(t_cli.CdcArgs, argv)) == \
+        dataclasses.asdict(j_flags.parse(j_cli.CdcArgs, argv))
 
 
 def test_inspect_commitments_is_refused(capsys):
@@ -292,3 +314,70 @@ def test_start_sharded_needs_shards(tmp_path, capsys):
     capsys.readouterr()
     assert out.returncode == 1 and "listening" not in out.stdout
     assert "--shards" in out.stdout
+
+
+class _Clock:
+    def __init__(self):
+        self.now = 100.0
+
+    def monotonic(self):
+        return self.now
+
+
+class _Backlog:
+    """A change-stream pump with `ops` committed ops to stream, each taking
+    `cost` seconds of the fake clock to encode."""
+
+    def __init__(self, clock, ops, cost):
+        self.clock, self.ops, self.cost, self.budgets = clock, ops, cost, []
+
+    def pump(self, budget_ops=8):
+        self.budgets.append(budget_ops)
+        n = min(budget_ops, self.ops)
+        self.ops -= n
+        self.clock.now += n * self.cost
+        return n
+
+
+@pytest.mark.parametrize("status", ["view_change", "recovering"])
+def test_change_stream_waits_while_the_replica_is_not_normal(status, monkeypatch):
+    clock = _Clock()
+    monkeypatch.setattr(t_cli, "time", clock)
+    pump = _Backlog(clock, ops=5, cost=0.001)
+    pacer = t_cli.ChangeStreamPacer(pump)
+    replica = SimpleNamespace(status=status)
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 0
+    assert pump.budgets == []
+    replica.status = "normal"
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 5
+    assert set(pump.budgets) == {1}
+
+
+def test_change_stream_takes_one_op_a_busy_turn_and_eight_an_idle_one(monkeypatch):
+    clock = _Clock()
+    monkeypatch.setattr(t_cli, "time", clock)
+    pump = _Backlog(clock, ops=20, cost=0.0)
+    pacer = t_cli.ChangeStreamPacer(pump)
+    replica = SimpleNamespace(status="normal")
+    assert pacer.turn(replica, busy=True, tick_s=0.01) == 1
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 8
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 8
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 3
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 0
+
+
+def test_change_stream_yields_the_loop_as_long_as_an_encode_took(monkeypatch):
+    """An op that takes longer than a tick ends the turn's bite, and the
+    loop then runs as long again before the stream's next op."""
+    clock = _Clock()
+    monkeypatch.setattr(t_cli, "time", clock)
+    pump = _Backlog(clock, ops=20, cost=0.15)
+    pacer = t_cli.ChangeStreamPacer(pump)
+    replica = SimpleNamespace(status="normal")
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 1
+    for _ in range(14):  # the loop's next turns, 0.01 s each
+        clock.now += 0.01
+        assert pacer.turn(replica, busy=False, tick_s=0.01) == 0
+    clock.now += 0.011
+    assert pacer.turn(replica, busy=False, tick_s=0.01) == 1
+    assert pump.ops == 18

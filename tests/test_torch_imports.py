@@ -80,7 +80,18 @@ def test_import_loads_no_jax():
                                     "tigerbeetle_tpu_torch.testing.simulator",
                                     "tigerbeetle_tpu_torch.testing.sim_cases",
                                     "tigerbeetle_tpu_torch.testing.fuzz",
-                                    "tigerbeetle_tpu_torch.testing.vopr"])
+                                    "tigerbeetle_tpu_torch.testing.vopr",
+                                    "tigerbeetle_tpu_torch.cdc.record",
+                                    "tigerbeetle_tpu_torch.cdc.cursor",
+                                    "tigerbeetle_tpu_torch.cdc.sink",
+                                    "tigerbeetle_tpu_torch.cdc.pump",
+                                    "tigerbeetle_tpu_torch.cdc",
+                                    "tigerbeetle_tpu_torch.ingress.regulator",
+                                    "tigerbeetle_tpu_torch.ingress.fanout",
+                                    "tigerbeetle_tpu_torch.ingress.gateway",
+                                    "tigerbeetle_tpu_torch.ingress",
+                                    "tigerbeetle_tpu_torch.testing.wave_cases",
+                                    "tigerbeetle_tpu_torch.testing.ingress_sessions"])
 def test_replica_and_cluster_load_no_jax(module):
     code = (
         f"import sys, {module}\n"

@@ -34,13 +34,24 @@ def test_simulation_deterministic():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("cdc_consumer", True), ("cdc_fanout", 3), ("ingress_gateway", True),
-    ("storm_clients", 4), ("tail_aof", True), ("commitment_interval", 8),
-    ("tick_hook", lambda sim, now: None),
+    ("commitment_interval", 8), ("tick_hook", lambda sim, now: None),
 ])
 def test_unported_options_raise(option, value):
-    with pytest.raises(NotImplementedError, match="queue A[67]"):
+    with pytest.raises(NotImplementedError, match="queue A7"):
         Simulator(1, ticks=10, **{option: value})
+
+
+@pytest.mark.parametrize("options", [
+    {"cdc_consumer": True}, {"cdc_fanout": 3}, {"ingress_gateway": True},
+    {"storm_clients": 4}, {"tail_aof": True},
+    {"cdc_fanout": 3, "ingress_gateway": True, "storm_clients": 5},
+], ids=lambda o: "+".join(o))
+def test_cdc_and_ingress_options_equal_jax(options):
+    """The change-stream, fan-out, ingress, connect-storm and AOF-tail
+    options run (the CDC and ingress modules, queue A6) and replay the JAX
+    simulator's run with the same options: stats, histories, storages."""
+    stats = run_both(211, dict(ticks=300, **options), dict(ticks=300, **options))
+    assert stats["committed_ops"] > 0
 
 
 def test_state_checker_on_a_device_cluster():

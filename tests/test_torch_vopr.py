@@ -60,9 +60,24 @@ def test_failing_seed_is_reported_and_exits_nonzero(tmp_path):
             "--ticks 250 --device cpu") in p.stdout
 
 
-@pytest.mark.parametrize("flag", ["--cdc-fraction", "--ingress-fraction",
-                                  "--federation-fraction"])
+@pytest.mark.parametrize("flag", ["--federation-fraction"])
 def test_unported_slices_are_refused(flag):
     with pytest.raises(SystemExit):
         vopr.parse_args([flag, "0.2"])
     assert getattr(vopr.parse_args([flag, "0"]), flag[2:].replace("-", "_")) == 0.0
+
+
+@pytest.mark.parametrize("flag,seed", [("cdc", 1), ("ingress", 2)])
+def test_cdc_and_ingress_slices_equal_jax(flag, seed):
+    """A seed of the CDC slice (the deterministic consumer) and one of the
+    ingress slice (gateway, connect storm, CDC fan-out) give the JAX
+    package's `run_simulation` record with the same options."""
+    stats, desc = vopr.run_seed(seed, TICKS, 0.0, False, device="cpu",
+                                **{f"{flag}_fraction": 1.0})
+    opts = jax_options(seed)
+    if flag == "cdc":
+        opts["cdc_consumer"] = True
+    else:
+        opts.update(ingress_gateway=True, storm_clients=4 + seed % 8, cdc_fanout=3)
+    assert desc.endswith(flag.upper())
+    assert stats == jax_run(seed, ticks=TICKS, **opts)

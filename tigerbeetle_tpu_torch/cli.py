@@ -31,10 +31,9 @@ does:
   scratch tables (the warm-up that a compile sentinel guards in the JAX
   package); `[stats]` carries `kernel_launches`, the launch counts since
   the replica was built, in place of `compile_sentinel`.
-- The change stream, the ingress gateway and the federation are not
-  ported yet: their `start` flags are refused unless left at their
-  defaults, `inspect commitments` is refused, and the `cdc` and `chaos`
-  commands are absent.
+- The federation is not ported yet: its `start` flags are refused unless
+  left at their defaults, `inspect commitments` is refused, and the `chaos`
+  command is absent.
 """
 
 from __future__ import annotations
@@ -76,11 +75,10 @@ class StartArgs:
     transfer_slots_log2: int = 24
     aof: str = ""  # append-only disaster-recovery log path
     statsd: str = ""  # statsd host | :port | host:port (batched emission)
-    # Change-data-capture (tigerbeetle_tpu/cdc; not ported, queue A6):
-    # attach a live CdcPump tailing this replica's committed ops into a
-    # JSONL file and/or UDP datagrams. The pump rides the event loop with a
-    # bounded per-turn budget and pauses (never the replica) when the sink
-    # refuses.
+    # Change-data-capture (cdc/): attach a live CdcPump tailing this
+    # replica's committed ops into a JSONL file and/or UDP datagrams. The
+    # pump rides the event loop with a bounded per-turn budget and pauses
+    # (never the replica) when the sink refuses.
     cdc_jsonl: str = ""  # change-stream JSONL path
     cdc_udp: str = ""  # change-stream UDP host | :port | host:port
     cdc_cursor: str = ""  # cursor file (default: <cdc-jsonl>.cursor)
@@ -146,8 +144,8 @@ class StartArgs:
     # formatted with (config fingerprint; see FormatArgs).
     clients_max: int = 32
     client_reply_slots: int = 0
-    # Ingress gateway (tigerbeetle_tpu/ingress; not ported, queue A6):
-    # session-multiplexed admission front door. --ingress installs the
+    # Ingress gateway (ingress/): session-multiplexed admission front
+    # door. --ingress installs the
     # gateway (credit-based admission fed by pipeline occupancy + pool
     # budget; saturated requests get a typed busy reply instead of queueing
     # or dropping).
@@ -246,6 +244,21 @@ class InspectArgs:
     stream: str = ""
 
 
+@dataclasses.dataclass
+class CdcArgs:
+    """Offline change-stream tool: replay an AOF into a sink, resuming
+    from (and advancing) a durable consumer cursor. The disaster-recovery
+    log is the complete committed history from op 1; result codes are
+    regenerated exactly by replaying each prepare through the scalar
+    oracle (parity-locked with the device engines)."""
+
+    file: str = positional("append-only file (AOF) path")
+    consumer: str = "default"  # cursor namespace
+    cursor: str = ""  # cursor file (default: <aof>.<consumer>.cursor)
+    sink: str = "stdout"  # stdout | jsonl:<path> | udp:host[:port]
+    limit: int = 0  # stop after N ops (0 = to end of log)
+
+
 def _parse_addresses(s: str) -> list[tuple[str, int]]:
     out = []
     for part in s.split(","):
@@ -280,15 +293,35 @@ def cmd_format(args) -> int:
     return 0
 
 
+class _FanoutSink:
+    """start --cdc-jsonl + --cdc-udp together: EVERY sink is offered each
+    emission (no short-circuit), and the op counts as delivered only when
+    all accepted. A refusal by one member means the pump retries the op,
+    so sinks that already accepted see it again — at-least-once per sink,
+    dedupable by op like any other redelivery. (Both current members
+    always accept; this matters only for future refusing sinks.)"""
+
+    def __init__(self, sinks):
+        self.sinks = sinks
+
+    def emit_lines(self, lines) -> bool:
+        results = [s.emit_lines(lines) for s in self.sinks]
+        return all(results)
+
+    def flush(self) -> None:
+        for s in self.sinks:
+            s.flush()
+
+    def close(self) -> None:
+        for s in self.sinks:
+            s.close()
+
+
 # StartArgs fields of modules the port has not taken yet, each with the
 # queue item of ROADMAP.md that ports it. Left at their defaults they do
 # nothing; set, they stop `start` (a flag that silently did nothing would
 # be worse).
 UNPORTED_START_FLAGS = {
-    "cdc_jsonl": "A6", "cdc_udp": "A6", "cdc_cursor": "A6",
-    "cdc_window": "A6", "cdc_ack_interval": "A6", "cdc_slow_us": "A6",
-    "cdc_slow_every": "A6", "cdc_fanout": "A6",
-    "ingress": "A6", "ingress_sessions_max": "A6",
     "commitment_interval": "A7",
     "federation_region": "A7", "federation_regions": "A7",
 }
@@ -330,6 +363,41 @@ def _install_parent_death_watchdog() -> None:
             raise SystemExit(0)
     except (OSError, AttributeError):
         pass  # non-glibc platform: watchdog unavailable, teardown still kills
+
+
+class ChangeStreamPacer:
+    """The server loop's change-stream progress, off the commit path.
+
+    The replica's timeouts count loop turns (one tick a turn at most), and
+    a committed op of 8190 events takes tens of milliseconds of the loop to
+    stream, more where its results must be replayed from the AOF. A backlog
+    drained eight ops a turn held the loop long enough that a primary's
+    heartbeats fell behind its backups' silence timeout, and that a backup
+    answered a view change too late for its peer, whose retries escalated
+    view after view. So a turn streams one op at a time: one while the wire
+    is busy, up to eight while idle, none begun after the turn's tick; the
+    loop then runs as long again without the stream before the next bite;
+    and nothing streams while the replica is not `normal` (a view change or
+    a recovery waits on this loop)."""
+
+    def __init__(self, cdc_pump):
+        self.cdc_pump = cdc_pump
+        self.resume_at = 0.0
+
+    def turn(self, replica, busy: bool, tick_s: float) -> int:
+        """One loop turn's bite; returns the ops streamed."""
+        start = time.monotonic()
+        if replica.status != "normal" or start < self.resume_at:
+            return 0
+        n = 0
+        for _ in range(1 if busy else 8):
+            got = self.cdc_pump.pump(budget_ops=1)
+            n += got
+            if got == 0 or time.monotonic() >= start + tick_s:
+                break
+        end = time.monotonic()
+        self.resume_at = end + (end - start)
+        return n
 
 
 def cmd_start(args) -> int:
@@ -493,6 +561,73 @@ def cmd_start(args) -> int:
         # journal tail — record mode re-records identical entries, check
         # mode re-verifies them (both idempotent by op)
         hash_log.attach(replica)
+    cdc_pump = None
+    if args.cdc_jsonl or args.cdc_udp:
+        from tigerbeetle_tpu_torch.cdc import (
+            CdcPump,
+            CountThrottleSink,
+            FileCursor,
+            JsonlFileSink,
+            ThrottleSink,
+            UdpSink,
+        )
+
+        named = []  # (consumer name, sink)
+        if args.cdc_jsonl:
+            named.append(("jsonl", JsonlFileSink(args.cdc_jsonl)))
+        if args.cdc_udp:
+            named.append(("udp", UdpSink(*parse_addr(args.cdc_udp))))
+        if args.cdc_slow_us:
+            named = [
+                (n, ThrottleSink(s, args.cdc_slow_us)) for n, s in named
+            ]
+        if args.cdc_slow_every:
+            # one count-throttled laggard: only the LAST named sink —
+            # with --cdc-fanout the healthy consumers keep pace while
+            # this one's position falls behind (the prodday timeline's
+            # slow-consumer event)
+            n_last, s_last = named[-1]
+            named[-1] = (n_last, CountThrottleSink(s_last, args.cdc_slow_every))
+        # an explicit --cdc-cursor names the cursor FILE and is used
+        # verbatim (a restart must find the pre-existing cursor); the
+        # fan-out path derives per-consumer files by suffixing it
+        cursor_file = args.cdc_cursor or (
+            (args.cdc_jsonl or args.file) + ".cursor"
+        )
+        if args.cdc_fanout and len(named) > 1:
+            # one shared tail, one consumer (cursor + position) PER sink:
+            # a slow sink pauses only itself (ingress/fanout.py)
+            from tigerbeetle_tpu_torch.ingress import CdcFanoutHub
+
+            cdc_pump = CdcFanoutHub(
+                replica, window=args.cdc_window,
+                aof_path=args.aof or None,
+            )
+            for name, sink in named:
+                cdc_pump.add_consumer(
+                    name, sink, FileCursor(f"{cursor_file}.{name}"),
+                    ack_interval=args.cdc_ack_interval,
+                    commitments=args.commitment_interval > 0,
+                )
+        else:
+            sink = (
+                named[0][1] if len(named) == 1
+                else _FanoutSink([s for _n, s in named])
+            )
+            cdc_pump = CdcPump(
+                replica, sink, FileCursor(cursor_file),
+                window=args.cdc_window,
+                ack_interval=args.cdc_ack_interval,
+                # the AOF (when on) is the deep-resume source: ops older
+                # than the WAL ring replay through the oracle with exact
+                # results
+                aof_path=args.aof or None,
+                commitments=args.commitment_interval > 0,
+            )
+        # attach BEFORE open(): single-replica recovery re-commits the
+        # journal tail, and those redeliveries are exactly what the
+        # cursor dedups — the pump must see them, not miss them
+        cdc_pump.attach()
     statsd = emitter = None
     if args.statsd:
         # accepts `host`, `:port`, and `host:port` (a bare host used to
@@ -504,6 +639,14 @@ def cmd_start(args) -> int:
     boot("opening (superblock + snapshot + WAL recovery)")
     replica.open()
     boot("open done")
+    if args.ingress:
+        from tigerbeetle_tpu_torch.ingress import IngressGateway
+
+        gateway = IngressGateway(
+            bus, replica, sessions_max=args.ingress_sessions_max
+        )
+        gateway.install()
+        boot("ingress gateway installed")
     print(
         f"replica {args.replica}/{len(addresses)} listening on "
         f"{addresses[args.replica][0]}:{addresses[args.replica][1]} "
@@ -619,6 +762,20 @@ def cmd_start(args) -> int:
                     "error": f"{type(e).__name__}: {e}",
                 }
         print(f"[stats] {_json.dumps(stats)}", flush=True)
+        if cdc_pump is not None:
+            # finalize any in-flight commits (their replies are what the
+            # stream encodes), then a bounded final drain + durable
+            # cursor/sink flush — a slow sink must not hold up shutdown
+            try:
+                replica.flush_commits()
+            except Exception:
+                pass  # stream what already finalized
+            cdc_pump.pump(budget_ops=1024)
+            cdc_pump.flush()
+            if hasattr(cdc_pump, "close"):
+                cdc_pump.close()  # fan-out hub: every consumer's sink
+            else:
+                cdc_pump.sink.close()
         if args.trace:
             tracer.dump(args.trace)
         if emitter is not None:
@@ -705,6 +862,7 @@ def cmd_start(args) -> int:
     last_statsd = time.monotonic()
     last_flight = time.monotonic()
     last_commit = replica.commit_min
+    cdc_pacer = ChangeStreamPacer(cdc_pump) if cdc_pump is not None else None
     while True:
         # With async commits in flight — or a fuse window holding a short
         # run open for more arrivals — poll (timeout=0) so a quiet wire
@@ -716,6 +874,11 @@ def cmd_start(args) -> int:
         # every turn (not only n > 0): same-turn arrivals fuse into a
         # group, and an expired fuse window must dispatch promptly
         replica.pump_commits()
+        if cdc_pacer is not None:
+            # bounded change-stream progress OFF the commit path. Not
+            # counted into loop busy_s — that accounts the commit
+            # pipeline the bench's loop_us_per_batch quotes.
+            cdc_pacer.turn(replica, busy, tick_s)
         if busy:
             loop_stats.add("busy_s", time.monotonic() - t0)
             loop_stats.add("turns")
@@ -764,6 +927,72 @@ def cmd_start(args) -> int:
                 f"conns={sorted(str(k) if k < 1000 else 'client' for k in bus.conns)}",
                 flush=True,
             )
+
+
+def cmd_cdc(args) -> int:
+    """Replay the AOF's change stream into a sink from the consumer's
+    cursor. One shot: runs to the end of the log (or --limit), acks the
+    cursor, exits — the operator bootstrap/backfill path; live tailing is
+    `start --cdc-jsonl/...`."""
+    from tigerbeetle_tpu_torch.cdc import (
+        AofReplaySource,
+        FileCursor,
+        JsonlFileSink,
+        StdoutSink,
+        UdpSink,
+        encode_batch,
+        gap_record,
+        record_line,
+    )
+    from tigerbeetle_tpu_torch.statsd import parse_addr
+
+    if args.sink == "stdout":
+        sink = StdoutSink()
+    elif args.sink.startswith("jsonl:"):
+        sink = JsonlFileSink(args.sink[len("jsonl:"):])
+    elif args.sink.startswith("udp:"):
+        sink = UdpSink(*parse_addr(args.sink[len("udp:"):]))
+    else:
+        flags.fatal(f"unknown --sink {args.sink!r} "
+                    "(stdout | jsonl:<path> | udp:host[:port])")
+    cursor = FileCursor(
+        args.cursor or f"{args.file}.{args.consumer}.cursor"
+    )
+    acked_op, _ = cursor.load()
+    source = AofReplaySource(args.file)
+    ops = records = 0
+    op = acked_op + 1
+    last = None
+    while not args.limit or ops < args.limit:
+        got = source.read(op)
+        if got is None:
+            # an AOF hole (ops this replica never executed — a state-sync
+            # jump): declare it and continue from where the log resumes
+            resume = source.next_available()
+            if resume is None:
+                break  # end of log
+            if not sink.emit_lines([record_line(gap_record(op, resume - 1))]):
+                break
+            op = resume
+            continue
+        header, body, reply = got
+        recs = encode_batch(header, body, reply)
+        if recs and not sink.emit_lines([record_line(r) for r in recs]):
+            break  # a refusing sink ends the one-shot run; cursor holds
+        records += len(recs)
+        ops += 1
+        last = header
+        op += 1
+    if last is not None:
+        cursor.ack(last.op, last.checksum)
+    sink.flush()
+    sink.close()
+    print(
+        f"cdc: {records} records over {ops} ops "
+        f"(consumer {args.consumer!r}, cursor at op {last.op if last else acked_op})",
+        file=sys.stderr,
+    )
+    return 0
 
 
 def cmd_inspect(args) -> int:
@@ -879,9 +1108,10 @@ commands:
   start    run a replica (--device cuda|cpu, --backend device by default)
   version  print version
   repl     interactive client (alias: client)
+  cdc      replay an AOF's change stream into a sink (cursor resume)
   inspect  decode a data file offline / read a live server's stats
 
-not ported yet: cdc (queue A6 of ROADMAP.md), chaos (queue A7)
+not ported yet: chaos (queue A7 of ROADMAP.md)
 """
 
 COMMANDS = {
@@ -889,6 +1119,7 @@ COMMANDS = {
     "start": (StartArgs, cmd_start),
     "repl": (ReplArgs, cmd_repl),
     "client": (ReplArgs, cmd_repl),
+    "cdc": (CdcArgs, cmd_cdc),
     "inspect": (InspectArgs, cmd_inspect),
 }
 

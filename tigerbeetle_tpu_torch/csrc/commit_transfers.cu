@@ -2,8 +2,10 @@
 // wave mask), as one launch of one thread-block cluster.
 //
 // Replaces tigerbeetle_tpu/models/ledger.py LedgerKernels._commit_transfers
-// (:805-993, jitted :733; under a wave mask also through _wave_stepper
-// :2261), with ops/hashtable.py `claim_slots` (:162) for the inserts.
+// (:805-993, jitted :733; with the wave mask for a request of one wave, as
+// DeviceLedger._execute_waves runs it; the waves of a request of several
+// are K12's, wave_commit.cu), with ops/hashtable.py `claim_slots` (:162) for
+// the inserts.
 //
 // Bound on an H100: bytes. Per event it reads the 128-byte batch row, one
 // 32-byte sector per probe of the debit, credit and id chains (fast_pv:

@@ -1,7 +1,8 @@
 // The fast transfer commit of one batch over one thread-block cluster: the
-// phase body that K3 (commit_transfers.cu: one batch a launch) and K5
-// (group_commit.cu: k batch slots in one launch, one after another) both
-// run. Phases, with a cluster barrier (`cluster.sync()`) where a kernel
+// phase body that K3 (commit_transfers.cu: one batch a launch), K5
+// (group_commit.cu: k batch slots in one launch, one after another) and K12
+// (wave_commit.cu: the waves of one batch in one launch, kWaves) run.
+// Phases, with a cluster barrier (`cluster.sync()`) where a kernel
 // boundary stood:
 //   (0) each block zeroes its header in shared memory: fault bits, and in
 //       block 0 the rounds' want flags, which every warp reaches through
@@ -36,8 +37,8 @@
 // pre-batch snapshot; nothing writes a table before (e). Scratch written by
 // one phase and read by another thread is read past L1 (__ldcg).
 //
-// K5's later slots read what earlier slots wrote from other SMs of the
-// cluster. Every such read comes after a cluster barrier, and the barrier's
+// K5's later slots (and K12's later waves) read what earlier ones wrote from
+// other SMs of the cluster. Every such read comes after a cluster barrier, and the barrier's
 // wait is an acquire that the compiler follows with an invalidation of the
 // SM's L1 (CCTL.IVALL after UCGABAR_WAIT in the SASS of sm_90a;
 // chip_smoke.py checks it in K5's kernel), so no weak load after it finds a
@@ -102,10 +103,12 @@ struct XferState {
   ClaimScratch claim_sc;
 };
 
-// One batch: K3's launch, or one slot of K5's (in shared memory).
+// One batch: K3's launch, one slot of K5's (in shared memory), or K12's
+// batch, run once a wave.
 struct XferBatch {
   const uint32_t* batch;
-  const uint8_t* mask;  // nullable: the wave mask
+  // nullable: the wave mask (K3); K12: each lane's wave, 255 for none
+  const uint8_t* mask;
   int n;
   ull timestamp;
   int32_t* results;
@@ -153,13 +156,37 @@ static XferState xfer_args(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,
   return a;
 }
 
+// Phase (a) for a lane that no wave of this pass holds (kWaves): the
+// scratch words that the later phases read, as a failed lane leaves them,
+// with no probe. Its code is written in wave 0 only, which zeroes the codes
+// of the lanes that a later wave, or none, holds.
+__device__ __forceinline__ void idle_lane(const XferState& a, const XferBatch& b, int i,
+                                          int wave) {
+  a.claim_sc.won[i] = 0;
+  a.claim_sc.want[i] = 0;
+  a.ins_slot[i] = (int64_t)1 << a.t_log2;
+  if (wave == 0) b.results[i] = 0;
+  a.ok[i] = 0;
+  a.lane_flags[i] = 0;
+  a.slot2[i] = -1;
+  a.slot2[a.B + i] = -1;
+}
+
 // Phase (a) for lane i, with claim round 0; returns its fault bits, sets
-// *ok, and sets *want0 if the lane contends for a slot.
+// *ok, and sets *want0 if the lane contends for a slot. With kWaves (K12)
+// the lane is live only in the wave `b.mask[i]` names; in any other it
+// takes idle_lane.
+template <bool kWaves>
 __device__ __forceinline__ uint32_t validate_lane(const XferState& a, const XferBatch& b, int i,
-                                                  bool* ok_out, bool* want0) {
+                                                  int wave, bool* ok_out, bool* want0) {
+  if (kWaves && !(i < b.n && b.mask[i] == (uint8_t)wave)) {
+    idle_lane(a, b, i, wave);
+    *ok_out = false;
+    return 0u;
+  }
   Row row = load_row(b.batch + (size_t)i * ROW_WORDS);
   Xfer e = unpack_transfer(row);
-  bool valid = i < b.n && (b.mask == nullptr || b.mask[i]);
+  bool valid = kWaves || (i < b.n && (b.mask == nullptr || b.mask[i]));
   ull ts = event_ts(b.timestamp, b.n, i);
   uint32_t r0 = transfer_common(e, e.ts != 0 ? 3u : 0u);
   Xfer ea = e;
@@ -295,11 +322,12 @@ __device__ __forceinline__ void insert_rows(const XferState& a, const XferBatch&
 }
 
 // Phases (0)-(e) for batch `b` over state `a`, run by every thread of the
-// cluster; with kPastL1 the claim selects read the table past L1.
-template <bool kPastL1>
+// cluster; with kPastL1 the claim selects read the table past L1; with
+// kWaves only the lanes of wave `wave` (K12).
+template <bool kPastL1, bool kWaves = false>
 __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_group& cluster,
                                                  const XferState& a, const XferBatch& b,
-                                                 XferShared& sh) {
+                                                 XferShared& sh, int wave = 0) {
   uint32_t* want = cluster.map_shared_rank(sh.hdr.want, 0);
   const int t = (int)cluster.thread_rank();
   const int stride = (int)cluster.num_threads();
@@ -320,7 +348,7 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
   bool wants = false;
   for (int i = t; i < a.B; i += stride) {
     bool ok;
-    bad |= validate_lane(a, b, i, &ok, &wants);
+    bad |= validate_lane<kWaves>(a, b, i, wave, &ok, &wants);
     ok_n += ok;
     if (ok) ts_max = max(ts_max, event_ts(b.timestamp, b.n, i));
   }

@@ -15,6 +15,7 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     commit_transfers_fast   K3  LedgerKernels._commit_transfers (fast, fast_pv)
     commit_transfers_serial K4  LedgerKernels._serial_transfers_core
     group_commit            K5  DeviceLedger._group_stepper
+    wave_commit             K12 DeviceLedger._wave_stepper
     fingerprint             K6  state_fingerprint
     install_rows            K9  DeviceLedger._install_fn (one chunk, or
                                 a table chunk by chunk: install_rows_chunked)
@@ -68,6 +69,7 @@ LAUNCHES = {
     "commit_transfers_fast": 0,
     "commit_transfers_serial": 0,
     "group_commit": 0,
+    "wave_commit": 0,
     "fingerprint": 0,
     "install_rows": 0,
     "fold": 0,
@@ -93,6 +95,8 @@ _SIGNATURES = {
                                    _P, _P, _P],
     "tb_group_commit": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                         _P, _P, _P, _P],
+    "tb_wave_commit": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _U64, _I,
+                       _I, _P, _P, _P],
     "tb_fingerprint": [_P, _I64, _P, _I64, _P, _P, _P, _P],
     "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _P, _P],
     "tb_fold": [_P, _I64, _I, _I, ctypes.c_char_p, _P, _P, _I, _P, _P],
@@ -389,6 +393,32 @@ def group_commit(state, rows, ns, tss, a_log2: int, t_log2: int):
             _ptr(rows), k, n_pad, ns.ctypes.data, tss.ctypes.data, _ptr(flat), _ptr(summary),
             _ptr(scratch), _stream())
     return flat, summary
+
+
+WAVE_MAX = 24  # csrc/wave_commit.cu WAVE_MAX (models/ledger.py WAVE_CAP)
+
+
+def wave_commit(state, rows_b, wave_of, waves: int, n: int, timestamp: int,
+                a_log2: int, t_log2: int, pv_mode: bool):
+    """K12: commit `rows_b` (lanes < n) into `state` in place wave by wave,
+    w = 0 .. waves - 1, wave w's lanes those with wave_of[i] == w (uint8 [B];
+    255 for a lane of no wave), with K3's fast-tier phases, in one launch of
+    one cluster. Returns int32 codes [B]: each lane's from its own wave, 0
+    for a lane of no wave."""
+    B = _check_batch(rows_b, n)
+    _check_fast_state(state, a_log2, t_log2)
+    _need(wave_of, torch.uint8, 1, "wave_of")
+    if wave_of.shape[0] != B or not 1 <= waves <= WAVE_MAX:
+        raise ValueError(f"waves: {waves} over {wave_of.shape[0]} lanes for a batch of {B}")
+    results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
+    scratch = _scratch("tb_commit_transfers_fast_scratch", B, rows_b.device)
+    _launch("tb_wave_commit", "wave_commit",
+            _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
+            _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
+            *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
+            _ptr(rows_b), _ptr(wave_of), B, n, _u64(timestamp), waves, int(pv_mode),
+            _ptr(results), _ptr(scratch), _stream())
+    return results
 
 
 _kept_tls = threading.local()

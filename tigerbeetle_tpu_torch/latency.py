@@ -1,5 +1,5 @@
 """Latency anatomy (the counterpart of `tigerbeetle_tpu/latency.py`, cut to
-what the replica and the dual-commit follower use).
+what the replica, the ingress gateway and the dual-commit follower use).
 
 The replica stamps each sampled request as it crosses the consecutive legs
 of its pipeline (`LatencyAnatomy`, `LEG_*`), from admission to reply egress,
@@ -212,6 +212,17 @@ class LatencyAnatomy:
         read this)."""
         out = [rec for _e2e, rec in reversed(self._slow)]
         return out[:limit] if limit else out
+
+
+class _NullAnatomy(LatencyAnatomy):
+    """Stamping disabled entirely (sample_every=0 shares the same fast
+    path; this exists for callers that want a shared inert instance)."""
+
+    def __init__(self):
+        super().__init__(metrics=NULL_METRICS, sample_every=0)
+
+
+NULL_ANATOMY = _NullAnatomy()
 
 
 # -- device applier anatomy (models/dual_ledger.py apply loop) ---------

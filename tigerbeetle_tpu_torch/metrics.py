@@ -1,6 +1,6 @@
 """Metric registry: counters, gauges, timing histograms (the counterpart
-of `tigerbeetle_tpu/metrics.py`, cut to what the port's dual-commit
-follower, device ledger and server process use).
+of `tigerbeetle_tpu/metrics.py`: what the port's dual-commit follower,
+device ledger and server process use, and the metric catalog).
 
 - one `Metrics` registry per process, so the follower's `shadow.*`
   counters, its lag and overlap gauges and the device ledger's staging and
@@ -15,7 +15,10 @@ follower, device ledger and server process use).
   deltas, windowed histogram percentiles), the history the server's
   `[stats]` wire command and `inspect live --watch` read;
 - `NULL_METRICS` is the no-op backend: every handle is a shared singleton
-  whose methods do nothing.
+  whose methods do nothing;
+- `CATALOG` names every metric the instrumented pipeline emits, with its
+  kind, unit and meaning: the JAX package's catalog, so that both packages'
+  servers are held to the same names.
 """
 
 from __future__ import annotations
@@ -481,3 +484,240 @@ class _NullGroup(dict):
 
 
 NULL_METRICS = NullMetrics()
+
+
+# -- metric-name catalog (units; surfaced in README's observability
+# section; the registry does not enforce it — it documents the names the
+# instrumented pipeline emits) --
+
+CATALOG = {
+    # replica commit pipeline
+    "commit.group.fused_ops": ("counter", "ops", "ops committed via a fused group dispatch"),
+    "commit.group.solo_ops": ("counter", "ops", "ops committed via the per-op fallback"),
+    "commit.group.fused_groups": ("counter", "groups", "fused group dispatches"),
+    "commit.group.fuse_holds": ("counter", "", "fuse-window holds opened on a short run"),
+    "commit.group.fuse_expired": ("counter", "", "holds expired with the run still short"),
+    "commit.group.wave_ops": ("counter", "ops", "ops committed via the conflict-wave scheduler"),
+    "commit.group.wave_dispatches": (
+        "counter", "waves", "waves dispatched across wave-scheduled ops"
+    ),
+    # conflict-wave scheduler (models/ledger.py HazardTracker.plan +
+    # DeviceLedger._execute_waves)
+    "waves.batches": ("counter", "", "batches executed through the wave scheduler"),
+    "waves.per_batch": ("histogram", "waves", "dependency-ordered waves per scheduled batch"),
+    "waves.chain_len_max": ("gauge", "waves", "deepest dependency chain wave-executed so far"),
+    "waves.occupancy": ("gauge", "", "active-lane fraction per wave of the last scheduled batch"),
+    "waves.residue_events": ("counter", "events", "events that fell to the serial residue"),
+    "replica.quorum_wait_us": ("histogram", "us", "prepare broadcast -> replication quorum"),
+    "replica.fuse_hold_us": ("histogram", "us", "group-commit fuse-window hold duration"),
+    "replica.commit_dispatch_us": ("histogram", "us", "host time staging+launching one commit"),
+    "replica.commit_finalize_us": ("histogram", "us", "drain + reply build + reply-slot write"),
+    "replica.checkpoint_us": ("histogram", "us", "durable checkpoint (snapshot + trailers)"),
+    "replica.checkpoints": ("counter", "", "checkpoints taken"),
+    "grid.repair_requests": ("counter", "", "block repair rounds requested from peers"),
+    # journal
+    "journal.write_us": ("histogram", "us", "WAL prepare+header write (sync or worker)"),
+    "journal.writes": ("counter", "", "prepares written to the WAL"),
+    # message bus
+    "bus.frames": ("counter", "", "frames parsed and dispatched"),
+    "bus.tx_bytes": ("counter", "bytes", "bytes written to sockets"),
+    "bus.flushes": ("counter", "", "deferred-send flush passes"),
+    "bus.pump_us": ("histogram", "us", "event-loop pump turns that dispatched frames"),
+    "bus.reconnects": ("counter", "conns", "successful re-dials to a previously reached replica"),
+    "bus.dial_failures": ("counter", "", "dials refused/errored (arms the reconnect backoff)"),
+    # client runtime (vsr/client.py tick state machine)
+    "client.timeouts": ("counter", "", "request timeouts fired (loss ladder)"),
+    "client.resends": ("counter", "", "request retransmissions (timeout, busy, legacy resend)"),
+    "client.retargets": ("counter", "", "timeout resends aimed off-primary (round-robin walk)"),
+    "client.busy_sheds": ("counter", "", "typed busy replies accepted for the in-flight request"),
+    "client.pings": ("counter", "", "idle ping_client rounds (view discovery)"),
+    "client.pongs": ("counter", "", "pong_client replies (view learned while idle)"),
+    "client.evictions": ("counter", "", "sessions evicted by the cluster"),
+    "client.reregisters": ("counter", "", "automatic post-eviction re-registrations"),
+    "client.deadline_timeouts": ("counter", "", "requests dropped at their per-request deadline"),
+    "client.stale_replies": ("counter", "", "duplicate/stale replies ignored (dedup)"),
+    # live chaos harness (testing/chaos.py)
+    "chaos.kills": ("counter", "", "replica processes SIGKILLed"),
+    "chaos.restarts": ("counter", "", "replica processes respawned"),
+    "chaos.gray_stops": ("counter", "", "SIGSTOP gray failures injected"),
+    "chaos.conn_resets": ("counter", "", "client connection reset storms injected"),
+    "chaos.recovery_ms": ("histogram", "ms", "fault to first client reply after it"),
+    # server event loop (cli.py)
+    "loop.busy_s": ("counter", "s", "event-loop busy wall time (pump+commit+flush)"),
+    "loop.turns": ("counter", "", "busy event-loop turns"),
+    "server.ops_committed": ("counter", "ops", "ops committed since boot"),
+    "server.commit_min": ("gauge", "op", "highest committed op"),
+    # LSM
+    "lsm.lookup_batches": ("counter", "", "batched multi-point-reads (Tree.get_many)"),
+    "lsm.lookup_ids": ("counter", "", "ids resolved through get_many"),
+    "lsm.bloom_probes": ("counter", "", "per-table bloom-filter probes"),
+    "lsm.bloom_negatives": ("counter", "", "candidates pruned by a bloom filter"),
+    "lsm.get_many_us": ("histogram", "us", "one batched multi-point-read"),
+    "lsm.compact_us": ("histogram", "us", "one tree settle/compaction step"),
+    "grid.block_reads": ("counter", "", "block-cache misses read from storage"),
+    "grid.corrupt_blocks": ("counter", "", "reads that tripped GridBlockCorrupt"),
+    # spill pipeline (models/spill.py `spill.*` StatGroup + timings)
+    "spill.cycles": ("counter", "", "spill cycles (cold tail -> LSM)"),
+    "spill.spilled": ("counter", "rows", "rows spilled to the forest"),
+    "spill.reloaded": ("counter", "rows", "spilled rows reloaded into HBM"),
+    "spill.prefetches": ("counter", "", "prefetch_async jobs started"),
+    "spill.prefetched": ("counter", "rows", "rows served from a prefetch"),
+    "spill.t_prefetch_worker": ("counter", "s", "executor seconds gathering prefetched rows"),
+    "spill.t_prefetch_wait": ("counter", "s", "seconds admit blocked on an unfinished prefetch"),
+    "spill.staging_wait_us": ("histogram", "us", "reload staging-slot fence waits"),
+    "spill.admit_us": ("histogram", "us", "pre-commit admission (reload + cycle)"),
+    # device shadow (models/dual_ledger.py `shadow.*` StatGroup)
+    "shadow.batches": ("counter", "", "batches applied by the device shadow"),
+    "shadow.groups": ("counter", "", "fused shadow group dispatches"),
+    "shadow.solo": ("counter", "", "per-batch shadow dispatches"),
+    "shadow.stage_s": ("counter", "s", "host seconds staging+dispatching shadow work"),
+    "shadow.idle_s": ("counter", "s", "shadow loop seconds blocked on an empty queue"),
+    "shadow.overlapped": ("counter", "", "groups staged while the previous kernel ran"),
+    # dual-commit follower mode (`--backend dual`)
+    "shadow.device_lag_ops": ("gauge", "ops", "committed ops not yet device-dispatched"),
+    "shadow.device_apply_overlap": ("gauge", "", "fused applies staged while the prior kernel ran"),
+    "shadow.drain_timeouts": ("counter", "", "applier drains that timed out (parity at risk)"),
+    # device ledger
+    "ledger.staging_wait_us": ("histogram", "us", "group staging double-buffer fence waits"),
+    # change-data-capture (tigerbeetle_tpu_torch/cdc/pump.py)
+    "cdc.ops": ("counter", "ops", "committed ops streamed (gap spans excluded)"),
+    "cdc.records": ("counter", "records", "change records accepted by the sink"),
+    "cdc.gap_ops": ("counter", "ops", "ops covered by declared gap records"),
+    "cdc.lag_ops": ("gauge", "ops", "commit_min minus the next un-streamed op"),
+    "cdc.backpressure_pauses": ("counter", "", "pump pauses on a refusing sink (transitions)"),
+    "cdc.live_hits": ("counter", "ops", "ops served from the live hook window"),
+    "cdc.journal_reads": ("counter", "ops", "ops re-read from the WAL ring"),
+    "cdc.aof_reads": ("counter", "ops", "ops replayed from the AOF (oracle-derived results)"),
+    "cdc.results_unknown": ("counter", "ops", "create ops streamed without a reply buffer"),
+    "cdc.resume_forks": ("counter", "", "cursor checksum mismatches detected at resume"),
+    "cdc.cursor_writes": ("counter", "", "durable cursor acks (atomic write-rename)"),
+    "cdc.pump_us": ("histogram", "us", "one bounded pump turn (encode + emit)"),
+    "cdc.commitment_records": (
+        "counter", "records", "checkpoint state-commitment records emitted"
+    ),
+    # cross-ledger federation (tigerbeetle_tpu_torch/federation): the
+    # settlement agent's per-region counters — at-least-once delivery
+    # means the leg counters can exceed unique-event counts across agent
+    # crash/redelivery (the conservation check is the authority)
+    "federation.inflight_legs": (
+        "gauge", "legs", "settlement legs staged and unresolved in the agent window"
+    ),
+    "federation.outbound_seen": (
+        "counter", "legs", "outbound origin pendings recognized in the stream"
+    ),
+    "federation.legs_posted": (
+        "counter", "legs", "origin pendings settled (mirror leg ok, origin posted)"
+    ),
+    "federation.legs_voided": (
+        "counter", "legs", "origin pendings voided (mirror leg terminally rejected)"
+    ),
+    "federation.sink_refusals": (
+        "counter", "", "ops refused at the agent window (pump retries them)"
+    ),
+    "federation.anomalies": (
+        "counter", "legs", "resolve replies outside the expected code family"
+    ),
+    # ingress gateway + bus front door (tigerbeetle_tpu_torch/ingress)
+    "ingress.sessions": ("gauge", "sessions", "live logical sessions in the gateway table"),
+    "ingress.admitted": ("counter", "requests", "requests admitted by the credit regulator"),
+    "ingress.shed": ("counter", "requests", "requests answered with a typed busy reply"),
+    "ingress.shed_sessions": ("counter", "requests", "new sessions shed at the gateway cap"),
+    "ingress.retransmits": ("counter", "requests", "retransmits bypassing admission"),
+    "ingress.passthrough_backup": (
+        "counter", "requests", "requests passed through on a non-primary"
+    ),
+    "ingress.accepts": ("counter", "conns", "connections taken by the accept-drain loop"),
+    "ingress.shed_conn": ("counter", "sends", "sends refused at a per-connection queue cap"),
+    "ingress.shed_pool": ("counter", "sends", "sends refused at the shared message-pool budget"),
+    "ingress.disconnect_wedged": ("counter", "conns", "wedged consumers cut at the strike limit"),
+    "ingress.fanout_consumers": ("gauge", "consumers", "CDC fan-out consumers on one tail"),
+    "ingress.fanout_lag_ops": ("gauge", "ops", "slowest fan-out consumer vs the watermark"),
+    # per-request critical-path attribution (tigerbeetle_tpu_torch/latency.py;
+    # legs are CONSECUTIVE intervals, so a request's legs sum to its e2e)
+    "latency.ingress_admission_us": (
+        "histogram", "us", "arrival/gateway admit -> request admission+dedup done"
+    ),
+    "latency.wal_write_us": (
+        "histogram", "us", "prepare built + WAL write issued (sync path: completed)"
+    ),
+    "latency.quorum_wait_us": (
+        "histogram", "us", "prepare broadcast -> replication quorum reached"
+    ),
+    "latency.fuse_hold_us": (
+        "histogram", "us", "quorum-ready -> commit dispatch entry (group-fuse hold)"
+    ),
+    "latency.commit_dispatch_us": (
+        "histogram", "us", "commit dispatch (stage + device launch)"
+    ),
+    "latency.commit_wait_us": (
+        "histogram", "us", "dispatch -> finalize entry (async window / device compute)"
+    ),
+    "latency.commit_finalize_us": (
+        "histogram", "us", "finalize (WAL ack wait + drain + reply build)"
+    ),
+    "latency.reply_egress_us": (
+        "histogram", "us", "reply built -> reply leaves (bus flush / send)"
+    ),
+    "latency.e2e_us": (
+        "histogram", "us", "arrival -> reply egress (the legs above sum to this)"
+    ),
+    "latency.samples": ("counter", "requests", "requests stamped end to end"),
+    "latency.dropped": (
+        "counter", "requests", "open records evicted unfinished (shed/lost replies)"
+    ),
+    # parallel lanes (observed off the critical path, never in e2e)
+    "latency.device_apply_lag_us": (
+        "histogram", "us", "dual mode: commit finalize enqueue -> device upload"
+    ),
+    "latency.wal_lane_us": (
+        "histogram", "us", "async WAL: submit -> durable on the writer pool"
+    ),
+    # device applier anatomy (latency.py DeviceAnatomy, stamped by
+    # models/dual_ledger.py's apply loop; sub-legs are CONSECUTIVE, so a
+    # sampled item's sub-legs sum to its apply_e2e exactly — this is the
+    # decomposition of the replica's commit_wait leg)
+    "device.queue_wait_us": (
+        "histogram", "us", "apply_commit enqueue -> apply-loop dequeue"
+    ),
+    "device.coalesce_hold_us": (
+        "histogram", "us", "dequeue -> item's stretch enters staging (run assembly)"
+    ),
+    "device.h2d_stage_us": (
+        "histogram", "us", "staging entry -> h2d upload issued (group path)"
+    ),
+    "device.dispatch_us": (
+        "histogram", "us", "upload issued -> kernel dispatch call returned"
+    ),
+    "device.device_busy_us": (
+        "histogram", "us", "dispatch -> fold digest fence ready (device compute)"
+    ),
+    "device.finalize_visible_us": (
+        "histogram", "us", "fence ready -> applied counters/parity visible"
+    ),
+    "device.apply_e2e_us": (
+        "histogram", "us", "enqueue -> finalize-visible (the sub-legs sum to this)"
+    ),
+    "device.samples": ("counter", "items", "apply items stamped end to end"),
+    # device applier throughput surfaces (flight-recorder device columns)
+    "device.queue_depth": ("gauge", "items", "apply-queue depth at the last dequeue"),
+    "device.h2d_bytes": ("counter", "bytes", "event bytes staged for device upload"),
+    "device.dispatches": ("counter", "", "device kernel dispatches (group or solo)"),
+    # compile sentinel (models/ledger.py CompileSentinel wrapping every
+    # jit entry point; post-warmup compiles are hot-path events)
+    "device.compiles": ("counter", "", "XLA compiles observed at any jit entry point"),
+    "device.compiles_post_warmup": (
+        "counter", "", "compiles landing AFTER warmup — hot-path recompile events"
+    ),
+    "device.compile_ms": ("histogram", "ms", "wall time of one observed XLA compile"),
+    # XLA trace bridge (--device-trace profiler window on the applier)
+    "device.trace_windows": ("counter", "", "bounded jax.profiler windows captured"),
+    # time-series flight recorder (metrics.py FlightRecorder)
+    "flight.records": ("counter", "", "flight-recorder snapshots taken"),
+    "flight.marks": ("counter", "", "phase-marker transitions stamped (prodday `mark`)"),
+    "inspect.marks": ("counter", "", "`mark` wire commands served (vsr/replica.py _on_mark)"),
+    # cluster-causal tracing + introspection (tracer.py, inspect.py)
+    "trace.sigquit_dumps": ("counter", "", "SIGQUIT hang-diagnosis dumps taken"),
+    "inspect.live_requests": ("counter", "", "live [stats] snapshots served over the wire"),
+    # bench driver
+    "bench.batch_latency_us": ("histogram", "us", "synced single-batch dispatch latency"),
+}

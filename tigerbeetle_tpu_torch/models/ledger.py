@@ -618,6 +618,39 @@ def commit_transfers_fast(state, rows_b, n: int, timestamp: int,
 
 
 # ----------------------------------------------------------------------
+# K12: the conflict waves of one batch
+# ----------------------------------------------------------------------
+
+
+def commit_transfers_waves_plain(state, rows_b, wave_of, n_waves: int, n: int,
+                                 timestamp: int, a_log2: int, t_log2: int,
+                                 pv_mode: bool):
+    """Plain version of K12 (`DeviceLedger._wave_stepper`): for w = 0 ..
+    n_waves - 1, the masked fast (or fast_pv) commit of the lanes with
+    wave_of == w, each wave seeing the state the wave before it left; a
+    fault makes every later wave a no-op (K3's sticky gate). Each lane is
+    live in one wave and 0 elsewhere, so the codes fold with a max. Updates
+    `state` in place; returns int32 codes [B]."""
+    results = torch.zeros(rows_b.shape[0], dtype=I32, device=rows_b.device)
+    for w in range(n_waves):
+        r = commit_transfers_fast_plain(state, rows_b, n, timestamp, a_log2, t_log2,
+                                        pv_mode, wave_of == w)
+        results = torch.maximum(results, r)
+    return results
+
+
+def commit_transfers_waves(state, rows_b, wave_of, n_waves: int, n: int, timestamp: int,
+                           a_log2: int, t_log2: int, pv_mode: bool):
+    """K12 wrapper: the plain version for CPU tensors, the CUDA kernel else
+    (`wave_of` uint8, 255 for the lanes of no wave)."""
+    if _check_device(rows_b):
+        return _k.wave_commit(state, rows_b, wave_of, n_waves, n, timestamp,
+                              a_log2, t_log2, pv_mode)
+    return commit_transfers_waves_plain(state, rows_b, wave_of, n_waves, n, timestamp,
+                                        a_log2, t_log2, pv_mode)
+
+
+# ----------------------------------------------------------------------
 # K5: fused group commit of k fast-tier batches
 # ----------------------------------------------------------------------
 
@@ -1227,6 +1260,17 @@ class LedgerKernels:
         return commit_transfers_fast(
             state, rows, n, timestamp, self.a_log2, self.t_log2,
             mode == "fast_pv", ev.get("mask"),
+        )
+
+    def commit_waves(self, state, rows, wave_of, n_waves: int, n: int, timestamp: int,
+                     mode: str = "fast"):
+        """The n_waves conflict waves of one batch (K12): wave w's lanes are
+        those with wave_of == w (uint8, 255 for none)."""
+        if mode not in ("fast", "fast_pv"):
+            raise ValueError(mode)
+        return commit_transfers_waves(
+            state, rows, wave_of, n_waves, n, timestamp, self.a_log2, self.t_log2,
+            mode == "fast_pv",
         )
 
     def commit_transfers_residue(self, state, ev, n: int):
@@ -2067,23 +2111,36 @@ class DeviceLedger(HostLedgerBase):
 
     def _execute_waves(self, arr, n: int, timestamp: int, plan):
         """Conflict-scheduled wave execution (the HazardTracker.plan layout):
-        the batch uploads once, then the waves run in dependency order as
-        masked fast/fast_pv launches (wave w+1's lookups see wave w's rows),
-        and the serial residue, if any, runs last, compacted, with its
-        events' original timestamps; its codes go back to their lanes."""
+        the batch and each lane's wave upload once, then the waves run in
+        dependency order (wave w+1's lookups see wave w's rows): one masked
+        fast/fast_pv commit (K3) for one wave, one launch of all of them
+        (K12) for more. The serial residue, if any, runs last, compacted,
+        with its events' original timestamps; its codes go back to their
+        lanes."""
         dev = self.device
+        W = plan.n_waves
         mode = "fast_pv" if plan.has_pv else "fast"
         rows_dev = transfers_to_batch(arr, dev)["rows"]
-        wave_of = torch.from_numpy(plan.wave_of[:n].astype(np.int64)).to(dev)
-        results = torch.zeros(n, dtype=I32, device=dev)
-        for w in range(plan.n_waves):
-            # each lane is live in one wave and 0 elsewhere: fold with max
-            r = self.kernels.commit_transfers(
-                self.state, {"rows": rows_dev, "mask": wave_of == w}, n,
+        wl = plan.wave_of[:n] >= 0
+        m = self.metrics
+        m.counter("waves.batches").add()
+        m.histogram("waves.per_batch").observe(W)
+        g = m.gauge("waves.chain_len_max")
+        g.set(max(g.value, W))
+        m.gauge("waves.occupancy").set(round(float(wl.sum()) / max(1, W * n), 4))
+        if W == 1:
+            results = self.kernels.commit_transfers(
+                self.state, {"rows": rows_dev, "mask": torch.from_numpy(wl).to(dev)}, n,
                 timestamp, mode=mode,
             )
-            results = torch.maximum(results, r)
+        else:
+            # the residue's -1 becomes 255: a lane of no wave
+            wave_of = torch.from_numpy(plan.wave_of[:n].astype(np.uint8)).to(dev)
+            results = self.kernels.commit_waves(
+                self.state, rows_dev, wave_of, W, n, timestamp, mode=mode,
+            )
         if plan.residue_n:
+            m.counter("waves.residue_events").add(plan.residue_n)
             idx = np.nonzero(plan.wave_of[:n] < 0)[0]
             idx_dev = torch.from_numpy(idx.astype(np.int64)).to(dev)
             ts_res = batch_timestamps(timestamp, n, n, dev)[idx_dev]

@@ -96,11 +96,13 @@ def spawn(path: str, addresses: str, *, replica: int = 0, args: tuple = (),
 
 
 def spawn_cluster(paths: list, addresses: str, *, args: tuple = (), module: str = MODULE,
-                  env: dict | None = None) -> list:
+                  env: dict | None = None, replica_args=None) -> list:
     """Start replica i on paths[i], all at once, from this thread (a server
-    with the parent-death watchdog dies with the thread that started it);
-    return their processes once each has printed "listening"."""
-    procs = [_popen(p, addresses, i, args, module, env) for i, p in enumerate(paths)]
+    with the parent-death watchdog dies with the thread that started it),
+    with `args` and then `replica_args[i]` if given; return their processes
+    once each has printed "listening"."""
+    procs = [_popen(p, addresses, i, (*args, *(replica_args[i] if replica_args else ())),
+                    module, env) for i, p in enumerate(paths)]
     try:
         for proc in procs:
             _listening(proc)

@@ -22,10 +22,9 @@ DeviceLedger on `device`: "cuda" when None (the ledger raises where CUDA is
 missing), "cpu" for the kernels' plain versions.
 
 The port's copy of `tigerbeetle_tpu/testing/simulator.py`: the same seed
-draws the same faults, workload and schedule, in the same order. The CDC,
-fan-out, ingress, connect-storm, AOF-tail, commitment and scripted
-tick-hook options ride modules the port does not have yet (queues A6 and
-A7 of ROADMAP.md): they keep their parameters and raise
+draws the same faults, workload and schedule, in the same order. The
+commitment and scripted tick-hook options ride modules the port does not
+have yet (queue A7 of ROADMAP.md): they keep their parameters and raise
 NotImplementedError when set.
 """
 
@@ -54,8 +53,275 @@ CLIENT_ID_BASE = 1 << 64
 CLIENT_RETRY_TICKS = 30
 
 
+def _apply_op_lines(store, lines: list[str]) -> bool:
+    """One op's records into a durable consumer store, APPLY-ONCE by op
+    (shared by the single consumer and every fan-out consumer): ops at
+    or below the applied high-water mark are redeliveries and must
+    change nothing; gap records clip to unapplied ops."""
+    import json as _json
+
+    store.raw_lines.extend(lines)
+    first = _json.loads(lines[0])
+    if first.get("kind") == "gap":
+        # clip to ops not already applied: a post-crash pump resuming
+        # from the cursor may declare a span overlapping applied-but-
+        # unacked ops — for those this is just redelivery-as-gap (the
+        # store already holds them), not lost history
+        lo = max(first["from"], store.applied_op + 1)
+        if lo <= first["to"]:
+            store.gaps.append((lo, first["to"]))
+            store.stream.extend(lines)
+        else:
+            store.redelivered_ops += 1
+        store.applied_op = max(store.applied_op, first["to"])
+        return True
+    op = first["op"]
+    if op <= store.applied_op:
+        store.redelivered_ops += 1
+        return True  # dedup: accepted, zero effect
+    store.stream.extend(lines)
+    store.applied_ops.append(op)
+    store.applied_op = op
+    for line in lines:
+        rec = _json.loads(line)
+        for account, field, amount in rec.get("deltas", ()):
+            acct = store.balances.setdefault(account, {})
+            acct[field] = acct.get(field, 0) + amount
+    return True
+
+
+class SimCdcConsumer:
+    """Deterministic CDC consumer for the VOPR: tails one replica's
+    committed stream through a REAL CdcPump into a durable store, with a
+    seeded crash/restart schedule for the consumer itself (the subsystem's
+    fault model: the pump and its live window are volatile; the cursor and
+    the downstream store survive, exactly what a process crash leaves).
+
+    Redelivery happens whenever a crash lands between sink-accept and
+    cursor-ack (and whenever the tailed replica itself restarts and
+    re-commits from its checkpoint) — the store dedups at APPLY time by
+    op, which is the at-least-once contract under test: raw_lines may
+    carry duplicates, `stream`/`balances` must not."""
+
+    def __init__(self, sim: "Simulator", index: int, seed: int,
+                 crash_probability: float = 0.01,
+                 restart_ticks_max: int = 40):
+        self.sim = sim
+        self.index = index
+        self.rng = random.Random(seed * 19 + 5)
+        self.crash_probability = crash_probability
+        self.restart_ticks_max = restart_ticks_max
+        from tigerbeetle_tpu_torch.cdc import MemoryCursor
+
+        # durable across consumer crashes
+        self.cursor = MemoryCursor()
+        self.raw_lines: list[str] = []  # as delivered (may hold dups)
+        self.stream: list[str] = []  # deduped applied stream
+        self.applied_ops: list[int] = []
+        self.applied_op = 0
+        self.balances: dict[int, dict[str, int]] = {}
+        self.gaps: list[tuple[int, int]] = []
+        self.redelivered_ops = 0
+        self.crashes = 0
+        # volatile
+        self._pump = None
+        self._down_until: int | None = None
+
+    # -- the durable downstream store, as a sink --
+
+    def emit_lines(self, lines: list[str]) -> bool:
+        """One op's records (the pump emits op-atomically). Apply-once:
+        ops at or below the applied high-water mark are redeliveries and
+        must change nothing."""
+        return _apply_op_lines(self, lines)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+    # -- lifecycle --
+
+    def _attach(self) -> None:
+        from tigerbeetle_tpu_torch.cdc import CdcPump
+
+        self._pump = CdcPump(
+            self.sim.replicas[self.index], self, self.cursor,
+            window=32, ack_interval=4,
+        )
+        self._pump.attach()
+
+    def tick(self, now: int) -> None:
+        if self._down_until is not None:
+            if now < self._down_until:
+                return
+            self._down_until = None
+        if self._pump is not None and self.rng.random() < self.crash_probability:
+            # consumer crash: the pump, its live window, and any progress
+            # past the last cursor ack are gone
+            self.crashes += 1
+            self._pump.detach()
+            self._pump = None
+            self._down_until = now + self.rng.randint(
+                5, self.restart_ticks_max
+            )
+            return
+        if self._pump is None:
+            self._attach()
+        elif self._pump.replica is not self.sim.replicas[self.index]:
+            # the tailed replica restarted: re-subscribe to the new
+            # process (its recovery re-commits redeliver; the store dedups)
+            self._pump.detach()
+            self._attach()
+        if self.index in self.sim.down:
+            return  # tailed replica down: the stream simply stalls
+        self._pump.pump(budget_ops=4)
+
+    def drain(self, budget_turns: int = 2000) -> None:
+        """Post-heal: stream everything committed (no more crashes)."""
+        self.crash_probability = 0.0
+        if self._pump is None or (
+            self._pump.replica is not self.sim.replicas[self.index]
+        ):
+            if self._pump is not None:
+                self._pump.detach()
+            self._attach()
+        r = self.sim.replicas[self.index]
+        for _ in range(budget_turns):
+            self._pump.pump(budget_ops=16)
+            if self._pump.next_op > r.commit_min:
+                return
+        raise AssertionError(
+            f"cdc consumer failed to drain: next_op={self._pump.next_op} "
+            f"commit_min={r.commit_min}"
+        )
+
+
+class _FanoutStore:
+    """One fan-out consumer's durable downstream store (the sink +
+    apply-once dedup of SimCdcConsumer, without its crash schedule).
+    `throttle_every=k` models a slow consumer: every emission except
+    each k-th is REFUSED — count-based, so the refusal pattern is
+    deterministic and tick-independent."""
+
+    def __init__(self, throttle_every: int = 0):
+        self.throttle_every = throttle_every
+        self.raw_lines: list[str] = []
+        self.stream: list[str] = []
+        self.applied_ops: list[int] = []
+        self.applied_op = 0
+        self.balances: dict[int, dict[str, int]] = {}
+        self.gaps: list[tuple[int, int]] = []
+        self.redelivered_ops = 0
+        self.refusals = 0
+        self._attempts = 0
+
+    def emit_lines(self, lines: list[str]) -> bool:
+        if self.throttle_every:
+            self._attempts += 1
+            if self._attempts % self.throttle_every:
+                self.refusals += 1
+                return False
+        return _apply_op_lines(self, lines)
+
+    def flush(self) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class SimCdcFanout:
+    """N CDC consumers over ONE shared tail (the ingress fan-out hub,
+    tigerbeetle_tpu_torch/ingress/fanout.py) on replica `index`. The LAST
+    consumer is throttled (its sink refuses all but every k-th
+    emission): the backpressure-isolation contract under test is that
+    its lag grows while every other consumer's stays bounded — one slow
+    consumer pauses only its own cursor. Cursors are durable
+    (MemoryCursor), the hub volatile: a tailed-replica restart rebuilds
+    the hub and consumers resume from their cursors (redeliveries
+    dedup, like the single-consumer model)."""
+
+    THROTTLED = "slow"
+
+    def __init__(self, sim: "Simulator", index: int, seed: int,
+                 n_consumers: int, throttle_every: int = 4):
+        assert n_consumers >= 2
+        from tigerbeetle_tpu_torch.cdc import MemoryCursor
+
+        self.sim = sim
+        self.index = index
+        self.n_consumers = n_consumers
+        self.throttle_every = throttle_every
+        self.stores: dict[str, _FanoutStore] = {}
+        self.cursors: dict[str, MemoryCursor] = {}
+        for i in range(n_consumers - 1):
+            self.stores[f"c{i}"] = _FanoutStore()
+            self.cursors[f"c{i}"] = MemoryCursor()
+        self.stores[self.THROTTLED] = _FanoutStore(
+            throttle_every=throttle_every
+        )
+        self.cursors[self.THROTTLED] = MemoryCursor()
+        self.lag_max: dict[str, int] = {n: 0 for n in self.stores}
+        self.hub = None
+
+    def _attach(self) -> None:
+        from tigerbeetle_tpu_torch.ingress import CdcFanoutHub
+
+        aof = getattr(self.sim, "_fanout_aof", None)
+        self.hub = CdcFanoutHub(
+            self.sim.replicas[self.index], window=32,
+            aof_path=aof.name if aof is not None else None,
+        )
+        for name, store in self.stores.items():
+            self.hub.add_consumer(
+                name, store, self.cursors[name], ack_interval=4
+            )
+        self.hub.attach()
+
+    def tick(self, now: int) -> None:
+        if self.hub is None:
+            self._attach()
+        elif self.hub.replica is not self.sim.replicas[self.index]:
+            # the tailed replica restarted: re-subscribe; consumers
+            # resume from their durable cursors (redeliveries dedup)
+            self.hub.detach()
+            self._attach()
+        if self.index in self.sim.down:
+            return  # tailed replica down: every consumer stalls
+        self.hub.pump(budget_ops=4)
+        for name, lag in self.hub.lag_ops().items():
+            self.lag_max[name] = max(self.lag_max[name], lag)
+
+    def drain(self, budget_turns: int | None = None) -> None:
+        """Post-heal: every consumer streams to the committed head (the
+        throttled sink accepts one emission per `throttle_every`
+        attempts, so the budget scales with the op count)."""
+        if self.hub is None or (
+            self.hub.replica is not self.sim.replicas[self.index]
+        ):
+            if self.hub is not None:
+                self.hub.detach()
+            self._attach()
+        r = self.sim.replicas[self.index]
+        if budget_turns is None:
+            budget_turns = 2000 + (self.throttle_every + 1) * r.commit_min
+        for _ in range(budget_turns):
+            self.hub.pump(budget_ops=16)
+            if all(
+                p.next_op > r.commit_min for p in self.hub.pumps.values()
+            ):
+                return
+        raise AssertionError(
+            "cdc fan-out failed to drain: "
+            f"{[(n, p.next_op) for n, p in self.hub.pumps.items()]} "
+            f"commit_min={r.commit_min}"
+        )
+
+
 class SimClient:
-    """Workload client riding the client RUNTIME: retries, exponential
+    """Workload driver riding the client RUNTIME: retries, exponential
     backoff, round-robin re-targeting, busy backoff and (opt-in)
     re-registration all happen inside Client.tick() — the driver only
     issues work and takes replies, the same contract the live chaos
@@ -130,11 +396,6 @@ class SimClient:
 # the options that ride modules the port does not have yet, and the queue
 # of ROADMAP.md that ports them
 _UNPORTED = {
-    "cdc_consumer": "A6 (CDC)",
-    "cdc_fanout": "A6 (CDC and ingress)",
-    "ingress_gateway": "A6 (ingress)",
-    "storm_clients": "A6 (ingress)",
-    "tail_aof": "A6 (CDC) and A4 (the AOF)",
     "commitment_interval": "A7 (federation)",
     "tick_hook": "A7 (the production day)",
 }
@@ -193,16 +454,36 @@ class Simulator:
     ):
         from tigerbeetle_tpu_torch.constants import TEST_PROCESS
 
-        _refuse_unported(
-            cdc_consumer=cdc_consumer, cdc_fanout=cdc_fanout,
-            ingress_gateway=ingress_gateway, storm_clients=storm_clients,
-            tail_aof=tail_aof, commitment_interval=commitment_interval,
-            tick_hook=tick_hook,
-        )
+        _refuse_unported(commitment_interval=commitment_interval, tick_hook=tick_hook)
         self.process_config = process or TEST_PROCESS
         # each replica's DeviceLedger (backend_factory=None) is built on
         # this device, at the start and at every restart
         self.device = device
+        # set BEFORE the replica loop: every replica (including ones
+        # rebuilt by crash/restart) must retain CDC reply bodies from its
+        # first committed op, or a consumer resuming across a tailed-
+        # replica restart reads the WAL with the reply ring empty and
+        # streams result:null records
+        self.cdc_enabled = cdc_consumer or cdc_fanout > 0 or tail_aof
+        # Fan-out mode's AOF (see the cdc_fanout block below) — created
+        # BEFORE the replica loop so replica 0 appends from op 1.
+        # `tail_aof` forces it without fan-out consumers: an external
+        # harness (SimFederation's settlement agent) tailing replica 0
+        # needs the deep-resume source so its stream never gaps.
+        self._fanout_aof = None
+        if cdc_fanout or tail_aof:
+            import tempfile
+
+            self._fanout_aof = tempfile.NamedTemporaryFile(
+                prefix="tb_sim_aof_", suffix=".aof", delete=False
+            )
+            self._fanout_aof.close()
+        # Ingress gateway on every replica (tigerbeetle_tpu_torch/ingress):
+        # request admission through the credit regulator, saturated
+        # requests answered with typed busy replies the seeded clients
+        # retry through — set before the replica loop so restarted
+        # replicas get their gateway back too.
+        self.ingress_gateway = ingress_gateway
         # hash_log debugging surface (testing/hash_log.py; the reference's
         # -Dhash-log-mode): ("record"|"check", path). ONE log instance
         # lives across replica 0's crash/restarts — recovery re-commits
@@ -213,12 +494,19 @@ class Simulator:
             from tigerbeetle_tpu_torch.testing.hash_log import HashLog
 
             self.hash_log = HashLog(hash_log[0], path=hash_log[1])
-        # Latency-anatomy sampling override (tigerbeetle_tpu/latency.py):
+        # Latency-anatomy sampling override (tigerbeetle_tpu_torch/latency.py):
         # 0 keeps the replica default. Stamps ride the DeterministicTime
         # seam (virtual ticks), so forcing sample_every=1 must leave the
         # committed history byte-identical AND fold identical latency
         # histograms across runs of one seed (tests/test_latency.py).
         self.latency_sample_every = latency_sample_every
+        # Checkpoint state commitments (federation/commitment.py): every
+        # replica carries a CommitmentLog folding the backend fingerprint
+        # at op multiples of the interval; _check re-derives the chain
+        # from the god's-eye history through the oracle and compares
+        # every replica's ring — set before the replica loop so rebuilt
+        # replicas get their log back too.
+        self.commitment_interval = commitment_interval
         self.seed = seed
         self.rng = random.Random(seed)
         self.ticks_budget = ticks
@@ -328,6 +616,50 @@ class Simulator:
             self._new_sim_client(i) for i in range(n_clients)
         ]
 
+        # Deterministic CDC consumer (tigerbeetle_tpu_torch/cdc): tails replica
+        # 0's committed stream, with its own seeded crash/restart
+        # schedule; _check proves no gaps and no duplicated effects.
+        self.cdc = (
+            SimCdcConsumer(self, 0, seed,
+                           crash_probability=cdc_crash_probability)
+            if cdc_consumer else None
+        )
+
+        # CDC fan-out: N consumers (one deliberately throttled) over ONE
+        # shared tail on replica 0 — the ingress hub's backpressure-
+        # isolation contract under the full fault mix. The tailed
+        # replica writes an AOF (a real temp file; content is
+        # deterministic in the seed): the throttled consumer lags past
+        # the bounded reply-retention ring BY DESIGN, and the AOF-oracle
+        # replay is the source that keeps its deep reads carrying EXACT
+        # result codes — without it those ops would stream result:null
+        # (the documented results_unknown degradation).
+        self.cdc_fanout = (
+            SimCdcFanout(self, 0, seed, cdc_fanout,
+                         throttle_every=cdc_fanout_throttle)
+            if cdc_fanout else None
+        )
+
+        # Connect storm: at a seed-drawn tick, `storm_clients` NEW
+        # sessions register at once (every register is a consensus op
+        # through admission) and then join the workload.
+        self.storm_clients = storm_clients
+        self.storm_tick = (
+            self.rng.randint(ticks // 4, max(ticks // 2, ticks // 4 + 1))
+            if storm_clients else None
+        )
+        self._storm_seed = seed
+        # Scripted-scenario seam (tigerbeetle_tpu_torch/prodday.py run_sim_twin):
+        # called as tick_hook(sim, now) at the top of every tick, before
+        # the seeded fault draws — a timeline can set client duty, fire
+        # kill_primary(), flip wal_fault_probability or record a flight
+        # entry at exact tick offsets while staying deterministic (any
+        # rng the hook consumes is the sim's own, in tick order).
+        self.tick_hook = tick_hook
+        self._n_clients = n_clients
+        # (_client_batch/_workload_knobs were stored above, before the
+        # client list — _new_sim_client reads them)
+
     def _new_sim_client(self, i: int) -> SimClient:
         """One seeded workload client on the tick-driven runtime. The
         skew draws come from the client's OWN derived rng (not self.rng),
@@ -384,9 +716,28 @@ class Simulator:
             # only — every replica commits the same stream, and one
             # recording per seed is the reference's shape too
             self.hash_log.attach(r)
+        r.cdc_retain = self.cdc_enabled  # restarts keep the reply ring on
+        if i == 0 and getattr(self, "_fanout_aof", None) is not None:
+            # the fan-out tail's deep-resume source; reopened append-only
+            # across restarts (recovery re-commits append duplicates the
+            # replay source skips — the PR-4 torn/duplicate contract)
+            from tigerbeetle_tpu_torch.aof import AOF
+
+            r.aof = AOF(self._fanout_aof.name)
+        if self.commitment_interval:
+            from tigerbeetle_tpu_torch.federation.commitment import CommitmentLog
+
+            # before open(): the restart path restores the persisted
+            # chain from checkpoint meta and the WAL-tail replay
+            # re-records against it
+            r.commitment_log = CommitmentLog(self.commitment_interval)
         # thread timing must not leak into seeded deterministic runs
         r.sync_payload_async = False
         r.open()
+        if self.ingress_gateway:
+            from tigerbeetle_tpu_torch.ingress import IngressGateway
+
+            IngressGateway(self.net, r).install()
         return r
 
     # -- fault scheduling --
@@ -646,6 +997,8 @@ class Simulator:
         interleave several Simulators tick-by-tick and drive agents
         between them without forking the loop."""
         now = self.net.tick_now
+        if self.tick_hook is not None:
+            self.tick_hook(self, now)
         self._maybe_crash(now)
         self._maybe_grid_fault()
         self._maybe_restart(now)
@@ -653,8 +1006,17 @@ class Simulator:
             if i not in self.down:
                 self.times[i].tick()
                 r.tick()
+        if self.storm_tick is not None and now >= self.storm_tick:
+            self.storm_tick = None
+            base = len(self.clients)
+            for i in range(self.storm_clients):
+                self.clients.append(self._new_sim_client(base + i))
         for c in self.clients:
             c.tick(now)
+        if self.cdc is not None:
+            self.cdc.tick(now)
+        if self.cdc_fanout is not None:
+            self.cdc_fanout.tick(now)
         self.net.tick()
 
     def run(self) -> dict:
@@ -684,10 +1046,32 @@ class Simulator:
             # reason the trace dumps there)
             if self.hash_log is not None and self.hash_log.mode == "record":
                 self.hash_log.save()
+            if self._fanout_aof is not None:
+                import os as _os
+
+                try:
+                    _os.unlink(self._fanout_aof.name)
+                except OSError:
+                    pass
         committed = max(
             (max(h) if h else 0) for h in self.histories
         )
         out_cdc = {}
+        if self.cdc is not None:
+            out_cdc = {
+                "cdc_records": len(self.cdc.stream),
+                "cdc_crashes": self.cdc.crashes,
+                "cdc_redelivered_ops": self.cdc.redelivered_ops,
+                "cdc_gaps": len(self.cdc.gaps),
+            }
+        if self.cdc_fanout is not None:
+            out_cdc["cdc_fanout_consumers"] = self.cdc_fanout.n_consumers
+            out_cdc["cdc_fanout_lag_max"] = dict(self.cdc_fanout.lag_max)
+            out_cdc["cdc_fanout_refusals"] = self.cdc_fanout.stores[
+                SimCdcFanout.THROTTLED
+            ].refusals
+        if self.storm_clients:
+            out_cdc["storm_clients"] = self.storm_clients
         if self.primary_crash_probability:
             out_cdc["primary_crashes"] = self.primary_crashes
         if self.client_auto_reregister:
@@ -704,6 +1088,13 @@ class Simulator:
             # ops THIS RUN streamed/verified — in check mode len(entries)
             # is the preloaded recording and says nothing about coverage
             out_cdc["hash_log_ops"] = self.hash_log.ops_seen
+        if self.commitment_interval:
+            # chain head in the result dict: the vopr fleet JSONL (and
+            # its hub replay comparison) then covers commitment
+            # determinism for free
+            cl = self.replicas[0].commitment_log
+            out_cdc["commitment_head_op"] = cl.head_op
+            out_cdc["commitment_head"] = cl.head
         return {
             "seed": self.seed,
             "committed_ops": committed,
@@ -725,6 +1116,8 @@ class Simulator:
         self.net.options.partition_probability = 0.0
         self.net.options.packet_loss_probability = 0.0
         self.crash_probability = 0.0
+        if self.cdc is not None:
+            self.cdc.crash_probability = 0.0
         for c in self.clients:
             c.drain_mode = True
         for i in list(self.down):
@@ -743,6 +1136,10 @@ class Simulator:
                 r.tick()
             for c in self.clients:
                 c.tick(self.net.tick_now)
+            if self.cdc is not None:
+                self.cdc.tick(self.net.tick_now)
+            if self.cdc_fanout is not None:
+                self.cdc_fanout.tick(self.net.tick_now)
             self.net.tick()
             mins = {r.commit_min for r in self.replicas}
             stats = {r.status for r in self.replicas}
@@ -794,19 +1191,119 @@ class Simulator:
         mins = {r.commit_min for r in self.replicas}
         assert mins == {top}, (mins, top)
 
-        # 3. oracle replay parity, bit for bit, on every replica
-        sm = StateMachine(OracleStateMachine(),
-                          self.cluster_config.message_size_max)
+        # 3. oracle replay parity, bit for bit, on every replica —
+        # folding the commitment chain at every boundary when enabled,
+        # so the god's-eye oracle derives the reference chain too
+        clog = None
+        if self.commitment_interval:
+            from tigerbeetle_tpu_torch.federation.commitment import CommitmentLog
+
+            clog = CommitmentLog(self.commitment_interval)
+        sm = StateMachine(OracleStateMachine(), self.cluster_config.message_size_max)
         for op in range(1, top + 1):
             _, operation, timestamp, body = merged[op]
             if operation != int(Operation.register):
                 sm.commit(Operation(operation), timestamp, body)
+            if clog is not None and clog.is_boundary(op):
+                clog.record(op, sm.backend.fingerprint())
         oracle = sm.backend
         for r in self.replicas:
             accounts, transfers, posted = r.ledger.extract()
             assert accounts == oracle.accounts, f"replica {r.replica} accounts"
             assert transfers == oracle.transfers, f"replica {r.replica} transfers"
             assert posted == oracle.posted, f"replica {r.replica} posted"
+            if clog is not None and r.commitment_log is not None:
+                # the replica's device/native-fed chain must agree with
+                # the oracle-derived reference at every overlapping
+                # checkpoint AND at the head
+                div = clog.first_divergence(r.commitment_log)
+                assert div is None, (
+                    f"replica {r.replica} commitment diverges at "
+                    f"checkpoint op {div}"
+                )
+                assert r.commitment_log.head_op == clog.head_op, (
+                    r.commitment_log.head_op, clog.head_op,
+                )
+                assert r.commitment_log.head == clog.head, (
+                    f"replica {r.replica} commitment head "
+                    f"{r.commitment_log.head:#x} != oracle {clog.head:#x} "
+                    f"at op {clog.head_op}"
+                )
+
+        if self.cdc is not None:
+            self.cdc.drain()
+            self._check_cdc_store(self.cdc, merged, top)
+        if self.cdc_fanout is not None:
+            # EVERY consumer of the shared tail owes the full stream
+            # contract independently — including the throttled one
+            self.cdc_fanout.drain()
+            for store in self.cdc_fanout.stores.values():
+                self._check_cdc_store(store, merged, top)
+
+    def _check_cdc_store(self, store, merged: dict[int, tuple],
+                         top: int) -> None:
+        """One consumer store's contract, against the god's-eye history:
+
+        - coverage: applied ops + declared gaps tile every record-bearing
+          committed op exactly once (no silent holes, no op both applied
+          and declared gone);
+        - no duplicated effects: the deduped stream must equal, line for
+          line, a reference encoding of the true history (the oracle
+          regenerates exact reply buffers) — a record applied twice, out
+          of order, or with drifted content all fail the same assert;
+        - balance materialization: the consumer's delta-accumulated
+          balances equal the reference's (apply-once proven on the
+          numbers, not just the lines)."""
+        import json as _json
+
+        from tigerbeetle_tpu_torch.cdc.record import encode_batch, record_line
+
+        create_ops = (
+            int(Operation.create_accounts), int(Operation.create_transfers)
+        )
+        gap_ops: set[int] = set()
+        for a, b in store.gaps:
+            assert 1 <= a <= b <= top, (a, b, top)
+            gap_ops.update(range(a, b + 1))
+        applied = set(store.applied_ops)
+        assert len(applied) == len(store.applied_ops), "op applied twice"
+        assert not (applied & gap_ops), "op both applied and declared gone"
+        expected_ops = {
+            op for op in range(1, top + 1)
+            if merged[op][1] in create_ops
+        }
+        assert applied == expected_ops - gap_ops, (
+            "stream coverage hole: "
+            f"missing={sorted(expected_ops - gap_ops - applied)[:8]} "
+            f"extra={sorted(applied - expected_ops)[:8]}"
+        )
+
+        sm = StateMachine(OracleStateMachine(), self.cluster_config.message_size_max)
+        expected_lines: list[str] = []
+        expected_balances: dict[int, dict[str, int]] = {}
+        for op in range(1, top + 1):
+            _, operation, timestamp, body = merged[op]
+            if operation not in create_ops:
+                continue  # registers/lookups: no state change, no records
+            reply = sm.commit(Operation(operation), timestamp, body)
+            if op not in applied:
+                continue  # declared gap: consumer never saw it
+            for rec in encode_batch(
+                Header(op=op, operation=operation, timestamp=timestamp),
+                body, reply,
+            ):
+                expected_lines.append(record_line(rec))
+                for account, field, amount in rec.get("deltas", ()):
+                    acct = expected_balances.setdefault(account, {})
+                    acct[field] = acct.get(field, 0) + amount
+        actual = [
+            line for line in store.stream
+            if _json.loads(line).get("kind") != "gap"
+        ]
+        assert actual == expected_lines, (
+            f"cdc stream drift: {len(actual)} vs {len(expected_lines)} lines"
+        )
+        assert store.balances == expected_balances, "duplicated effects"
 
 
 def run_simulation(seed: int, **kwargs) -> dict:

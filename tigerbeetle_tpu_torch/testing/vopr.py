@@ -15,9 +15,12 @@ fault schedule.
 `--device` (default cuda) is where the device slice's ledgers live; with
 cuda the runner refuses to start where CUDA is missing. A `--verify-fraction`
 slice of seeds runs with the intensive verification tier
-(`constants.VERIFY`). The CDC, ingress and federation slices of
-`scripts/vopr.py` need queues A6 and A7 of ROADMAP.md: their fractions
-default to 0 here and a nonzero value is refused.
+(`constants.VERIFY`), a `--cdc-fraction` slice the deterministic CDC
+consumer, and an `--ingress-fraction` slice (oracle seeds only) the ingress
+gateway on every replica, a connect storm and a CDC fan-out of three
+consumers, drawn as `scripts/vopr.py` draws them; both fractions default to
+0 here (0.2 and 0.15 there). The federation slice needs queue A7 of
+ROADMAP.md: its fraction defaults to 0 and a nonzero value is refused.
 
 The runner stops at the first failing seed: it prints the seed, its
 topology, the error and the line that replays it, and exits 1.
@@ -42,14 +45,13 @@ VERIFY_FRACTION_DEFAULT = 0.25
 
 # slices of scripts/vopr.py that need modules the port does not have yet
 _UNPORTED_SLICES = {
-    "cdc_fraction": "A6 (CDC)",
-    "ingress_fraction": "A6 (ingress)",
     "federation_fraction": "A7 (federation)",
 }
 
 
 def seed_options(seed: int, device_fraction: float, fixed: bool,
                  verify_fraction: float = VERIFY_FRACTION_DEFAULT,
+                 cdc_fraction: float = 0.0, ingress_fraction: float = 0.0,
                  ) -> tuple[dict, str, bool]:
     """(Simulator kwargs, topology line, VERIFY on) for one seed: the draws
     of `scripts/vopr.py` for the slices the port runs."""
@@ -57,16 +59,32 @@ def seed_options(seed: int, device_fraction: float, fixed: bool,
         return {}, "fixed r3+s0 c2 oracle", False
     opts = random_options(seed, device_fraction=device_fraction)
     verify = (seed * 2654435761 % 100) < verify_fraction * 100
-    return opts, describe_options(opts) + (" VERIFY" if verify else ""), verify
+    # distinct multipliers decorrelate the CDC and ingress draws from VERIFY's
+    cdc = (seed * 2246822519 % 100) < cdc_fraction * 100
+    ingress = (seed * 2166136261 % 100) < ingress_fraction * 100
+    desc = describe_options(opts) + (" VERIFY" if verify else "")
+    if cdc:
+        desc += " CDC"
+        opts["cdc_consumer"] = True
+    if ingress and opts.get("backend_factory", "x") is not None:
+        # oracle seeds only: the device slice's tick budget is too tight for
+        # storm registrations and fan-out draining
+        desc += " INGRESS"
+        opts["ingress_gateway"] = True
+        opts["storm_clients"] = 4 + seed % 8
+        opts["cdc_fanout"] = 3
+    return opts, desc, verify
 
 
 def run_seed(seed: int, ticks: int, device_fraction: float, fixed: bool,
              verify_fraction: float = VERIFY_FRACTION_DEFAULT,
              trace_path: str | None = None,
              hash_log: tuple[str, str] | None = None,
-             device=None) -> tuple[dict, str]:
+             device=None, cdc_fraction: float = 0.0,
+             ingress_fraction: float = 0.0) -> tuple[dict, str]:
     """(stats, topology line) of one seed's run. A failing check raises."""
-    opts, desc, verify = seed_options(seed, device_fraction, fixed, verify_fraction)
+    opts, desc, verify = seed_options(seed, device_fraction, fixed, verify_fraction,
+                                      cdc_fraction, ingress_fraction)
     kw = {"ticks": ticks, **opts}
     if opts.get("backend_factory", "x") is None:
         kw["device"] = device
@@ -90,6 +108,10 @@ def replay_line(args, seed: int) -> str:
         extra += f" --device-fraction {args.device_fraction}"
     if args.verify_fraction != VERIFY_FRACTION_DEFAULT:
         extra += f" --verify-fraction {args.verify_fraction}"
+    if args.cdc_fraction:
+        extra += f" --cdc-fraction {args.cdc_fraction}"
+    if args.ingress_fraction:
+        extra += f" --ingress-fraction {args.ingress_fraction}"
     if args.fixed:
         extra += " --fixed"
     return ("python -m tigerbeetle_tpu_torch.testing.vopr "
@@ -108,6 +130,11 @@ def parse_args(argv=None):
                     help="where the device slice's ledgers live (default cuda)")
     ap.add_argument("--verify-fraction", type=float, default=VERIFY_FRACTION_DEFAULT,
                     help="fraction of seeds run with constants.VERIFY")
+    ap.add_argument("--cdc-fraction", type=float, default=0.0,
+                    help="fraction of seeds with the deterministic CDC consumer")
+    ap.add_argument("--ingress-fraction", type=float, default=0.0,
+                    help="fraction of oracle seeds with the ingress gateway, a "
+                         "connect storm and a CDC fan-out of three consumers")
     for flag, queue in _UNPORTED_SLICES.items():
         ap.add_argument("--" + flag.replace("_", "-"), type=float, default=0.0,
                         help=f"needs queue {queue}; only 0 is taken")
@@ -148,12 +175,14 @@ def main(argv=None) -> int:
                 hash_log = ("check" if os.path.exists(path) else "record", path)
             trace = f"{args.trace}.{seed}.json" if args.trace else None
             desc = seed_options(seed, args.device_fraction, args.fixed,
-                                args.verify_fraction)[1]
+                                args.verify_fraction, args.cdc_fraction,
+                                args.ingress_fraction)[1]
             try:
                 stats, desc = run_seed(seed, args.ticks, args.device_fraction,
                                        args.fixed, args.verify_fraction,
                                        trace_path=trace, hash_log=hash_log,
-                                       device=args.device)
+                                       device=args.device, cdc_fraction=args.cdc_fraction,
+                                       ingress_fraction=args.ingress_fraction)
             except Exception as e:  # report the seed, then stop the fleet
                 print(f"seed {seed:6d} FAIL [{desc}]: {type(e).__name__}: {e}")
                 print(f"replay with: {replay_line(args, seed)}")
@@ -184,7 +213,8 @@ def main(argv=None) -> int:
 def _record(args, seed, desc, trace, stats=None, error=None) -> dict:
     rec = {"seed": seed, "ticks": args.ticks, "topology": desc,
            "device_fraction": args.device_fraction,
-           "verify_fraction": args.verify_fraction, "device": args.device,
+           "verify_fraction": args.verify_fraction, "cdc_fraction": args.cdc_fraction,
+           "ingress_fraction": args.ingress_fraction, "device": args.device,
            "fixed": args.fixed, "ok": error is None}
     if trace:
         rec["trace"] = trace
