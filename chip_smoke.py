@@ -42,7 +42,10 @@ Phases (each failure exits non-zero):
    in the next wave, a limit account's chain as deep as the waves and one
    touch in no wave, the capacity gate tripped by wave 1, a fault word set
    before the call, a wave with no live lane, a pending posted in one wave
-   and voided in the next) at 2, 3, 8 and 24 waves of 64 and of 8192 lanes,
+   and voided in the next; and for the per-wave lane lists K12 builds on
+   the card: lanes of one wave far apart whose ids share a home slot, waves
+   of one lane, waves that alternate lane by lane, one wave of all lanes
+   but one) at 2, 3, 8 and 24 waves of 64 and of 8192 lanes,
    likewise; the reply-code fold (K7) on padding
    slots, a one-lane slot, high-bit codes and ring slots routed to the dump
    slot, and on every case of tigerbeetle_tpu_torch/testing/fold_cases.py
@@ -153,27 +156,32 @@ Phases (each failure exits non-zero):
    queries of 16 accounts equal the native engine NativeLedger(20, 24) on
    the same requests; it prints the rate, the request latency and each
    cycle's legs; the gather (K10g) must have launched once for each side
-   of each cycle; then the spill kernels (K10) against their plain
-   versions on a copy of the table before the first cycle (head, split,
+   of each cycle, and each cycle must have made one table pass (the head's,
+   whose live list its split takes); then the spill kernels (K10) against
+   their plain versions on a copy of the table before the first cycle
+   (head, the split over the head's pass,
    the gather of the whole cold side and of the whole hot side, padded to
    whole chunks, and the whole rebuild in one launch and in one launch a
    chunk, which must equal the ledger's own), the reload (K10r) on the
    cases of tigerbeetle_tpu_torch/testing/reload_cases.py (one, two and
    many chunks, resident and repeated ids, a capacity fault in a middle
    chunk before full windows, an earlier fault) at 2^14 in chunks of 256
-   and at 2^18 in chunks of 8192, the split (K10s) on the tables of
+   and at 2^18 in chunks of 8192, the head and the split over its pass
+   (K10h, K10s) on the tables of
    tigerbeetle_tpu_torch/testing/split_cases.py (duplicates, all-equal,
    two far-apart clusters, u64 max among the live timestamps) at 2^20 and
-   2^24 at five ranks each, and at 2^24 on a copy of phase 3's state
-   (split at 3/4 of live, the gather of 8192 cold rows and of both whole
+   2^24 at five ranks each (0 to all live), and at 2^24 on a copy of phase
+   3's state (split at 3/4 of live and at all of it, the gather of 8192
+   cold rows and of both whole
    sides, a reload of 8192 rows), the reload's all-or-nothing gate on
    copies through both entry points (capacity at 2^24, an earlier fault,
    probe windows with no empty slot at 2^16), and their times (the gather
    at both sides of the cycle and at 8192 rows, beside torch.index_select;
-   the rebuild in one launch; the split beside its floor at the card's
-   64-byte fetch); then, in a process of its own under torch.profiler
-   (`chip_smoke.cycle_child`), a spill cycle whose split must be at most
-   four kernels and whose rebuild one, and a one-chunk reload one, none
+   the rebuild in one launch; the head's pass, the split after it and the
+   two, beside their floor at the card's 64-byte fetch); then, in a
+   process of its own under torch.profiler (`chip_smoke.cycle_child`), a
+   spill cycle whose head (the table pass) must be at most two kernels,
+   whose split two and whose rebuild one, and a one-chunk reload one, none
    with a memset;
 10. the sharded ledger on one card (K11): each sharded kernel against its
    plain version on the card at 2^12 / 2^14 slots per shard and 8 shards,
@@ -309,8 +317,9 @@ Phases (each failure exits non-zero):
    NativeLedger(20, 24)'s, the fingerprint its plain version; each
    request's plan is printed, some request must run K12 at W >= 6 and (e)
    K4 after it; each kind's transfers/s; then K12 against its plain version
-   and timed against the parent's route (a masked K3 launch, a compare and
-   a max a wave) on fresh requests of two, about six and 24 waves.
+   and timed against the route before it (a masked K3 launch, a compare and
+   a max a wave) on fresh requests of two, about eight and 24 waves
+   (kernel_ab.py times it against a parent checkout's K12).
 Each phase's seconds are printed on a line of their own. The last two
 lines are the kernel table and {"ok": true, "device": ...}.
 """
@@ -1911,20 +1920,22 @@ def lookup_bound(lengths, latency_ns):
     return by_bytes, "bytes", by_bytes, by_latency, longest
 
 
-def timed(torch, fn, reps, on_card=False):
+def timed(torch, fn, reps, on_card=False, prep=None):
     """Median and quartiles of `reps` runs of `fn` in ms, by CUDA events.
     With `on_card`, the card is kept busy (torch.cuda._sleep, about half a
     millisecond) while the host enqueues the events and `fn`: the events
     then bracket its launches on the card alone, not the wrapper's host work
-    before them."""
+    before them. With `prep`, each run is `fn(prep())`, prep's work
+    enqueued before the first event."""
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        arg = prep() if prep is not None else None
         if on_card:
             torch.cuda._sleep(1 << 20)
         start.record()
-        fn()
+        fn() if prep is None else fn(arg)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -3824,10 +3835,11 @@ def spill_rate_child():
 
 def cycle_trace(card) -> dict:
     """cycle_child in a process of its own (late in this one a profiler
-    session recorded no kernels): in the traced cycle the split (K10s) must
-    be at most SPLIT_LAUNCHES kernels and the rebuild's reloads one kernel,
-    and the one-chunk reload one kernel, none with a memset. Logs each
-    cycle's legs and returns the JSON."""
+    session recorded no kernels): in the traced cycle the head (K10h, the
+    one table pass) must be at most HEAD_LAUNCHES kernels, the split (K10s)
+    at most SPLIT_LAUNCHES and the rebuild's reloads one kernel, and the
+    one-chunk reload one kernel, none with a memset. Logs each cycle's legs
+    and returns the JSON."""
     proc = subprocess.run(
         [sys.executable, "-c", "import chip_smoke; chip_smoke.cycle_child()"],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True)
@@ -3843,14 +3855,14 @@ def cycle_trace(card) -> dict:
             f"{r['n_reload']:.0f} calls {(r['reload_chunks'] + r['reload']) * 1e3:.4f}); "
             f"launches {r['launches']} [{card}]")
     calls = got["traced_calls"]
-    for name in ("k10_split_idx", "k10_reload_chunks", "k10_reload_one"):
+    for name in ("k10_cycle_head", "k10_split_idx", "k10_reload_chunks", "k10_reload_one"):
         sp = calls.get(name)
         if sp is None:
             fail(f"the traced cycle has no {name} call")
         n_k = sum(v for k, v in sp["counts"].items() if not k.startswith("mem"))
         log(f"  trace {name}: {n_k} kernels {sp['counts']}; device us {sp['us']}; span "
             f"{sp['span_us']:.1f} us, gaps {sp['gap_us']:.1f} us")
-        most = SPLIT_LAUNCHES if name == "k10_split_idx" else 1
+        most = {"k10_cycle_head": HEAD_LAUNCHES, "k10_split_idx": SPLIT_LAUNCHES}.get(name, 1)
         if any(k.startswith("mem") for k in sp["counts"]) or not 1 <= n_k <= most:
             fail(f"{name}: {sp['counts']}; at most {most} kernels and no memset expected")
     return got
@@ -3863,7 +3875,8 @@ def cycle_trace(card) -> dict:
 SPILL_LOG2 = 20  # the transfer table of phase 9 (cut from 2^24: see PERF.md section 4)
 SPILL_REQUESTS = 128
 SPILL_PENDING = 8  # requests 0-7 are pendings; the last 8 post and void them
-SPLIT_LAUNCHES = 4  # csrc/spill_split.cu: init, scan, select, partition
+HEAD_LAUNCHES = 2  # csrc/spill_split.cu tb_spill_scan: init, the table pass
+SPLIT_LAUNCHES = 2  # csrc/spill_split.cu tb_spill_split_rest: select, partition
 GRID_BLOCKS = 16384  # 2 GiB of 128 KiB grid blocks
 
 
@@ -4015,6 +4028,13 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     for k in ("spill_head", "spill_split", "spill_gather", "spill_reload"):
         if not launches[k]:
             fail(f"{k} was not launched on the spill path")
+    # one table pass a cycle: the head's scan, whose live list the split reads
+    if launches["spill_head"] != len(per_cycle) or launches["spill_split"] > len(per_cycle):
+        fail(f"{len(per_cycle)} cycles made {launches['spill_head']} table passes (spill_head) "
+             f"and {launches['spill_split']} splits; one pass a cycle expected")
+    log(f"  one table pass a cycle: {launches['spill_head']} passes (the head's scan) in "
+        f"{len(per_cycle)} cycles, {launches['spill_split']} splits over them; "
+        f"{len(per_cycle) - launches['spill_split']} cycles had nothing to spill (n_cold <= 0)")
     if launches["spill_gather"] != 2 * stats["cycles"]:  # one gather a side of each cycle
         fail(f"spill_gather launched {launches['spill_gather']} times in {stats['cycles']} "
              "cycles; one for each side of a cycle expected")
@@ -4092,12 +4112,13 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     # K10 at 2^20 on the table before the first cycle
     pre, post = captured["pre"], captured["post"]
     t_log2 = SPILL_LOG2
-    head = K.spill_head(pre["xfer_rows"], pre["fault"], t_log2)
-    held(f"K10 spill_head (2^{t_log2})", head, S.spill_head_plain(pre["xfer_rows"], pre["fault"]))
-    live = int(head[0])
+    scan = S.spill_scan(pre["xfer_rows"], pre["fault"], t_log2)
+    held(f"K10 spill_head (2^{t_log2})", scan.head,
+         S.spill_head_plain(pre["xfer_rows"], pre["fault"]))
+    live = int(scan.head[0])
     keep = min(int(live * S.KEEP_FRAC), ledger._xfer_limit - captured["need"])
     n_cold = live - keep
-    cold, hot = K.spill_split(pre["xfer_rows"], t_log2, n_cold)
+    cold, hot = scan.split(pre["xfer_rows"], n_cold)
     held(f"K10 spill_split (2^{t_log2}, the first cycle: n_cold {n_cold} of {live})",
          (cold, hot), S.spill_split_plain(pre["xfer_rows"], n_cold))
     n_hot = live - n_cold
@@ -4159,11 +4180,17 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     big = {k: main_state[k].clone() for k in ("xfer_rows", "fulfill", "xfer_claim",
                                               "xfer_used_slots", "fault")}
     b_log2 = main_process.transfer_slots_log2
-    head = K.spill_head(big["xfer_rows"], big["fault"], b_log2)
-    held(f"K10 spill_head (2^{b_log2})", head, S.spill_head_plain(big["xfer_rows"], big["fault"]))
-    live = int(head[0])
+    head_plain = S.spill_head_plain(big["xfer_rows"], big["fault"])
+    scan = S.spill_scan(big["xfer_rows"], big["fault"], b_log2)
+    held(f"K10 spill_head (2^{b_log2})", scan.head, head_plain)
+    live = int(scan.head[0])
+    # a cycle that spills every live row: the split over the head's pass
+    everything = S.spill_scan(big["xfer_rows"], big["fault"], b_log2)
+    held(f"K10 spill_head + spill_split (2^{b_log2}, n_cold = live = {live})",
+         (everything.head, *everything.split(big["xfer_rows"], live)),
+         (head_plain, *S.spill_split_plain(big["xfer_rows"], live)))
     n_cold = live * 3 // 4
-    cold, hot = K.spill_split(big["xfer_rows"], b_log2, n_cold)
+    cold, hot = scan.split(big["xfer_rows"], n_cold)
     held(f"K10 spill_split (2^{b_log2}, n_cold {n_cold} of {live})", (cold, hot),
          S.spill_split_plain(big["xfer_rows"], n_cold))
     held(f"K10 spill_gather (2^{b_log2}, 8192 cold rows)",
@@ -4199,22 +4226,36 @@ def phase_spill(torch, L, SM, types, constants, dev, card, main_state, main_proc
     slots = 1 << b_log2
     out = {}
 
-    out["K10h"] = (timed(torch, lambda: K.spill_head(big["xfer_rows"], big["fault"], b_log2), 20),
+    # the head is the cycle's one table pass: the key sector of every slot,
+    # the timestamp sector of a live one, the live list (slot and
+    # timestamp) written once; the head's two words alone need the keys
+    out["K10h"] = (timed(torch, lambda: S.spill_scan(big["xfer_rows"], big["fault"], b_log2), 20),
                    timed(torch, lambda: S.spill_head_plain(big["xfer_rows"], big["fault"]), 3),
-                   *bound(slots * SECTOR + 8), None)
+                   *bound(slots * SECTOR + live * SECTOR + live * 12 + 8), None)
+    log(f"  K10h's bound for its two words alone (a key sector a slot): "
+        f"{bound(slots * SECTOR + 8)[0]:.6f} ms; for the pass it is now: "
+        f"{out['K10h'][2]:.6f} ms (bytes) [{card}]")
     size = slots + S.CHUNK
-    # the key sector of every slot, the timestamp sector of a live one, both
-    # lists written once
-    out["K10s"] = (timed(torch, lambda: K.spill_split(big["xfer_rows"], b_log2, n_cold), 10),
+    # the split after the head: the live list read once, both lists written
+    # once; each timed split gets a fresh pass (a pass serves one split)
+    out["K10s"] = (timed(torch, lambda sc: sc.split(big["xfer_rows"], n_cold), 10,
+                         prep=lambda: S.spill_scan(big["xfer_rows"], big["fault"], b_log2)),
                    timed(torch, lambda: S.spill_split_plain(big["xfer_rows"], n_cold), 3),
-                   *bound(slots * SECTOR + live * SECTOR + 2 * size * 4), None)
+                   *bound(live * 12 + 2 * size * 4), None)
+    both = timed(torch, lambda: S.spill_scan(big["xfer_rows"], big["fault"], b_log2).split(
+        big["xfer_rows"], n_cold), 10)
+    log(f"  K10 head and split as a cycle pairs them (2^{b_log2}, {live} live, n_cold "
+        f"{n_cold}): {both[0]:.4f} ms [p25 {both[1]:.4f}, p75 {both[2]:.4f}], one table pass, "
+        f"bound {bound(slots * SECTOR + live * SECTOR + 2 * size * 4)[0]:.6f} ms (bytes) "
+        f"[{card}]")
     # at the card's 64-byte fetch (the sector probe, phase 1): the key half
     # of every row, the timestamp half of a live one, the lists, and the
     # live list (slot and timestamp) written once and read three times
     per_row = sector_ms[1] / (1 << 24)
     floor = (slots * per_row + live * (sector_ms[5] - sector_ms[1]) / (1 << 24)
              + bound(2 * size * 4 + live * 12 * 4)[0])
-    log(f"  K10s's floor at the card's 64-byte fetch (2^{b_log2}, {live} live): {floor:.6f} ms "
+    log(f"  the head and split's floor at the card's 64-byte fetch (2^{b_log2}, {live} live): "
+        f"{floor:.6f} ms "
         f"(a key half a row {slots * per_row:.6f}, a timestamp half a live row "
         f"{live * (sector_ms[5] - sector_ms[1]) / (1 << 24):.6f}, the lists and the live list "
         f"{bound(2 * size * 4 + live * 12 * 4)[0]:.6f}) [{card}]")
@@ -4300,9 +4341,11 @@ def k10r_cases(torch, S, K, dev, errs):
 
 
 def k10s_cases(torch, S, K, dev, errs):
-    """K10s against its plain version on the tables of
-    testing/split_cases.py at 2^20 and 2^24 slots, each split at every rank
-    of split_cases.RANKS: both lists equal."""
+    """K10's head and split as a cycle pairs them (the head's table pass,
+    then the split over its handle) against their plain versions on the
+    tables of testing/split_cases.py at 2^20 and 2^24 slots, each split at
+    every rank of split_cases.RANKS (n_cold 0 to live; `all_equal` has
+    every live timestamp equal): the head's words and both lists equal."""
     import zlib
 
     from tigerbeetle_tpu_torch.testing import split_cases as SC
@@ -4311,14 +4354,18 @@ def k10s_cases(torch, S, K, dev, errs):
         for case in SC.CASES:
             rng = np.random.default_rng(zlib.crc32(f"{case}.{log2}".encode()))
             rows = torch.from_numpy(SC.split_case(case, log2, rng).view(np.int32)).to(dev)
-            live = int(S.spill_head_plain(rows, torch.zeros((), dtype=torch.int32, device=dev))[0])
+            fault = torch.full((), 0x40, dtype=torch.int32, device=dev)
+            head_p = S.spill_head_plain(rows, fault)
+            live = int(head_p[0])
             worst = 0
             for rank in SC.RANKS:
                 n_cold = SC.n_cold_of(rank, live)
-                got = K.spill_split(rows, log2, n_cold)
+                scan = S.spill_scan(rows, fault, log2)
+                got = scan.split(rows, n_cold)
                 want = S.spill_split_plain(rows, n_cold)
                 torch.cuda.synchronize()
-                err = max(max_abs_diff(a, b) for a, b in zip(got, want))
+                err = max([max_abs_diff(a, b) for a, b in zip(got, want)]
+                          + [max_abs_diff(scan.head, head_p)])
                 if err:
                     for side, a, b in zip(("cold", "hot"), got, want):
                         idx = (a != b).nonzero()[:4].flatten().tolist()
@@ -4327,7 +4374,8 @@ def k10s_cases(torch, S, K, dev, errs):
                     fail(f"K10 spill_split (case {case}, 2^{log2}, n_cold {n_cold} of {live}) "
                          "differs from its plain version")
                 worst = max(worst, err)
-            name = f"K10 spill_split (case {case}, 2^{log2}, {live} live, n_cold at {SC.RANKS})"
+            name = (f"K10 spill_head + spill_split (case {case}, 2^{log2}, {live} live, n_cold at "
+                    f"{SC.RANKS})")
             errs[name] = worst
             log(f"  {name}: max_abs_err={worst}")
             del rows

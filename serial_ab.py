@@ -23,13 +23,14 @@ every 50) on fresh ids, on one table and on 8 shards of 2^20 account slots
 holding the main path's 10,000 accounts.
 
     python3 serial_ab.py [--parent DIR] [--kind requests|walk|sass] [--runs 4] [--rounds 4]
-                         [--out FILE]
+                         [--sources FILE.cu ...] [--out FILE]
 
-With `--kind sass` (needs nvcc, no card) it runs nothing: it compiles the
-serial transfer walks (K4 `serial_transfers.cu`, K11ts
-`mesh_serial_transfers.cu`) of both checkouts with the package's nvcc flags
-and says, for each, whether their SASS is the same instruction for
-instruction (addresses and encodings left out).
+With `--kind sass` (needs nvcc, no card) it runs nothing: it compiles
+`--sources` of csrc/ (by default the serial transfer walks, K4
+`serial_transfers.cu` and K11ts `mesh_serial_transfers.cu`) of both
+checkouts with the package's nvcc flags and says, for each, whether their
+SASS is the same instruction for instruction (addresses and encodings left
+out).
 
 Needs one card. Writes every time to --out (JSON); the last line of its
 output is the summary, also JSON.
@@ -161,11 +162,11 @@ def sass_of(root: Path, src: str, out_dir: Path) -> list[str]:
     return lines
 
 
-def sass_diff(parent: Path) -> dict:
+def sass_diff(parent: Path, sources=SASS_SOURCES) -> dict:
     out_dir = HERE / "build" / "sass_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     got = {}
-    for src in SASS_SOURCES:
+    for src in sources:
         a, b = sass_of(parent, src, out_dir), sass_of(HERE, src, out_dir)
         diff = [x for x in difflib.unified_diff(a, b, lineterm="", n=0)
                 if x[:1] in "+-" and x[:3] not in ("+++", "---")]
@@ -181,6 +182,8 @@ def main() -> int:
     ap.add_argument("--kind", choices=("requests", "walk", "sass"), default="requests")
     ap.add_argument("--runs", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--sources", nargs="+", default=list(SASS_SOURCES),
+                    help="--kind sass: the csrc/ files to compare")
     ap.add_argument("--out", help="default: chiprun_out/serial_ab[_walk].json")
     ap.add_argument("--child", metavar="ROOT", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -188,7 +191,7 @@ def main() -> int:
     if args.kind == "sass":
         if not args.parent:
             ap.error("--kind sass compares with --parent")
-        print(json.dumps(sass_diff(Path(args.parent).resolve())))
+        print(json.dumps(sass_diff(Path(args.parent).resolve(), args.sources)))
         return 0
     if args.child:
         print(json.dumps(walk_child(args.child) if walk else child(args.child, args.rounds)))

@@ -130,6 +130,91 @@ def test_spill_split_plain_matches_jax(table, cut):
     assert int((hot < T_DUMP).sum()) == live - n_cold
 
 
+@pytest.mark.parametrize("cut", ["zero", "third", "all"])
+def test_cycle_split_over_its_head_matches_jax(table, cut):
+    """The cycle's pairing: `SpillKernels.cycle_head` returns the handle of
+    its table pass and `split_idx` takes it; the live count and both lists
+    equal the JAX `cycle_head` and `split_idx`."""
+    st, live = table
+    kernels = tspill.SpillKernels(TEST_PROCESS)
+    scan = kernels.cycle_head(st)
+    j_rows = jnp.asarray(st["xfer_rows"].numpy().view(np.uint32))
+    want_head = np.asarray(jax_spill().cycle_head(j_rows, jnp.uint32(int(st["fault"]))))
+    np.testing.assert_array_equal(scan.head.numpy().view(np.uint32), want_head)
+    n_cold = {"zero": 0, "third": live // 3, "all": live}[cut]
+    cold, hot = kernels.split_idx(scan, st["xfer_rows"], n_cold)
+    j_cold, j_hot = jax_spill().split_idx(j_rows, jnp.int32(n_cold))
+    np.testing.assert_array_equal(cold.numpy(), np.asarray(j_cold))
+    np.testing.assert_array_equal(hot.numpy(), np.asarray(j_hot))
+
+
+def _written_by_a_row(st):
+    st["xfer_rows"][5, 0] += 1
+
+
+def _written_by_a_commit(st):
+    rows_b = torch.zeros((4, 32), dtype=torch.int32)
+    rows_b[:, 0] = torch.arange(1, 5, dtype=torch.int32) + (1 << 30)  # new ids
+    rows_b[:, 4], rows_b[:, 8], rows_b[:, 24] = 1, 2, 10  # debit, credit, amount
+    rows_b[:, 29] = 1 << 16 | 1  # ledger 1, code 1
+    tledger.commit_transfers_fast_plain(st, rows_b, 4, 10**12, TEST_PROCESS.account_slots_log2,
+                                        T_LOG2, False)
+
+
+def _written_by_a_reload(st):
+    rows_b, ful_b = tspill.spill_gather_plain(st["xfer_rows"], st["fulfill"],
+                                              torch.arange(8, dtype=torch.int32))
+    rows_b[:, 0] = torch.arange(8, dtype=torch.int32) + (1 << 29)  # ids not resident
+    rows_b[:, 1:4] = 0
+    tspill.spill_reload_plain(st, rows_b, ful_b, torch.ones(8, dtype=torch.bool), T_LOG2)
+
+
+@pytest.mark.parametrize("write", [_written_by_a_row, _written_by_a_commit,
+                                   _written_by_a_reload, None])
+def test_split_refuses_a_scan_of_a_written_table(table, write):
+    """A split handed a head's handle whose table was written after the
+    scan (a row set in place, a commit, a reload), or another table, raises
+    instead of using the pass's stale list; a read of the table in between
+    does not stop it; a handle serves one split."""
+    st = {k: v.clone() for k, v in table[0].items()}
+    scan = tspill.spill_scan(st["xfer_rows"], st["fault"], T_LOG2)
+    tspill.spill_gather_plain(st["xfer_rows"], st["fulfill"], torch.arange(4))
+    live = int(scan.head[0])
+    if write is None:  # another table with the same rows; a second split
+        with pytest.raises(RuntimeError):
+            scan.split(st["xfer_rows"].clone(), live // 2)
+        cold, hot = scan.split(st["xfer_rows"], live // 2)
+        want = tspill.spill_split_plain(st["xfer_rows"], live // 2)
+        assert torch.equal(cold, want[0]) and torch.equal(hot, want[1])
+        with pytest.raises(RuntimeError, match="served a split"):
+            scan.split(st["xfer_rows"], live // 2)
+        return
+    write(st)
+    with pytest.raises(RuntimeError, match="written after its scan"):
+        scan.split(st["xfer_rows"], live // 2)
+
+
+def test_kernel_table_writes_move_the_version():
+    """A launcher's `wrote` tensors get their version counters moved, as a
+    torch in-place op moves them (a kernel writes through a raw pointer,
+    which torch does not see)."""
+    from tigerbeetle_tpu_torch import kernels
+
+    class Lib:
+        def tb_fake(self):
+            return 0
+
+    t = torch.zeros(4)
+    before, saved = t._version, kernels._lib
+    kernels._lib = Lib()
+    try:
+        kernels._launch("tb_fake", "spill_head", wrote=(t,))
+    finally:
+        kernels._lib = saved
+        kernels.LAUNCHES["spill_head"] -= 1
+    assert t._version == before + 1
+
+
 def test_spill_gather_plain_matches_jax(table):
     st, _ = table
     rng = np.random.default_rng(3)

@@ -20,6 +20,14 @@
 // the account row of each (event, side), -1 where the event did not apply)
 // and B. Scratch that one phase writes and another thread reads is read
 // past L1 (__ldcg).
+//
+// With the template option kList (K12, wave_commit.cu), fold_rows,
+// apply_rows and cluster_claims run over one wave's lane list (LaneList)
+// instead of all B lanes, with the list's entries spread over the cluster
+// (spread_rank); with it off they compile to the SASS K3, K5, K11tf and K9
+// had before the option (serial_ab.py --kind sass). The list comes by
+// pointer, null where the option is off: a defaulted LaneList temporary
+// changed K11tf's instruction schedule.
 #pragma once
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -30,11 +38,43 @@
 
 #define CLUSTER_BLOCKS 16
 #define CLUSTER_THREADS 512
+// K12's blocks (wave_commit.cu): 8 warps, so that its wave loop has up to
+// 255 registers a thread (see there).
+#define WAVE_THREADS 256
 #define CLUSTER_IN_FLIGHT 8  // rows a row group has in flight in phases (c) and (e)
 #define FULL_MASK 0xFFFFFFFFu
 
 __device__ __forceinline__ ull event_ts(ull timestamp, int n, int i) {
   return timestamp - (ull)n + (ull)i + 1ull;
+}
+
+// The lanes of one wave (K12): entry k < cnt is lane lanes[k], in ascending
+// lane order. Other blocks of the cluster wrote the list before the
+// barrier that opens the wave, so it is read past L1. A wave's (event,
+// side) rows are 2 cnt: row l < cnt is entry l's debit side (row lanes[l]
+// of the batch's 2B), row cnt + k entry k's credit side (row B + lanes[k]).
+// `first` is this thread's first entry (its spread_rank over lanes).
+struct LaneList {
+  const int32_t* lanes;
+  int cnt;
+  int first;
+  __device__ __forceinline__ int lane(int k) const { return __ldcg(lanes + k); }
+  __device__ __forceinline__ int row(int l, int B) const {
+    return l < cnt ? lane(l) : B + lane(l - cnt);
+  }
+};
+
+// A rank over the cluster in runs of one warp, the blocks innermost: run c
+// (`per_warp` ranks: 32 lanes, or 4 row groups of eight lanes, `sub` this
+// thread's) goes to warp c / CLUSTER_BLOCKS of block c % CLUSTER_BLOCKS.
+// A short wave's entries so run on every SM of the cluster instead of
+// crowding block 0's warps (which timed slower at 24 waves), and a warp's
+// entries are neighbours in the list, whose lane-indexed scratch words its
+// stores then coalesce (one entry a warp on every SM, its lanes 128 entries
+// apart, timed slower at two waves).
+__device__ __forceinline__ int spread_rank(cooperative_groups::cluster_group& cluster, int sub,
+                                           int per_warp) {
+  return ((int)(threadIdx.x >> 5) * CLUSTER_BLOCKS + (int)cluster.block_rank()) * per_warp + sub;
 }
 
 // Add the 8 little-endian 16-bit digits of `amt` (negated mod 2^32 when
@@ -120,15 +160,15 @@ __device__ __forceinline__ RowGroup row_group(int lane) {
 }
 
 // Phase (c) for the rows l0, l0 + step, ... (CLUSTER_IN_FLIGHT of them,
-// those < 2B; row l is the account of event l % B's debit or credit side):
-// the carry fold of the slot's digit sums into the pre-batch row's
-// balances, into new_rows. Returns FAULT_OVERFLOW or 0 in the group's
-// lanes. Balance field f (dp, dpo, cp, cpo) is piece 1 + f; its digit sums
-// are pieces 2f and 2f + 1 of the `bal_acc` row (signed where amounts were
-// also subtracted).
-template <class A>
+// those < 2B; row l is the account of event l % B's debit or credit side;
+// with kList those < 2 list->cnt, the wave's rows): the carry fold of the
+// slot's digit sums into the pre-batch row's balances, into new_rows[l].
+// Returns FAULT_OVERFLOW or 0 in the group's lanes. Balance field f (dp,
+// dpo, cp, cpo) is piece 1 + f; its digit sums are pieces 2f and 2f + 1 of
+// the `bal_acc` row (signed where amounts were also subtracted).
+template <class A, bool kList = false>
 __device__ __forceinline__ uint32_t fold_rows(const A& a, int l0, int step, RowGroup g,
-                                              bool is_signed) {
+                                              bool is_signed, const LaneList* list = nullptr) {
   const int f = g.sub - 1;  // the field this lane folds, if 0 <= f < 4
   const bool balance = f >= 0 && f < 4;
   int64_t slot[CLUSTER_IN_FLIGHT];
@@ -136,7 +176,11 @@ __device__ __forceinline__ uint32_t fold_rows(const A& a, int l0, int step, RowG
 #pragma unroll
   for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     int l = l0 + u * step;
-    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
+    if constexpr (kList) {
+      slot[u] = l < 2 * list->cnt ? __ldcg(a.slot2 + list->row(l, a.B)) : -1;
+    } else {
+      slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
+    }
   }
 #pragma unroll
   for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
@@ -166,21 +210,30 @@ __device__ __forceinline__ uint32_t fold_rows(const A& a, int l0, int step, RowG
   return bad ? FAULT_OVERFLOW : 0u;
 }
 
-// Phase (e), accounts: the rows l0, l0 + step, ... of 2B (their balance
-// pieces 1-4: nothing else of an account row changes) if `proceed`, and
-// their `bal_acc` rows back to zero in any case.
-template <class A>
+// Phase (e), accounts: the rows l0, l0 + step, ... of 2B (with kList of
+// the wave's 2 list->cnt, as fold_rows numbers them) (their balance pieces
+// 1-4: nothing else of an account row changes) if `proceed`, and their
+// `bal_acc` rows back to zero in any case.
+template <class A, bool kList = false>
 __device__ __forceinline__ void apply_rows(const A& a, int l0, int step, RowGroup g,
-                                           bool proceed) {
+                                           bool proceed, const LaneList* list = nullptr) {
   const bool balance = g.sub >= 1 && g.sub <= 4;
   int64_t slot[CLUSTER_IN_FLIGHT];
   uint4 v[CLUSTER_IN_FLIGHT];
 #pragma unroll
   for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     int l = l0 + u * step;
-    slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
-    if (l < 2 * a.B && proceed && balance) {
-      v[u] = __ldcg(reinterpret_cast<const uint4*>(a.new_rows + (size_t)l * ROW_WORDS) + g.sub);
+    if constexpr (kList) {
+      const bool in = l < 2 * list->cnt;
+      slot[u] = in ? __ldcg(a.slot2 + list->row(l, a.B)) : -1;
+      if (in && proceed && balance) {
+        v[u] = __ldcg(reinterpret_cast<const uint4*>(a.new_rows + (size_t)l * ROW_WORDS) + g.sub);
+      }
+    } else {
+      slot[u] = l < 2 * a.B ? __ldcg(a.slot2 + l) : -1;
+      if (l < 2 * a.B && proceed && balance) {
+        v[u] = __ldcg(reinterpret_cast<const uint4*>(a.new_rows + (size_t)l * ROW_WORDS) + g.sub);
+      }
     }
   }
 #pragma unroll
@@ -194,21 +247,30 @@ __device__ __forceinline__ void apply_rows(const A& a, int l0, int step, RowGrou
   }
 }
 
-// One round's select over the cluster's lanes, the round's flag and the
-// cluster barrier after them; true if some lane of the cluster contends.
-template <bool kPastL1, class Active>
+// One round's select over the cluster's lanes (with kList the list's),
+// the round's flag and the cluster barrier after them; true if some lane of
+// the cluster contends.
+template <bool kPastL1, bool kList = false, class Active>
 __device__ __forceinline__ bool cluster_select(cooperative_groups::cluster_group& cluster,
                                                uint32_t* want, uint32_t epoch, int round,
                                                const uint32_t* keys, int key_stride,
                                                const Active& active, int B,
                                                const uint32_t* rows, const uint32_t* claim,
                                                int cap_log2, int64_t* slot,
-                                               const ClaimScratch& sc, const int32_t* shard) {
+                                               const ClaimScratch& sc, const int32_t* shard,
+                                               const LaneList* list = nullptr) {
   const int lane = threadIdx.x & 31;
   bool wants = false;
-  for (int i = (int)cluster.thread_rank(); i < B; i += (int)cluster.num_threads()) {
-    wants |= claim_select_lane<kPastL1>(i, keys, key_stride, active, rows, claim, cap_log2, slot,
-                                        sc, round, shard);
+  if constexpr (kList) {
+    for (int k = list->first; k < list->cnt; k += (int)cluster.num_threads()) {
+      wants |= claim_select_lane<kPastL1>(list->lane(k), keys, key_stride, active, rows, claim,
+                                          cap_log2, slot, sc, round, shard);
+    }
+  } else {
+    for (int i = (int)cluster.thread_rank(); i < B; i += (int)cluster.num_threads()) {
+      wants |= claim_select_lane<kPastL1>(i, keys, key_stride, active, rows, claim, cap_log2,
+                                          slot, sc, round, shard);
+    }
   }
   if (__any_sync(FULL_MASK, wants) && lane == 0) atomicMax(want + round, epoch);
   cluster.sync();
@@ -229,50 +291,71 @@ __device__ __forceinline__ bool cluster_select(cooperative_groups::cluster_group
 // validation, K10's reload in its probes, where the column is all free),
 // raised want[0] to `epoch` and passed the cluster barrier after it.
 // Then every lane settles and releases; returns FAULT_CLAIM if one of this
-// thread's active lanes won no slot.
-template <bool kPastL1, class Active>
+// thread's active lanes won no slot. With kList the rounds run over the
+// lanes of `list` (K12's wave; its caller ran round 0 in validation), each
+// entry handled by one thread (from list->first) in every step.
+template <bool kPastL1, bool kList = false, class Active>
 __device__ __forceinline__ uint32_t cluster_claims(cooperative_groups::cluster_group& cluster,
                                                    uint32_t* want, uint32_t epoch, bool select0,
                                                    const uint32_t* keys, int key_stride,
                                                    const Active& active, int B,
                                                    const uint32_t* rows, uint32_t* claim,
                                                    int cap_log2, int64_t* slot,
-                                                   const ClaimScratch& sc, const int32_t* shard) {
-  const int t = (int)cluster.thread_rank(), stride = (int)cluster.num_threads();
-  bool more;
-  if (select0) {
-    more = cluster_select<kPastL1>(cluster, want, epoch, 0, keys, key_stride, active, B, rows,
-                                   claim, cap_log2, slot, sc, shard);
-    if (more) {
+                                                   const ClaimScratch& sc, const int32_t* shard,
+                                                   const LaneList* list = nullptr) {
+  if constexpr (kList) {
+    const int t = list->first, stride = (int)cluster.num_threads();
+    bool more = __shfl_sync(FULL_MASK, (threadIdx.x & 31) == 0 ? want[0] : 0u, 0) == epoch;
+    for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
+      more = cluster_select<kPastL1, true>(cluster, want, epoch, round, keys, key_stride, active,
+                                           B, rows, claim, cap_log2, slot, sc, shard, list);
+      if (!more) break;
+      for (int k = t; k < list->cnt; k += stride) claim_min_lane(list->lane(k), claim, sc);
+      cluster.sync();
+    }
+    uint32_t bad = 0u;
+    for (int k = t; k < list->cnt; k += stride) {
+      if (claim_finish_lane(list->lane(k), active, claim, slot, sc)) bad = FAULT_CLAIM;
+    }
+    return bad;
+  } else {
+    const int t = (int)cluster.thread_rank(), stride = (int)cluster.num_threads();
+    bool more;
+    if (select0) {
+      more = cluster_select<kPastL1>(cluster, want, epoch, 0, keys, key_stride, active, B, rows,
+                                     claim, cap_log2, slot, sc, shard);
+      if (more) {
+        for (int i = t; i < B; i += stride) claim_min_lane(i, claim, sc);
+        cluster.sync();
+      }
+    } else {  // the flag is read once a warp
+      more = __shfl_sync(FULL_MASK, (threadIdx.x & 31) == 0 ? want[0] : 0u, 0) == epoch;
+    }
+    for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
+      more = cluster_select<kPastL1>(cluster, want, epoch, round, keys, key_stride, active, B,
+                                     rows, claim, cap_log2, slot, sc, shard);
+      if (!more) break;
       for (int i = t; i < B; i += stride) claim_min_lane(i, claim, sc);
       cluster.sync();
     }
-  } else {  // the flag is read once a warp
-    more = __shfl_sync(FULL_MASK, (threadIdx.x & 31) == 0 ? want[0] : 0u, 0) == epoch;
+    uint32_t bad = 0u;
+    for (int i = t; i < B; i += stride) {
+      if (claim_finish_lane(i, active, claim, slot, sc)) bad = FAULT_CLAIM;
+    }
+    return bad;
   }
-  for (int round = 1; round < CLAIM_ROUNDS && more; round++) {
-    more = cluster_select<kPastL1>(cluster, want, epoch, round, keys, key_stride, active, B, rows,
-                                   claim, cap_log2, slot, sc, shard);
-    if (!more) break;
-    for (int i = t; i < B; i += stride) claim_min_lane(i, claim, sc);
-    cluster.sync();
-  }
-  uint32_t bad = 0u;
-  for (int i = t; i < B; i += stride) {
-    if (claim_finish_lane(i, active, claim, slot, sc)) bad = FAULT_CLAIM;
-  }
-  return bad;
 }
 
-// A launch of `kernel(a)` on one cluster of CLUSTER_BLOCKS blocks. The
-// cluster is non-portable (16 blocks), which the caller allows once for its
-// kernel (cudaFuncSetAttribute); if that failed, the launch fails and says
-// so.
+// A launch of `kernel(a)` on one cluster of CLUSTER_BLOCKS blocks of
+// `threads` threads. The cluster is non-portable (16 blocks), which the
+// caller allows once for its kernel (cudaFuncSetAttribute); if that
+// failed, the launch fails and says so.
 template <class A>
-static void launch_cluster(void (*kernel)(A), const A& a, cudaStream_t stream) {
+static void launch_cluster(void (*kernel)(A), const A& a, cudaStream_t stream,
+                           int threads = CLUSTER_THREADS) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(CLUSTER_BLOCKS, 1, 1);
-  cfg.blockDim = dim3(CLUSTER_THREADS, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

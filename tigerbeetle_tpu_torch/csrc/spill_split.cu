@@ -1,21 +1,29 @@
-// K10, the spill cycle's scan: the cycle head and the cold/hot split.
+// K10, the spill cycle's scan: the cycle head and the cold/hot split, with
+// one pass over the table between them.
 //
 // Replaces tigerbeetle_tpu/models/spill.py SpillKernels._ts_occ,
 // _cycle_head and _split_idx (:235-269), called by SpillManager._cycle
 // (:827-849).
 //
-// - tb_spill_head: [live count, fault] of the transfer table, the two words
-//   the cycle reads back before it decides the split. Live = key neither
-//   empty nor tombstone, over the slots before the dump row.
-// - tb_spill_split: the n_cold-th smallest (0-based) of the masked per-slot
-//   timestamps ts_m (words 30-31 as u64; u64 max for dead slots and the
-//   dump row) is the watermark; cold = live and ts_m < watermark, hot = live
-//   and not; each list is the slot indices in ascending order, padded with
-//   the dump slot to (1 << cap_log2) + CHUNK entries. With n_cold >= live
-//   the watermark is u64 max and every live row is cold but those whose
-//   timestamp is u64 max. All compares are unsigned 64-bit, as the JAX
-//   program's uint64. Every step stays on the card: the host passes n_cold
-//   and reads nothing back.
+// - tb_spill_scan, the head: [live count, fault] of the transfer table, the
+//   two words the cycle reads back before it decides the split (live = key
+//   neither empty nor tombstone, over the slots before the dump row), from
+//   the split's table pass (steps 1-2 below), whose live list it leaves in
+//   the scratch for the split.
+// - tb_spill_split_rest, the split after the head's pass (steps 3-4): the
+//   n_cold-th smallest (0-based) of the masked per-slot timestamps ts_m
+//   (words 30-31 as u64; u64 max for dead slots and the dump row) is the
+//   watermark; cold = live and ts_m < watermark, hot = live and not; each
+//   list is the slot indices in ascending order, padded with the dump slot
+//   to (1 << cap_log2) + CHUNK entries. With n_cold >= live the watermark is
+//   u64 max and every live row is cold but those whose timestamp is u64
+//   max. All compares are unsigned 64-bit, as the JAX program's uint64.
+//   Every step stays on the card: the host passes n_cold and reads nothing
+//   back.
+// A cycle makes one table pass, the head's. The head's two words need only
+// the keys, but a pass that reads just the keys of 2^24 slots already runs
+// at the card's 64-byte fetch floor: a cycle gets faster by a pass fewer,
+// not by a faster pass.
 //
 // Bound on an H100: bytes. Each slot's key (words 0-3) decides liveness and
 // a live slot's timestamp (words 30-31) lies in the row's other 64-byte
@@ -34,7 +42,9 @@
 //      ballots and decoupled look-back place the live slots, in slot order,
 //      in a compact list (slot, timestamp); the live count and the
 //      timestamps' min and max go to the select's words by one global
-//      atomic each a block (u64 atomicMin / atomicMax).
+//      atomic each a block (u64 atomicMin / atomicMax); the block of the
+//      last tile writes the head's words, its inclusive prefix the live
+//      count. Steps 1-2 are the head, 3-4 the split.
 //   3. split_select, one cooperative launch (every block resident, so a
 //      grid-wide barrier is safe): the bin [base, base + 2^shift) starts as
 //      [min, max]; each pass histograms the live timestamps in it into
@@ -58,8 +68,9 @@
 // with the main path's state about a fifth. Each look-back state has one
 // status word a tile for one count (the live slots in the scan, the cold
 // entries in the partition: a hot entry's place follows from it), in
-// lookback.cuh's format; split_init zeroes the words every call, so every
-// call uses epoch 1 and no word left by an earlier call can read as ready.
+// lookback.cuh's format; split_init zeroes the words of both at the head,
+// so every call uses epoch 1 and no word left by an earlier call can read
+// as ready; the partition uses its state up, so a head serves one split.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -69,8 +80,6 @@
 namespace cg = cooperative_groups;
 
 #define SPILL_CHUNK 8192
-#define SEL_BLOCKS (132 * 8)  // the head's grid
-#define HEAD_THREADS 256
 #define SPLIT_THREADS 256
 #define SPLIT_WARPS (SPLIT_THREADS / 32)
 #define SPLIT_ITEMS 8                               // table slots a thread a tile
@@ -82,37 +91,6 @@ namespace cg = cooperative_groups;
 #define SEL_BITS 12
 #define SEL_BINS (1 << SEL_BITS)
 #define INIT_THREADS 1024
-
-// ---------------------------------------------------------------- head
-
-__global__ void __launch_bounds__(HEAD_THREADS)
-    spill_head_kernel(const uint32_t* __restrict__ rows, long long slots,
-                      const uint32_t* __restrict__ fault, uint32_t* __restrict__ out) {
-  __shared__ int buf[HEAD_THREADS / 32];
-  int live = 0;
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < slots; i += stride) {
-    Key4 k = key_at(rows + i * ROW_WORDS);
-    live += !(key_empty(k) || key_tomb(k));
-  }
-  live = __reduce_add_sync(0xFFFFFFFFu, live);
-  if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = live;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int s = 0;
-    for (int w = 0; w < HEAD_THREADS / 32; w++) s += buf[w];
-    if (s) atomicAdd(out, (uint32_t)s);
-    if (blockIdx.x == 0) out[1] = *fault;
-  }
-}
-
-// rows: the transfer table ((1 << cap_log2) + 1 rows); fault: the sticky
-// fault word; out: u32 [2], zeroed by the caller.
-extern "C" int tb_spill_head(const uint32_t* rows, int cap_log2, const uint32_t* fault,
-                             uint32_t* out, cudaStream_t stream) {
-  spill_head_kernel<<<SEL_BLOCKS, HEAD_THREADS, 0, stream>>>(rows, 1ll << cap_log2, fault, out);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------- split
 
@@ -128,6 +106,8 @@ struct SplitArgs {
   const uint32_t* rows;
   long long n;     // slots, the dump row included
   long long dump;  // the dump row's index
+  const uint32_t* fault;  // the head's: the sticky fault word (nullable: 0) ...
+  uint32_t* head_out;     // ... and its [live, fault]
   ull n_cold;
   int32_t* cold;
   int32_t* hot;
@@ -258,6 +238,10 @@ __global__ void __launch_bounds__(SPLIT_THREADS) split_scan(SplitArgs a) {
         if (lane == 0) lb_publish(a.scan.status, tile, LB_INC, 1u, excl + agg);
       }
       if (lane == 0) s_excl = excl;
+      if (lane == 0 && tile == a.scan_tiles - 1) {
+        a.head_out[0] = excl + agg;  // the head's words, from the last tile's prefix
+        a.head_out[1] = a.fault != nullptr ? *a.fault : 0u;
+      }
     }
     __syncthreads();
     if (live != 0u) {
@@ -505,31 +489,49 @@ static int fit_grid(K kernel, int threads, int per_sm_max = 1 << 20) {
   return sms * (per_sm > 0 ? per_sm : 1);
 }
 
-// rows: the transfer table ((1 << cap_log2) + 1 rows); n_cold: the rank of
-// the watermark (0 <= n_cold < rows); cold/hot: int32 [(1 << cap_log2) +
-// SPILL_CHUNK] each; scratch: tb_spill_split_scratch(cap_log2) bytes.
-extern "C" int tb_spill_split(const uint32_t* rows, int cap_log2, long long n_cold,
-                              int32_t* cold, int32_t* hot, char* scratch, cudaStream_t stream) {
-  long long dump = 1ll << cap_log2, n = dump + 1;
-  if (n_cold < 0 || n_cold >= n) return (int)cudaErrorInvalidValue;
-  static int scan_fit = 0, part_fit = 0, select_fit = 0;
+static int scan_fit = 0, part_fit = 0, select_fit = 0;
+
+static SplitArgs split_args(char* scratch, int cap_log2) {
   if (scan_fit == 0) {
     scan_fit = fit_grid(split_scan, SPLIT_THREADS);
     part_fit = fit_grid(split_part, SPLIT_THREADS);
     select_fit = fit_grid(split_select, SEL_THREADS, 1);  // one block an SM: fewer atomics
   }
+  long long dump = 1ll << cap_log2, n = dump + 1;
   size_t size;
   SplitArgs a = carve(scratch, n, &size);
-  a.rows = rows;
   a.n = n;
   a.dump = dump;
-  a.n_cold = (ull)n_cold;
-  a.cold = cold;
-  a.hot = hot;
   a.size = dump + SPILL_CHUNK;
+  return a;
+}
+
+// The head, steps 1-2: rows, the transfer table ((1 << cap_log2) + 1 rows);
+// fault: the sticky fault word (null: reads as 0); out: u32 [2], [live,
+// fault]; scratch: tb_spill_split_scratch(cap_log2) bytes, which keep the
+// pass's live list for tb_spill_split_rest.
+extern "C" int tb_spill_scan(const uint32_t* rows, int cap_log2, const uint32_t* fault,
+                             uint32_t* out, char* scratch, cudaStream_t stream) {
+  SplitArgs a = split_args(scratch, cap_log2);
+  a.rows = rows;
+  a.fault = fault;
+  a.head_out = out;
   split_init<<<1, INIT_THREADS, 0, stream>>>(a);
   const int scan_grid = a.scan_tiles < scan_fit ? (int)a.scan_tiles : scan_fit;
   split_scan<<<scan_grid, SPLIT_THREADS, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The split, steps 3-4, after tb_spill_scan on the same scratch (and no
+// write to the table since): n_cold, the rank of the watermark (0 <= n_cold
+// < rows); cold/hot: int32 [(1 << cap_log2) + SPILL_CHUNK] each.
+extern "C" int tb_spill_split_rest(int cap_log2, long long n_cold, int32_t* cold, int32_t* hot,
+                                   char* scratch, cudaStream_t stream) {
+  SplitArgs a = split_args(scratch, cap_log2);
+  if (n_cold < 0 || n_cold >= a.n) return (int)cudaErrorInvalidValue;
+  a.n_cold = (ull)n_cold;
+  a.cold = cold;
+  a.hot = hot;
   void* args[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel((void*)split_select, dim3(select_fit),
                                                 dim3(SEL_THREADS), args, 0, stream);

@@ -1,7 +1,8 @@
 // The fast transfer commit of one batch over one thread-block cluster: the
 // phase body that K3 (commit_transfers.cu: one batch a launch), K5
 // (group_commit.cu: k batch slots in one launch, one after another) and K12
-// (wave_commit.cu: the waves of one batch in one launch, kWaves) run.
+// (wave_commit.cu: the waves of one batch in one launch, kWaves: each wave
+// over its own lane list, cluster.cuh LaneList) run.
 // Phases, with a cluster barrier (`cluster.sync()`) where a kernel
 // boundary stood:
 //   (0) each block zeroes its header in shared memory: fault bits, and in
@@ -107,7 +108,8 @@ struct XferState {
 // batch, run once a wave.
 struct XferBatch {
   const uint32_t* batch;
-  // nullable: the wave mask (K3); K12: each lane's wave, 255 for none
+  // nullable: the wave mask (K3); K12: each lane's wave, 255 for none (read
+  // only where the lists are built)
   const uint8_t* mask;
   int n;
   ull timestamp;
@@ -156,34 +158,12 @@ static XferState xfer_args(uint32_t* acct_rows, int a_log2, uint32_t* xfer_rows,
   return a;
 }
 
-// Phase (a) for a lane that no wave of this pass holds (kWaves): the
-// scratch words that the later phases read, as a failed lane leaves them,
-// with no probe. Its code is written in wave 0 only, which zeroes the codes
-// of the lanes that a later wave, or none, holds.
-__device__ __forceinline__ void idle_lane(const XferState& a, const XferBatch& b, int i,
-                                          int wave) {
-  a.claim_sc.won[i] = 0;
-  a.claim_sc.want[i] = 0;
-  a.ins_slot[i] = (int64_t)1 << a.t_log2;
-  if (wave == 0) b.results[i] = 0;
-  a.ok[i] = 0;
-  a.lane_flags[i] = 0;
-  a.slot2[i] = -1;
-  a.slot2[a.B + i] = -1;
-}
-
 // Phase (a) for lane i, with claim round 0; returns its fault bits, sets
 // *ok, and sets *want0 if the lane contends for a slot. With kWaves (K12)
-// the lane is live only in the wave `b.mask[i]` names; in any other it
-// takes idle_lane.
+// lane i is an entry of the wave's list, so live.
 template <bool kWaves>
 __device__ __forceinline__ uint32_t validate_lane(const XferState& a, const XferBatch& b, int i,
-                                                  int wave, bool* ok_out, bool* want0) {
-  if (kWaves && !(i < b.n && b.mask[i] == (uint8_t)wave)) {
-    idle_lane(a, b, i, wave);
-    *ok_out = false;
-    return 0u;
-  }
+                                                  bool* ok_out, bool* want0) {
   Row row = load_row(b.batch + (size_t)i * ROW_WORDS);
   Xfer e = unpack_transfer(row);
   bool valid = kWaves || (i < b.n && (b.mask == nullptr || b.mask[i]));
@@ -286,14 +266,20 @@ __device__ __forceinline__ uint32_t validate_lane(const XferState& a, const Xfer
 }
 
 // Phase (e), transfers: the stored rows of the events i0, i0 + step, ...
-// that applied.
+// that applied (with kList of the list's entries i0, i0 + step, ...).
+template <bool kList = false>
 __device__ __forceinline__ void insert_rows(const XferState& a, const XferBatch& b, int i0, int step,
-                                            RowGroup g) {
+                                            RowGroup g, const LaneList* list = nullptr) {
   int64_t ok_slot[CLUSTER_IN_FLIGHT], ins[CLUSTER_IN_FLIGHT];
   uint4 v[CLUSTER_IN_FLIGHT];
+  int lanes[CLUSTER_IN_FLIGHT];
 #pragma unroll
   for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     int i = i0 + u * step;
+    if constexpr (kList) {
+      i = i < list->cnt ? list->lane(i) : a.B;
+      lanes[u] = i;
+    }
     ok_slot[u] = i < a.B ? __ldcg(a.slot2 + i) : -1;  // < 0: did not apply
     if (i >= a.B) continue;
     ins[u] = __ldcg(a.ins_slot + i);
@@ -312,6 +298,7 @@ __device__ __forceinline__ void insert_rows(const XferState& a, const XferBatch&
   for (int u = 0; u < CLUSTER_IN_FLIGHT; u++) {
     if (ok_slot[u] < 0) continue;
     int i = i0 + u * step;
+    if constexpr (kList) i = lanes[u];
     reinterpret_cast<uint4*>(a.xfer_rows + (size_t)ins[u] * ROW_WORDS)[g.sub] = v[u];
     if (g.sub == 0) {
       a.fulfill[ins[u]] = 0u;
@@ -323,11 +310,15 @@ __device__ __forceinline__ void insert_rows(const XferState& a, const XferBatch&
 
 // Phases (0)-(e) for batch `b` over state `a`, run by every thread of the
 // cluster; with kPastL1 the claim selects read the table past L1; with
-// kWaves only the lanes of wave `wave` (K12).
+// kWaves (K12) only the lanes of one wave, `list`: each phase strides over
+// the list's entries (its 2 cnt rows in (c) and (e)), spread over the
+// cluster's blocks (spread_rank), and every scratch word, claim, timestamp
+// and stored row stays indexed by the lane.
 template <bool kPastL1, bool kWaves = false>
 __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_group& cluster,
                                                  const XferState& a, const XferBatch& b,
-                                                 XferShared& sh, int wave = 0) {
+                                                 XferShared& sh,
+                                                 const LaneList* list = nullptr) {
   uint32_t* want = cluster.map_shared_rank(sh.hdr.want, 0);
   const int t = (int)cluster.thread_rank();
   const int stride = (int)cluster.num_threads();
@@ -335,6 +326,8 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
   const bool warp_lead = lane == 0;
   const RowGroup g = row_group(lane);
   const int group = t >> 3, n_groups = stride >> 3;
+  // the block's warps: K12 runs WAVE_THREADS a block (cluster.cuh)
+  constexpr int kWarps = (kWaves ? WAVE_THREADS : CLUSTER_THREADS) / 32;
   if (threadIdx.x == 0) {
     sh.hdr.bad = 0u;
     for (int r = 0; r < CLAIM_ROUNDS; r++) sh.hdr.want[r] = 0u;
@@ -346,11 +339,21 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
   unsigned ok_n = 0;
   ull ts_max = 0ull;
   bool wants = false;
-  for (int i = t; i < a.B; i += stride) {
-    bool ok;
-    bad |= validate_lane<kWaves>(a, b, i, wave, &ok, &wants);
-    ok_n += ok;
-    if (ok) ts_max = max(ts_max, event_ts(b.timestamp, b.n, i));
+  if constexpr (kWaves) {
+    for (int k = list->first; k < list->cnt; k += stride) {
+      const int i = list->lane(k);
+      bool ok;
+      bad |= validate_lane<true>(a, b, i, &ok, &wants);
+      ok_n += ok;
+      if (ok) ts_max = max(ts_max, event_ts(b.timestamp, b.n, i));
+    }
+  } else {
+    for (int i = t; i < a.B; i += stride) {
+      bool ok;
+      bad |= validate_lane<false>(a, b, i, &ok, &wants);
+      ok_n += ok;
+      if (ok) ts_max = max(ts_max, event_ts(b.timestamp, b.n, i));
+    }
   }
   bad = __reduce_or_sync(FULL_MASK, bad);
   ok_n = __reduce_add_sync(FULL_MASK, ok_n);
@@ -368,7 +371,7 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
     h.ok_n = 0ull;
     h.ts_max = 0ull;
     h.any_ok = 0u;
-    for (int w = 0; w < CLUSTER_THREADS / 32; w++) {
+    for (int w = 0; w < kWarps; w++) {
       const WarpSums& ws = sh.warp_sums[w];
       h.bad |= ws.bad;
       h.ok_n += ws.ok_n;
@@ -382,12 +385,19 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
   }
 
   // (b) claim rounds 1.., settle and release (cluster.cuh)
-  bad = cluster_claims<kPastL1>(cluster, want, 1u, false, b.batch, ROW_WORDS, a.ok, a.B,
-                                a.xfer_rows, a.xfer_claim, a.t_log2, a.ins_slot, a.claim_sc,
-                                nullptr);
+  bad = cluster_claims<kPastL1, kWaves>(cluster, want, 1u, false, b.batch, ROW_WORDS, a.ok, a.B,
+                                        a.xfer_rows, a.xfer_claim, a.t_log2, a.ins_slot,
+                                        a.claim_sc, nullptr, list);
   // (c) fold: it reads nothing that the settle and release write
-  for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
-    bad |= fold_rows(a, l, n_groups, g, a.pv_mode != 0);
+  if constexpr (kWaves) {
+    for (int l = spread_rank(cluster, lane >> 3, 4); l < 2 * list->cnt;
+         l += CLUSTER_IN_FLIGHT * n_groups) {
+      bad |= fold_rows<XferState, true>(a, l, n_groups, g, a.pv_mode != 0, list);
+    }
+  } else {
+    for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
+      bad |= fold_rows(a, l, n_groups, g, a.pv_mode != 0);
+    }
   }
   bad = __reduce_or_sync(FULL_MASK, bad);
   if (warp_lead && bad) atomicOr(&sh.hdr.bad, bad);
@@ -427,12 +437,24 @@ __device__ __forceinline__ void xfer_commit_slot(cooperative_groups::cluster_gro
 
   // (e) apply; no block reads another's shared memory from here on
   const bool proceed = sh.proceed != 0u;
-  for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
-    apply_rows(a, l, n_groups, g, proceed);
-  }
-  if (proceed) {
-    for (int i = group; i < a.B; i += CLUSTER_IN_FLIGHT * n_groups) {
-      insert_rows(a, b, i, n_groups, g);
+  if constexpr (kWaves) {
+    const int first = spread_rank(cluster, lane >> 3, 4);
+    for (int l = first; l < 2 * list->cnt; l += CLUSTER_IN_FLIGHT * n_groups) {
+      apply_rows<XferState, true>(a, l, n_groups, g, proceed, list);
+    }
+    if (proceed) {
+      for (int k = first; k < list->cnt; k += CLUSTER_IN_FLIGHT * n_groups) {
+        insert_rows<true>(a, b, k, n_groups, g, list);
+      }
+    }
+  } else {
+    for (int l = group; l < 2 * a.B; l += CLUSTER_IN_FLIGHT * n_groups) {
+      apply_rows(a, l, n_groups, g, proceed);
+    }
+    if (proceed) {
+      for (int i = group; i < a.B; i += CLUSTER_IN_FLIGHT * n_groups) {
+        insert_rows(a, b, i, n_groups, g);
+      }
     }
   }
 }

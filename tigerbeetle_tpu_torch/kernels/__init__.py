@@ -6,7 +6,10 @@ allocates the outputs and the scratch buffer with torch, launches on
 PyTorch's current stream without synchronising, raises if the launch
 returned a CUDA error, and counts its launches in `LAUNCHES` (a plain
 integer per kernel, so that a run can show its main path went through the
-kernels).
+kernels). A launcher that writes a table of the one-table ledger in place
+(K2-K5, K9, K10's reload, K12) moves the table's version counter, as a
+torch in-place op would (`_launch`'s `wrote`): a spill scan's handle
+(models/spill.py `SpillScan`) reads it.
 
 Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     lookup                  K1  LedgerKernels._lookup_accounts/_transfers
@@ -22,8 +25,11 @@ Kernels (JAX counterparts in tigerbeetle_tpu/models/ledger.py):
     fold                    K7  fold_reply_codes and the fused folds of
                                 models/dual_ledger.py
     filter_scan             K8  LedgerKernels.filter_scan
-    spill_head              K10 SpillKernels._cycle_head (models/spill.py)
-    spill_split             K10 SpillKernels._split_idx
+    spill_scan              K10 SpillKernels._cycle_head (models/spill.py),
+                                the split's table pass (counted as
+                                `spill_head`)
+    spill_split_rest        K10 SpillKernels._split_idx after that pass
+                                (counted as `spill_split`)
     spill_gather            K10 SpillKernels._gather
     spill_reload            K10 SpillKernels._reload (one chunk, or the
                                 rebuild's chunks in order: spill_reload_chunks)
@@ -101,8 +107,8 @@ _SIGNATURES = {
     "tb_install_rows": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I64, _P, _P],
     "tb_fold": [_P, _I64, _I, _I, ctypes.c_char_p, _P, _P, _I, _P, _P],
     "tb_filter_scan": [_P, _I, _I, _I, _I, _U32, _U32, _U32, _U32, _P, _P, _P, _U32, _P],
-    "tb_spill_head": [_P, _I, _P, _P, _P],
-    "tb_spill_split": [_P, _I, _I64, _P, _P, _P, _P],
+    "tb_spill_scan": [_P, _I, _P, _P, _P, _P],
+    "tb_spill_split_rest": [_I, _I64, _P, _P, _P, _P],
     "tb_spill_gather": [_P, _P, _P, _I64, _P, _P, _P],
     "tb_spill_reload": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "tb_spill_reload_chunks": [_P, _P, _P, _I, _P, _P, _P, _P, _I64, _I, _P, _P, _P],
@@ -124,6 +130,7 @@ _SCRATCH = (
     "tb_commit_accounts_serial_scratch",
     "tb_commit_transfers_fast_scratch",
     "tb_commit_transfers_serial_scratch",
+    "tb_wave_commit_scratch",
     "tb_install_rows_scratch",
     "tb_filter_scan_state_bytes",
     "tb_spill_split_scratch",
@@ -174,12 +181,18 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launch(name: str, counter: str, *args) -> None:
+def _launch(name: str, counter: str, *args, wrote=()) -> None:
+    """Call the C entry point `name` and count a launch of `counter`; the
+    tensors in `wrote`, which the kernel writes in place through their
+    pointers, get their version counters moved as a torch in-place op
+    would move them."""
     lib = library()
     err = getattr(lib, name)(*args)
     if err != 0:
         msg = lib.tb_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+    for t in wrote:
+        torch.autograd.graph.increment_version(t)
     LAUNCHES[counter] += 1
 
 
@@ -288,7 +301,8 @@ def commit_accounts_fast(state, rows_b, n: int, timestamp: int, a_log2: int):
     _launch("tb_commit_accounts_fast", "commit_accounts_fast",
             _ptr(state["acct_rows"]), _ptr(state["acct_claim"]), a_log2,
             *_scalars(state, "commit_ts", "acct_count", "acct_used_slots", "fault"),
-            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream(),
+            wrote=(state["acct_rows"],))
     return results
 
 
@@ -302,7 +316,8 @@ def commit_accounts_serial(state, rows_b, n: int, timestamp: int, a_log2: int):
     _launch("tb_commit_accounts_serial", "commit_accounts_serial",
             _ptr(state["acct_rows"]), a_log2,
             *_scalars(state, "commit_ts", "acct_count", "acct_used_slots", "fault"),
-            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream())
+            _ptr(rows_b), B, n, _u64(timestamp), _ptr(results), _ptr(scratch), _stream(),
+            wrote=(state["acct_rows"],))
     return results
 
 
@@ -339,7 +354,8 @@ def commit_transfers_fast(state, rows_b, mask, n: int, timestamp: int,
             _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
             *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
             _ptr(rows_b), None if mask is None else _ptr(mask), B, n, _u64(timestamp),
-            int(pv_mode), _ptr(results), _ptr(scratch), _stream())
+            int(pv_mode), _ptr(results), _ptr(scratch), _stream(),
+            wrote=(state["acct_rows"], state["xfer_rows"]))
     return results
 
 
@@ -360,7 +376,8 @@ def commit_transfers_serial(state, rows_b, ts_vec, n: int, a_log2: int, t_log2: 
             _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
             _ptr(state["fulfill"]),
             *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
-            _ptr(rows_b), _ptr(ts_vec), B, n, _ptr(results), _ptr(scratch), _stream())
+            _ptr(rows_b), _ptr(ts_vec), B, n, _ptr(results), _ptr(scratch), _stream(),
+            wrote=(state["acct_rows"], state["xfer_rows"]))
     return results
 
 
@@ -391,7 +408,7 @@ def group_commit(state, rows, ns, tss, a_log2: int, t_log2: int):
             _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
             *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
             _ptr(rows), k, n_pad, ns.ctypes.data, tss.ctypes.data, _ptr(flat), _ptr(summary),
-            _ptr(scratch), _stream())
+            _ptr(scratch), _stream(), wrote=(state["acct_rows"], state["xfer_rows"]))
     return flat, summary
 
 
@@ -411,13 +428,14 @@ def wave_commit(state, rows_b, wave_of, waves: int, n: int, timestamp: int,
     if wave_of.shape[0] != B or not 1 <= waves <= WAVE_MAX:
         raise ValueError(f"waves: {waves} over {wave_of.shape[0]} lanes for a batch of {B}")
     results = torch.empty(B, dtype=torch.int32, device=rows_b.device)
-    scratch = _scratch("tb_commit_transfers_fast_scratch", B, rows_b.device)
+    scratch = _scratch("tb_wave_commit_scratch", B, rows_b.device)
     _launch("tb_wave_commit", "wave_commit",
             _ptr(state["acct_rows"]), a_log2, _ptr(state["xfer_rows"]), t_log2,
             _ptr(state["fulfill"]), _ptr(state["xfer_claim"]), _ptr(state["bal_acc"]),
             *_scalars(state, "commit_ts", "xfer_count", "xfer_used_slots", "fault"),
             _ptr(rows_b), _ptr(wave_of), B, n, _u64(timestamp), waves, int(pv_mode),
-            _ptr(results), _ptr(scratch), _stream())
+            _ptr(results), _ptr(scratch), _stream(),
+            wrote=(state["acct_rows"], state["xfer_rows"]))
     return results
 
 
@@ -476,7 +494,7 @@ def _install(state, table: str, rows_b, ful_b, chunk: int, n: int, cap_log2: int
             None if fulfill is None else _ptr(fulfill),
             *_scalars(state, f"{table}_count", f"{table}_used_slots", "fault"),
             _ptr(rows_b), None if ful_b is None else _ptr(ful_b), chunk, n, _ptr(scratch),
-            _stream())
+            _stream(), wrote=(rows,))
 
 
 def install_rows(state, table: str, rows_b, ful_b, n: int, cap_log2: int):
@@ -592,30 +610,37 @@ def filter_scan(rows, cap_log2: int, spec, value_words):
     return out, total
 
 
-def spill_head(rows, fault, cap_log2: int):
-    """K10 cycle head: int32 [2] = [live transfers (the dump row excluded),
-    the fault word]."""
+def spill_scan(rows, fault, cap_log2: int):
+    """K10 cycle head, the split's table pass: (head int32 [2] = [live
+    transfers (the dump row excluded), the fault word (0 where `fault` is
+    None)], the scratch that keeps the pass's live list for
+    `spill_split_rest`). Two device launches, counted as one `spill_head`:
+    one table pass."""
     _check_rows(rows, "rows", cap_log2)
-    _need(fault, torch.int32, 0, "fault")
-    out = torch.zeros(2, dtype=torch.int32, device=rows.device)
-    _launch("tb_spill_head", "spill_head", _ptr(rows), cap_log2, _ptr(fault), _ptr(out),
-            _stream())
-    return out
+    if fault is not None:
+        _need(fault, torch.int32, 0, "fault")
+    out = torch.empty(2, dtype=torch.int32, device=rows.device)
+    scratch = _scratch("tb_spill_split_scratch", cap_log2, rows.device)
+    _launch("tb_spill_scan", "spill_head", _ptr(rows), cap_log2,
+            None if fault is None else _ptr(fault), _ptr(out), _ptr(scratch), _stream())
+    return out, scratch
 
 
-def spill_split(rows, cap_log2: int, n_cold: int):
-    """K10 split: (cold, hot) int32 [(1 << cap_log2) + SPILL_CHUNK] each,
-    the live slots below / at or above the n_cold-th smallest masked
-    timestamp, in slot order, padded with the dump slot."""
-    _check_rows(rows, "rows", cap_log2)
-    if not 0 <= n_cold <= 1 << cap_log2:
-        raise ValueError(f"spill_split: n_cold {n_cold} for {1 << cap_log2} slots")
-    dev = rows.device
+def spill_split_rest(scratch, cap_log2: int, n_cold: int):
+    """K10 split after `spill_scan`'s pass, whose `scratch` it takes (the
+    caller makes sure the table was not written since): (cold, hot) int32
+    [(1 << cap_log2) + SPILL_CHUNK] each, the live slots below / at or
+    above the n_cold-th smallest masked timestamp, in slot order, padded
+    with the dump slot. Two device launches, no table pass."""
+    _need(scratch, torch.uint8, 1, "scratch")
+    if scratch.shape[0] < library().tb_spill_split_scratch(cap_log2) \
+            or not 0 <= n_cold <= 1 << cap_log2:
+        raise ValueError(f"spill_split_rest: {scratch.shape[0]} bytes of scratch, n_cold {n_cold} "
+                         f"for 2^{cap_log2} slots")
     size = (1 << cap_log2) + SPILL_CHUNK
-    cold = torch.empty(size, dtype=torch.int32, device=dev)
-    hot = torch.empty(size, dtype=torch.int32, device=dev)
-    scratch = _scratch("tb_spill_split_scratch", cap_log2, dev)
-    _launch("tb_spill_split", "spill_split", _ptr(rows), cap_log2, n_cold, _ptr(cold), _ptr(hot),
+    cold = torch.empty(size, dtype=torch.int32, device=scratch.device)
+    hot = torch.empty(size, dtype=torch.int32, device=scratch.device)
+    _launch("tb_spill_split_rest", "spill_split", cap_log2, n_cold, _ptr(cold), _ptr(hot),
             _ptr(scratch), _stream())
     return cold, hot
 
@@ -671,7 +696,7 @@ def spill_reload(tbl, rows_b, ful_b, active, cap_log2: int):
     scratch = _scratch("tb_spill_reload_scratch", B, rows_b.device)
     _launch("tb_spill_reload", "spill_reload", _ptr(tbl["xfer_rows"]), _ptr(tbl["fulfill"]),
             _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b),
-            _ptr(active), B, _ptr(probe), _ptr(scratch), _stream())
+            _ptr(active), B, _ptr(probe), _ptr(scratch), _stream(), wrote=(tbl["xfer_rows"],))
     return probe
 
 
@@ -692,7 +717,7 @@ def spill_reload_chunks(tbl, rows_b, ful_b, n: int, cap_log2: int, chunk: int = 
     scratch = _scratch("tb_spill_reload_scratch", chunk, rows_b.device)
     _launch("tb_spill_reload_chunks", "spill_reload", _ptr(tbl["xfer_rows"]), _ptr(tbl["fulfill"]),
             _ptr(tbl["xfer_claim"]), cap_log2, used, fault, _ptr(rows_b), _ptr(ful_b), n, chunk,
-            _ptr(probe), _ptr(scratch), _stream())
+            _ptr(probe), _ptr(scratch), _stream(), wrote=(tbl["xfer_rows"],))
     return probe
 
 

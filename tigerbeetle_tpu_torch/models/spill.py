@@ -32,7 +32,10 @@ touches host data only: it never makes a CUDA call.
 The device side is K10 (`SpillKernels`): the cycle head (live count and
 fault), the cold/hot split (a select of the timestamp watermark and a
 stable partition of the live slots into two lists), the row gather, and
-the reload (probe, claim, all-or-nothing gate, scatter). Each has a plain
+the reload (probe, claim, all-or-nothing gate, scatter). The head is the
+split's one table pass (`spill_scan`): it returns a handle (`SpillScan`)
+that the split takes, so a cycle reads the table once; a handle whose
+table was written after its pass is refused. Each has a plain
 PyTorch version here (`spill_*_plain`), which the wrappers run for CPU
 tensors; for CUDA tensors they launch the kernels of `csrc/spill_split.cu`
 and `csrc/spill_reload.cu`. The rebuild's slot placement depends on the
@@ -234,12 +237,51 @@ def spill_head_plain(rows, fault):
     return torch.stack([occ.sum().to(I32), fault.reshape(())])
 
 
-def spill_head(rows, fault, cap_log2: int):
+class SpillScan:
+    """K10's head, the split's table pass over `rows` (a transfer table of
+    2^cap_log2 slots and its dump row): `head` (int32 [2], [live, fault]),
+    and on a card the scratch that keeps the pass's live list for the
+    split. It says which table it was taken of (the tensor and its version
+    counter, which torch's in-place ops and the kernel wrappers that write a
+    table move) and refuses a split once that table was written. It serves
+    one split: the split's select and partition use up the scratch."""
+
+    def __init__(self, rows, fault, cap_log2: int):
+        self.rows, self.cap_log2 = rows, cap_log2
+        self.version = rows._version
+        self.spent = False
+        if _check_device(rows):
+            self.head, self._scratch = _k.spill_scan(rows, fault, cap_log2)
+        else:
+            self.head = spill_head_plain(
+                rows, torch.zeros((), dtype=I32) if fault is None else fault)
+            self._scratch = None
+
+    def split(self, rows, n_cold: int):
+        """The split of `rows` at rank n_cold over this pass: (cold, hot) as
+        `spill_split_plain` gives them; raises if `rows` is not the table
+        scanned, was written after the pass, or the pass served a split."""
+        if rows is not self.rows or rows._version != self.version:
+            raise RuntimeError(
+                "spill split: the table was written after its scan (version "
+                f"{self.version} at the scan, {rows._version} now), or is another table")
+        if self.spent:
+            raise RuntimeError("spill split: this scan served a split already")
+        self.spent = True
+        if self._scratch is None:
+            return spill_split_plain(rows, n_cold)
+        return _k.spill_split_rest(self._scratch, self.cap_log2, n_cold)
+
+
+def spill_scan(rows, fault, cap_log2: int) -> SpillScan:
     """K10 cycle head wrapper: the plain version for CPU tensors, the CUDA
-    kernel else."""
-    if _check_device(rows):
-        return _k.spill_head(rows, fault, cap_log2)
-    return spill_head_plain(rows, fault)
+    kernel (the split's table pass) else; `fault` None reads as 0."""
+    return SpillScan(rows, fault, cap_log2)
+
+
+def spill_head(rows, fault, cap_log2: int):
+    """The head's words alone, int32 [2] = [live, fault]: `spill_scan`'s."""
+    return spill_scan(rows, fault, cap_log2).head
 
 
 def spill_split_plain(rows, n_cold: int):
@@ -264,11 +306,9 @@ def spill_split_plain(rows, n_cold: int):
 
 
 def spill_split(rows, cap_log2: int, n_cold: int):
-    """K10 split wrapper: the plain version for CPU tensors, the CUDA kernel
-    else."""
-    if _check_device(rows):
-        return _k.spill_split(rows, cap_log2, n_cold)
-    return spill_split_plain(rows, n_cold)
+    """K10 split where no head ran: `spill_scan`, then its split (the plain
+    version for CPU tensors, the CUDA kernels else)."""
+    return spill_scan(rows, None, cap_log2).split(rows, n_cold)
 
 
 def spill_gather_plain(rows, fulfill, idx):
@@ -365,11 +405,11 @@ class SpillKernels:
         self.t_log2 = process.transfer_slots_log2
         self.t_dump = 1 << self.t_log2
 
-    def cycle_head(self, state):
-        return spill_head(state["xfer_rows"], state["fault"], self.t_log2)
+    def cycle_head(self, state) -> SpillScan:
+        return spill_scan(state["xfer_rows"], state["fault"], self.t_log2)
 
-    def split_idx(self, rows, n_cold: int):
-        return spill_split(rows, self.t_log2, n_cold)
+    def split_idx(self, scan: SpillScan, rows, n_cold: int):
+        return scan.split(rows, n_cold)
 
     def gather(self, rows, fulfill, idx, out=None):
         return spill_gather(rows, fulfill, idx, out)
@@ -893,7 +933,8 @@ class SpillManager:
         A host-paced maintenance op (the analog of the reference's paced
         compaction beats trading throughput for bounded memory). The scan
         and cold/hot split run ON DEVICE (SpillKernels.cycle_head /
-        split_idx): the host fetches two words, not the whole table."""
+        split_idx, one table pass between them): the host fetches two
+        words, not the whole table."""
         with self.tracer.span("spill.cycle", need=need):
             self._cycle(need)
 
@@ -931,7 +972,8 @@ class SpillManager:
         dev = led.device
         on_card = dev.type == "cuda"
         t0 = time.perf_counter()
-        head = self.kernels.cycle_head(st).cpu().numpy().view(np.uint32)
+        scan = self.kernels.cycle_head(st)
+        head = scan.head.cpu().numpy().view(np.uint32)
         live, fault = int(head[0]), int(head[1])
         if fault:
             raise_on_fault(fault, "spill cycle")
@@ -944,7 +986,7 @@ class SpillManager:
         n_cold = live - keep
         if n_cold <= 0:
             return  # nothing live to spill
-        cold_idx, hot_idx = self.kernels.split_idx(st["xfer_rows"], n_cold)
+        cold_idx, hot_idx = self.kernels.split_idx(scan, st["xfer_rows"], n_cold)
         n_hot = live - n_cold
         self.stats.add("t_scan", time.perf_counter() - t0)
         t0 = time.perf_counter()

@@ -21,7 +21,23 @@ change a code, a table row or the fault word:
 - `empty_wave`: wave 1 holds no live lane (padding lanes of no wave too);
 - `post_void_race`: a pending made in wave 0, posted in wave 1 and voided
   in wave 2 (`pending_transfer_already_posted`; with W = 2 the void lies in
-  no wave) (fast_pv).
+  no wave) (fast_pv);
+- `claim_contend`: four lanes of wave 1, far apart in the batch (in
+  different blocks of the cluster at 8192 lanes), whose ids share a home
+  slot that no other lane's id has: the lowest lane wins it, the others
+  take their next probes;
+- `one_lane_waves`: W waves of one lane each, the rest in no wave: wave 0
+  credits the limit account, each later wave debits it (`exceeds_credits`
+  once its credits run out);
+- `interleaved`: lane i in wave i mod W, every fifth lane in no wave;
+  pendings posted or voided in the next wave from a lower lane (fast_pv);
+- `lopsided`: wave 0 holds every lane but one, and the last wave the one: a
+  lower lane that posts a pending of wave 0 (fast_pv).
+
+K12 builds each wave's lane list on the card and runs each wave over its
+own list, so the last four aim at the lists: lanes of one wave far apart,
+waves of one lane, waves that alternate lane by lane, and waves of very
+different sizes.
 
 Every other lane carries random traffic between accounts 3-48 (some of it
 failing) in a random wave, its count of valid events kept within the
@@ -46,7 +62,9 @@ kernel against its plain version on them.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from tigerbeetle_tpu_torch.ops import hashtable as ht
 from tigerbeetle_tpu_torch.testing.group_cases import (
     CODE,
     HOT,
@@ -61,7 +79,8 @@ from tigerbeetle_tpu_torch.testing.group_cases import (
 )
 
 CASES = ("pend_post_void", "limit_chain", "capacity", "sticky_before", "empty_wave",
-         "post_void_race")
+         "post_void_race", "claim_contend", "one_lane_waves", "interleaved", "lopsided")
+CONTENDERS = 4  # claim_contend's lanes: within CLAIM_ROUNDS, so every one wins a slot
 F_PENDING, F_POST, F_VOID = 2, 4, 8
 FAULT_SERIAL, FAULT_CAPACITY = 8, 16
 
@@ -71,6 +90,33 @@ __all__ = ["CASES", "wave_case", "wave_bytes", "wave_codes_ok", "base_state"]
 def wave_bytes(wave_of: np.ndarray) -> np.ndarray:
     """Each lane's wave as the wrappers take it: uint8, 255 for no wave."""
     return np.asarray(wave_of).astype(np.uint8)
+
+
+def _homes(ids, t_log2: int) -> np.ndarray:
+    """The home slot (first probe) of each transfer id (< 2^64) at 2^t_log2
+    slots."""
+    key4 = np.zeros((len(ids), 4), dtype=np.uint32)
+    key4[:, 0] = np.asarray(ids, dtype=np.uint64) & np.uint64(0xFFFFFFFF)
+    key4[:, 1] = np.asarray(ids, dtype=np.uint64) >> np.uint64(32)
+    return ht.hash_key4(torch.from_numpy(key4.view(np.int32)), t_log2).numpy()
+
+
+def _sharing_home(rng, ids, taken: np.ndarray, t_log2: int) -> np.ndarray:
+    """CONTENDERS of `ids` whose home slot is one and the same, a slot that
+    no home in `taken` is."""
+    homes = _homes(ids, t_log2)
+    counts = np.bincount(homes, minlength=1 << t_log2)
+    counts[taken] = 0
+    home = rng.choice(np.nonzero(counts >= CONTENDERS)[0])
+    return np.asarray(ids)[np.nonzero(homes == home)[0][:CONTENDERS]]
+
+
+def _post_or_void(pend_id, post_id, amount, flags):
+    t = _transfers(post_id, [0], [0], [amount // 2 if flags == F_POST else 0])
+    t["ledger"] = t["code"] = 0
+    t["flags"] = flags
+    t["pending_id_lo"] = pend_id
+    return t
 
 
 def wave_case(name: str, W: int, n_pad: int, t_log2: int, rng) -> dict:
@@ -94,12 +140,19 @@ def wave_case(name: str, W: int, n_pad: int, t_log2: int, rng) -> dict:
     wave_of = np.full(n_pad, -1, dtype=np.int32)
     waves = np.arange(W) if name != "empty_wave" else np.delete(np.arange(W), 1)
     wave_of[:n] = rng.choice(waves, n)
+    lane_no = np.arange(n)
+    if name == "one_lane_waves":
+        wave_of[:n] = -1
+    elif name == "interleaved":
+        wave_of[:n] = np.where(lane_no % 5 == 4, -1, lane_no % W)
+    elif name == "lopsided":
+        wave_of[:n] = 0
     base = _hot_base(n_pad)
     hot = base + rng.permutation(min(HOT, n))  # the case's lanes, in random order
     expect = []
     xfer_used = fault = None
     fault_after = 0
-    pv = name in ("pend_post_void", "post_void_race")
+    pv = name in ("pend_post_void", "post_void_race", "interleaved", "lopsided")
 
     def put(lane, t, wave):
         batch[lane] = t[0]
@@ -140,6 +193,46 @@ def wave_case(name: str, W: int, n_pad: int, t_log2: int, rng) -> dict:
     elif name == "sticky_before":
         fault = FAULT_SERIAL
         fault_after = fault
+    elif name == "claim_contend":
+        # a range of fresh ids, from which CONTENDERS share a home slot
+        lanes = (np.arange(CONTENDERS) * 2 + 1) * n // (2 * CONTENDERS)
+        ids = _sharing_home(rng, fresh(16 << t_log2), _homes(batch["id_lo"], t_log2), t_log2)
+        for lane, i in zip(lanes, rng.permutation(ids)):
+            put(lane, _transfers([i], [3 + lane % 40], [4 + lane % 40],
+                                 [int(rng.integers(1, 1000))]), 1)
+            expect.append((int(lane), 0))
+    elif name == "one_lane_waves":
+        ok_debits = (W - 1) // 2
+        put(hot[0], _transfers(fresh(1), [3], [LIMIT_ACCOUNT], [10 * ok_debits + 5]), 0)
+        expect.append((int(hot[0]), 0))
+        for w in range(1, W):
+            put(hot[w], _transfers(fresh(1), [LIMIT_ACCOUNT], [4], [10]), w)
+            expect.append((int(hot[w]), int(CODE.ok if w <= ok_debits
+                                            else CODE.exceeds_credits)))
+    elif name == "interleaved":
+        # a pending in wave w, resolved in wave w + 1 from a lower lane
+        used = set()
+        region = np.arange(base, base + min(HOT, n))
+        for w in range(W - 1):
+            pends = [x for x in region if wave_of[x] == w and x not in used]
+            posts = [x for x in region if wave_of[x] == w + 1 and x not in used]
+            if not pends or not posts or min(posts) >= max(pends):
+                continue
+            p, q = max(pends), min(posts)
+            used.update((p, q))
+            pend, amount = fresh(1), int(rng.integers(10, 1000))
+            put(p, _transfers(pend, [3 + w % 40], [4 + w % 40], [amount]), w)
+            batch["flags"][p] = F_PENDING
+            put(q, _post_or_void(pend, fresh(1), amount, F_POST if w % 2 else F_VOID), w + 1)
+            expect += [(int(p), 0), (int(q), 0)]
+    elif name == "lopsided":
+        lone = int(hot.min())  # the last wave's lane, below the pending's
+        pend_lane = int(hot.max())
+        pend, amount = fresh(1), int(rng.integers(10, 1000))
+        put(pend_lane, _transfers(pend, [3], [4], [amount]), 0)
+        batch["flags"][pend_lane] = F_PENDING
+        put(lone, _post_or_void(pend, fresh(1), amount, F_POST), W - 1)
+        expect += [(pend_lane, 0), (lone, 0)]
     elif name == "post_void_race":
         pend = fresh(1)
         put(hot[0], _transfers(pend, [3], [4], [100]), 0)
